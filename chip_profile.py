@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's main path, on one card.
+
+    python3 chip_profile.py [--prompt_len 509] [--new_tokens 32] [--seed 0]
+
+Builds the model chip_smoke.py serves (llama_8b widths, bf16, all 32
+layers, the flash-attention and RMSNorm kernels on, random weights from
+``--seed``) and runs the generation loop the server runs
+(``decode.make_generate_fn``), without HTTP:
+
+- host clock around whole generations that end in
+  ``torch.cuda.synchronize()``: prefill alone (``max_new_tokens=1``) and
+  the full request, median of 3 each after a warm-up;
+- ``torch.profiler`` over one prefill and one full request: device time
+  by kernel, the device-busy share of the traced wall time, and kernel
+  launches per decode step.
+
+Prints JSON lines; everything also goes to
+``chip_reports/chip_profile.json``.
+Exits non-zero without a CUDA device or when the profiler sees no device
+work.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--prompt_len", type=int, default=509)
+    p.add_argument("--new_tokens", type=int, default=32)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from k8s_tpu_torch.models import bridge, decode
+    from k8s_tpu_torch.models import transformer as tlib
+    from k8s_tpu_torch.ops import _build
+
+    os.environ.setdefault(
+        "TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    model = tlib.Transformer(cfg, bridge.init_params(cfg, args.seed),
+                             device="cuda")
+    prompt = torch.randint(
+        0, cfg.vocab_size, (1, args.prompt_len),
+        generator=torch.Generator().manual_seed(args.seed + 1)).cuda()
+    prefill = decode.make_generate_fn(cfg, 1)
+    full = decode.make_generate_fn(cfg, args.new_tokens)
+
+    def run(fn):
+        t0 = time.perf_counter()
+        fn(model, prompt)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(full)  # warm-up: kernel builds, cuBLAS handles, allocator
+    wall = {"prefill_s": median([run(prefill) for _ in range(3)]),
+            "request_s": median([run(full) for _ in range(3)])}
+    steps = args.new_tokens - 1
+    wall["decode_step_s"] = (wall["request_s"] - wall["prefill_s"]) / steps
+    report = {"card": torch.cuda.get_device_name(0), "args": vars(args),
+              "wall": wall}
+    emit({"phase": "wall", **wall})
+
+    for name, fn in (("prefill", prefill), ("request", full)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(model, prompt)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            print("FAIL: the profiler saw no device work", file=sys.stderr)
+            return 1
+        by_name: dict[str, list] = {}
+        for e in kernels:
+            rec = by_name.setdefault(e.name[:100], [0, 0.0])
+            rec[0] += 1
+            rec[1] += e.time_range.elapsed_us() / 1e3
+        busy_ms = sum(ms for _, ms in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+        rec = {"phase": f"profile_{name}", "traced_s": traced_s,
+               "device_busy_ms": busy_ms,
+               "device_busy_share": busy_ms / 1e3 / traced_s,
+               "device_ops": len(kernels),
+               "top": [{"name": n, "count": c, "ms": ms}
+                       for n, (c, ms) in top]}
+        if name == "request":
+            rec["device_ops_per_decode_step"] = (
+                len(kernels) - report["profile_prefill"]["device_ops"]) \
+                / steps
+        report[f"profile_{name}"] = rec
+        emit(rec)
+
+    os.makedirs(os.path.join(REPO, "chip_reports"), exist_ok=True)
+    with open(os.path.join(REPO, "chip_reports", "chip_profile.json"),
+              "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
