@@ -9,31 +9,46 @@ Phases, each fatal on failure:
 2. build: every CUDA kernel source, compiled in parallel (one nvcc each),
    and the Triton kernel's first compile.
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serving path's shapes, with stated tolerances; kernel,
-   plain and library-call device times and back-to-back wall times (CUDA
-   events) beside the bound.
+   the card at the serving and training paths' shapes, with stated
+   tolerances; kernel, plain and library-call device times and
+   back-to-back wall times (CUDA events) beside the bound.
 4. parity: the tiny test model (f32, both kernels on) generates the same
    greedy tokens on cuda (kernels) and cpu (plain versions), and its
-   logits agree.
+   logits agree; then it trains 5 Adam steps on each from the same
+   parameters and batches, and the losses and parameters agree.
 5. serve: a Llama-3-8B-width LM (llama_8b, bf16, random weights from a
    seed) behind the single-flight HTTP server answers POST /v1/generate
    requests; the kernels' launch counters, zeroed just before, must show
-   the path went through both kernels.  Then its prefill logits are held
-   against the same weights run through the plain attention and norm.
+   the path went through the forward kernels and no other.  Then its
+   prefill logits are held against the same weights run through the plain
+   attention and norm.
+6. train: ``k8s_tpu_torch.train_lm.main`` trains the gpt2-small preset at
+   full width and depth (bf16, flash on, synthetic corpus) with
+   checkpoints, exports a serving artifact and generates; the counters,
+   zeroed just before, must equal exactly 12 launches per step of the
+   flash forward and of each backward kernel (plus the generation's
+   prefill); the artifact must load in the server and answer.  Then one
+   gpt2-small step's gradients with the kernels are held against the same
+   weights and batch through the plain attention, and a 2-layer cut of the
+   Llama-3-8B widths trains 3 steps through GQA, head_dim 128 and the
+   RMSNorm kernel with exact launch counts.
 
 Prints the card line first, one JSON object per phase and case, then a
-``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or away from the repository checkout, it exits non-zero and prints no
-result.  Details go to ``chip_reports/chip_smoke.json``.
+``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or away from the repository checkout, it exits
+non-zero and prints no result.  Details go to
+``chip_reports/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.error
 import urllib.request
@@ -174,6 +189,13 @@ def rms_cases(torch, F, fused_norm):
     return out
 
 
+def visible_pairs(L: int, Lk: int, causal: bool, window) -> int:
+    """(q, k) pairs the mask keeps, per (batch, head)."""
+    if causal:
+        return sum(min(i + 1, window or L) for i in range(L))
+    return L * Lk
+
+
 def flash_cases(torch, F, flash):
     """Flash forward: q [B, H, L, D], k/v [B, Hkv, Lk, D].  Tolerance: f32
     2e-5 (summation order only, the reference's own test tolerance); bf16
@@ -182,7 +204,8 @@ def flash_cases(torch, F, flash):
     in [2, 4)) and lse 1e-3 (f32 log-sum-exp over up to 2048 terms,
     summed in another order)."""
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [("main_prefill", 1, 32, 8, 509, 509, 128, bf, True, None),
+    cases = [("gpt2_train", 8, 12, 12, 1024, 1024, 64, bf, True, None),
+             ("main_prefill", 1, 32, 8, 509, 509, 128, bf, True, None),
              ("main_17", 1, 32, 8, 17, 17, 128, bf, True, None),
              ("main_64", 1, 32, 8, 64, 64, 128, bf, True, None),
              ("main_128", 1, 32, 8, 128, 128, 128, bf, True, None),
@@ -208,10 +231,7 @@ def flash_cases(torch, F, flash):
         if not (err_o <= tol_o and err_l <= tol_l) or o.dtype != dt:
             fail(f"flash {name}: o err {err_o} (tol {tol_o}), lse err "
                  f"{err_l} (tol {tol_l})")
-        if causal:
-            pairs = sum(min(i + 1, window or L) for i in range(L))
-        else:
-            pairs = L * Lk
+        pairs = visible_pairs(L, Lk, causal, window)
         esz = q.element_size()
         nbytes = esz * (2 * B * H * L * D + 2 * B * Hkv * Lk * D) \
             + 4 * B * H * L
@@ -243,6 +263,108 @@ def flash_cases(torch, F, flash):
         emit(rec)
         REPORT["cases"].append(rec)
         out[name] = rec
+    return out
+
+
+def flash_bwd_cases(torch, F, flash):
+    """Flash backward: K3 (dq) and K4 (dk/dv) against flash_bwd_plain on
+    the same q, k, v, do and the forward kernel's o and lse.  Tolerance,
+    as a share of the largest |gradient| of each tensor: f32 1e-4
+    (summation order only); 16-bit 2e-2: the kernels round p and ds to the
+    input type before their products (relative 2^-9 each, over sums of up
+    to 2048 x 4 terms) and round each gradient to it once more on the way
+    out, while the plain version keeps all of it in f32."""
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    cases = [("gpt2_train", 8, 12, 12, 1024, 1024, 64, bf, True, None),
+             ("llama_509", 1, 32, 8, 509, 509, 128, bf, True, None),
+             ("llama_2048", 1, 32, 8, 2048, 2048, 128, bf, True, None),
+             ("window_2048", 1, 32, 8, 2048, 2048, 128, bf, True, 256),
+             ("f16_d32_ragged", 2, 8, 2, 301, 301, 32, f16, True, None),
+             ("bf16_cross", 2, 4, 4, 100, 257, 64, bf, False, None),
+             ("f32_d16_causal", 2, 4, 2, 130, 130, 16, f32, True, None),
+             ("f32_d16_window", 1, 4, 4, 77, 77, 16, f32, True, 4),
+             ("f32_d16_cross", 2, 4, 2, 13, 37, 16, f32, False, None)]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, B, H, Hkv, L, Lk, D, dt, causal, window in cases:
+        q = torch.randn(B, H, L, D, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, Hkv, Lk, D, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, Hkv, Lk, D, generator=g, device="cuda").to(dt)
+        do = torch.randn(B, H, L, D, generator=g, device="cuda").to(dt)
+        scale = D ** -0.5
+        args = (scale, causal, window)
+        o, lse = flash.flash_fwd(q, k, v, *args)
+        got = flash.flash_bwd(q, k, v, o, lse, do, *args)
+        torch.cuda.synchronize()
+        ref = flash.flash_bwd_plain(q, k, v, o, lse, do, *args)
+        tol = 1e-4 if dt == f32 else 2e-2
+        errs = {}
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            if a.dtype != dt or a.shape != r.shape:
+                fail(f"flash_bwd {name} {gname}: {a.dtype}{tuple(a.shape)} "
+                     f"vs {r.dtype}{tuple(r.shape)}")
+            err = (a.float() - r.float()).abs().max().item()
+            top = r.float().abs().max().item()
+            if not err <= tol * top:
+                fail(f"flash_bwd {name} {gname}: max abs err {err} beyond "
+                     f"{tol} x max |grad| {top}")
+            errs[gname] = {"max_abs_err": err, "max_abs": top}
+
+        # each kernel alone, on the operands flash_bwd hands it
+        do_k, lse_k, delta = flash._bwd_operands(q, o, lse, do)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        t_dq = time_ms(torch, lambda: flash._launch_bwd(
+            "bwd_dq", q, k, v, do_k, lse_k, delta, (dq,), *args))
+        t_dkv = time_ms(torch, lambda: flash._launch_bwd(
+            "bwd_dkv", q, k, v, do_k, lse_k, delta, (dk, dv), *args))
+        t_plain = time_ms(torch, lambda: flash.flash_bwd_plain(
+            q, k, v, o, lse, do, *args), iters=3)
+        # the library's backward alone: SDPA forward + backward minus SDPA
+        # forward, timed the same way
+        mask = None
+        if window is not None:
+            qp = torch.arange(L, device="cuda")[:, None]
+            kp = torch.arange(Lk, device="cuda")[None, :]
+            mask = (kp <= qp) & (qp - kp < window)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=Hkv != H)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+
+        lib_f, lib_fb = time_ms(torch, sdpa), time_ms(torch, sdpa_fwd_bwd)
+        library_ms = lib_fb["ms"] - lib_f["ms"]
+        pairs = visible_pairs(L, Lk, causal, window)
+        esz = q.element_size()
+        q_bytes, kv_bytes = esz * B * H * L * D, esz * B * Hkv * Lk * D
+        row_bytes = 2 * 4 * B * H * L  # lse and delta
+        peak = PEAK_16BIT if esz == 2 else PEAK_F32
+        for kname, flops_per, nbytes, t in (
+                ("flash_bwd_dq", 6, 3 * q_bytes + 2 * kv_bytes + row_bytes,
+                 t_dq),
+                ("flash_bwd_dkv", 8, 2 * q_bytes + 4 * kv_bytes + row_bytes,
+                 t_dkv)):
+            b_ms, b_by = bound(flops_per * B * H * D * pairs, nbytes, peak)
+            rec = {"phase": "kernel", "kernel": kname, "case": name,
+                   "B": B, "H": H, "Hkv": Hkv, "L": L, "Lk": Lk, "D": D,
+                   "dtype": str(dt), "causal": causal, "window": window,
+                   "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                   "errors": errs, "tol_share_of_max": tol,
+                   "ms": t["ms"], "wall_ms": t["wall_ms"],
+                   "plain_ms": t_plain["ms"],
+                   "plain_wall_ms": t_plain["wall_ms"],
+                   "plain_is": "flash_bwd_plain (dq, dk and dv together)",
+                   "library_ms": library_ms,
+                   "library_is": "SDPA forward+backward minus SDPA forward",
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "visible_pairs": pairs}
+            emit(rec)
+            REPORT["cases"].append(rec)
+            out[(kname, name)] = rec
     return out
 
 
@@ -344,7 +466,7 @@ def serve_main_path(torch, tlib, bridge, server, common):
             results[name] = {"prompt_len": n, "new_tokens": new,
                              "seconds": secs, "tokens": toks}
         torch.cuda.synchronize()
-        launches = dict(common.LAUNCHES)
+        launches = common.launches()
         code, _, _ = http(url + "/healthz")
     finally:
         httpd.shutdown()
@@ -354,7 +476,8 @@ def serve_main_path(torch, tlib, bridge, server, common):
         fail("the repeated sampled request (seed 7) gave different tokens")
     calls = sum(new for _, _, new, _ in plan)  # 1 prefill + new-1 decodes
     want = {"flash_fwd": cfg.layers * len(plan),
-            "rms_norm": (2 * cfg.layers + 1) * calls}
+            "rms_norm": (2 * cfg.layers + 1) * calls,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     if launches != want:
         fail(f"main-path launches {launches}, expected {want}")
     # TTFT: a max_new_tokens=1 request (prefill + head + first sample,
@@ -407,6 +530,245 @@ def check_against_plain(torch, tlib, lm, prompts):
     REPORT["serve_vs_plain"] = rec
 
 
+def train_parity(torch, tlib, bridge, train_lib, common):
+    """The tiny model (f32, both kernels on) trains 5 Adam steps on cuda
+    (kernels, forward and backward) and on cpu (plain versions) from the
+    same parameters and batches.  Losses agree within 1e-4 (the logits'
+    tolerance above); parameters within 1e-4 = a tenth of one step at lr
+    1e-3, since Adam's update g / (|g| + eps) turns a last-bit gradient
+    difference on a near-zero gradient into a visible step difference.
+    Then remat on the card: the backward recomputes each block, launching
+    the flash forward twice per layer, and gives the same gradients
+    (1e-6: the recomputation repeats the same kernels on the same
+    inputs)."""
+    cfg = dataclasses.replace(tlib.tiny_test(), use_flash_attention=True,
+                              use_fused_norm=True)
+    params = bridge.init_params(cfg, seed=8, device="cpu",
+                                dtype=torch.float32)
+    gen = torch.Generator().manual_seed(9)
+    batches = [torch.randint(0, cfg.vocab_size, (4, 96), generator=gen)
+               for _ in range(5)]
+    losses, finals = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = tlib.Transformer(cfg, params, device=dev, trainable=True)
+        opt = train_lib.default_optimizer(1e-3, clip_norm=1.0)
+        state = train_lib.init_state(model, opt)
+        step = train_lib.make_train_step(lambda m, x: m(x), train_lib.lm_loss,
+                                         opt)
+        out = []
+        for b in batches:
+            b = b.to(dev)
+            state, loss = step(state, (b, b))
+            out.append(loss)
+        losses[dev] = torch.stack(out).tolist()
+        finals[dev] = {n: p.detach().cpu()
+                       for n, p in model.named_parameters()}
+    loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    param_err = max((finals["cuda"][n] - finals["cpu"][n]).abs().max().item()
+                    for n in finals["cpu"])
+    if not (loss_err <= 1e-4 and param_err <= 1e-4):
+        fail(f"tiny training cuda vs cpu: loss err {loss_err}, param err "
+             f"{param_err} (tol 1e-4 each)")
+
+    grads, fwd = {}, {}
+    b = batches[0].cuda()
+    for remat in (False, True):
+        model = tlib.Transformer(dataclasses.replace(cfg, remat=remat),
+                                 params, device="cuda", trainable=True)
+        common.reset_launches()
+        train_lib.lm_loss(model(b), b).backward()
+        torch.cuda.synchronize()
+        fwd[remat] = common.launches()["flash_fwd"]
+        grads[remat] = [p.grad for p in model.parameters()]
+    remat_err = max((x - y).abs().max().item()
+                    for x, y in zip(grads[False], grads[True]))
+    if fwd != {False: cfg.layers, True: 2 * cfg.layers} or remat_err > 1e-6:
+        fail(f"tiny remat on the card: flash_fwd launches {fwd}, grads "
+             f"differ by {remat_err}")
+    rec = {"phase": "train_parity", "config": "tiny_test f32 flash+fused",
+           "steps": len(batches), "batch": [4, 96], "optimizer":
+           "adam lr 1e-3 clip 1.0", "losses_cuda": losses["cuda"],
+           "losses_cpu": losses["cpu"], "loss_max_abs_err": loss_err,
+           "param_max_abs_err": param_err, "tol": 1e-4,
+           "remat_flash_fwd_launches": {"off": fwd[False], "on": fwd[True]},
+           "remat_grads_max_abs_err": remat_err}
+    emit(rec)
+    REPORT["train_parity"] = rec
+
+
+# -- phase 6: the training main path ----------------------------------------
+
+
+TRAIN_STEPS = 10
+TRAIN_ARGS = ["--preset", "gpt2-small", "--batch_size", "8", "--seq_len",
+              "1024", "--train_steps", str(TRAIN_STEPS), "--checkpoint_every",
+              "5", "--log_every", "1", "--generate", "8", "--device", "cuda"]
+
+
+def train_main_path(torch, train_lm, server, serving, common):
+    """train_lm.main at the gpt2-small preset, full width and depth.  The
+    step time is read from the per-step metrics records (each written
+    after a host sync on that step's loss), leaving out warm-up and the
+    steps that saved a checkpoint."""
+    with tempfile.TemporaryDirectory() as train_dir:
+        args = TRAIN_ARGS + ["--train_dir", train_dir]
+        torch.cuda.reset_peak_memory_stats()
+        # the main path's run: counters zeroed just before, read just after
+        common.reset_launches()
+        t0 = time.perf_counter()
+        rc = train_lm.main(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = common.launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if rc != 0:
+            fail(f"train_lm.main exited {rc}")
+        cfg = serving.load_config(train_dir)
+        with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            fail(f"train losses {losses}")
+        # layers of one prefill per --generate call (decode steps run the
+        # dense-cache path, not the flash kernel)
+        want = {"flash_fwd": cfg.layers * (TRAIN_STEPS + 1),
+                "flash_bwd_dq": cfg.layers * TRAIN_STEPS,
+                "flash_bwd_dkv": cfg.layers * TRAIN_STEPS, "rms_norm": 0}
+        if launches != want:
+            fail(f"train main-path launches {launches}, expected {want}")
+        # record j (step j, 1-based) is written before step j-1's
+        # checkpoint: the interval j -> j+1 holds the save of step j-1
+        t = {r["step"]: r["wall_time"] for r in recs if "loss" in r}
+        steps_s = [t[j + 1] - t[j] for j in range(3, TRAIN_STEPS)
+                   if (j - 1) % 5]
+        step_s = sorted(steps_s)[len(steps_s) // 2]
+        lm = server.LmServer(train_dir=train_dir, device="cuda")
+        try:
+            out = lm.generate(server.parse_request(
+                lm.config, {"tokens": list(range(1, 33)),
+                            "max_new_tokens": 8}, 8))
+        finally:
+            lm.close()
+        toks = out.get("tokens", [])
+        if len(toks) != 8 or not all(0 <= x < cfg.vocab_size for x in toks):
+            fail(f"the exported artifact answered {out}")
+    tokens_per_step = 8 * 1024
+    rec = {"phase": "train", "config": "gpt2-small bf16 flash, train_lm.main",
+           "args": TRAIN_ARGS, "layers": cfg.layers, "steps": TRAIN_STEPS,
+           "losses": losses, "wall_s": wall_s,
+           "step_s_samples": steps_s, "step_s_median": step_s,
+           "tokens_per_s": tokens_per_step / step_s,
+           "max_memory_allocated_gib": peak_gib,
+           "launches": launches, "expected_launches": want,
+           "export_answer": toks, "card": REPORT["card"]}
+    emit(rec)
+    REPORT["train"] = rec
+    return launches
+
+
+def grads_at_width(torch, tlib, bridge, train_lib, train_lm):
+    """One gpt2-small step (B8 L1024 bf16) with the flash kernels against
+    the same weights and batch through the plain attention, both held
+    against the same step in f32 (plain attention).  The bf16 paths round
+    in different places (the kernels round p before p.v and p, ds before
+    the backward products; the plain path rounds the scores, the
+    normalized probabilities and every einsum output), which moves each
+    gradient by a few percent through 12 layers; a wrong kernel moves it
+    by order one.  Held per gradient tensor (relative Frobenius error):
+    kernels vs plain within 5e-2, and the kernels no further from the f32
+    step than twice the plain path's distance (or 1e-2)."""
+    cfg = train_lm.build_config(train_lm.parse_args(TRAIN_ARGS), True)
+    params = bridge.init_params(cfg, 0, "cuda", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024),
+                           generator=torch.Generator().manual_seed(10)
+                           ).cuda()
+    grads, loss = {}, {}
+    for name, kw in (("kernels", {}),
+                     ("plain", {"use_flash_attention": False}),
+                     ("f32", {"use_flash_attention": False,
+                              "dtype": torch.float32})):
+        model = tlib.Transformer(dataclasses.replace(cfg, **kw), params,
+                                 device="cuda", trainable=True)
+        lv = train_lib.lm_loss(model(tokens), tokens)
+        lv.backward()
+        loss[name] = lv.item()
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        missing = [n for n, g in grads[name].items() if g is None]
+        if missing:
+            fail(f"gpt2-small {name} step left no gradient on {missing}")
+        del model
+
+    def rel(a, b):
+        return {n: ((grads[a][n] - g).norm() / g.norm()).item()
+                for n, g in grads[b].items()}
+
+    k_p, k_f, p_f = rel("kernels", "plain"), rel("kernels", "f32"), \
+        rel("plain", "f32")
+    bad = [n for n in k_p if not (k_p[n] <= 5e-2
+                                  and k_f[n] <= max(2 * p_f[n], 1e-2))]
+    if bad or abs(loss["kernels"] - loss["plain"]) > 1e-2:
+        n = (bad or [max(k_p, key=k_p.get)])[0]
+        fail(f"gpt2-small grads: {n} kernels vs plain {k_p[n]}, vs f32 "
+             f"{k_f[n]} (plain vs f32 {p_f[n]}), losses {loss}")
+    rec = {"phase": "train_grads", "config": "gpt2-small, one step",
+           "losses": loss, "tol_kernels_vs_plain": 5e-2,
+           "max_rel_err_kernels_vs_plain": max(k_p.values()),
+           "max_rel_err_kernels_vs_f32": max(k_f.values()),
+           "max_rel_err_plain_vs_f32": max(p_f.values())}
+    emit(rec)
+    REPORT["train_grads"] = {**rec, "rel_err_kernels_vs_plain": k_p,
+                             "rel_err_kernels_vs_f32": k_f,
+                             "rel_err_plain_vs_f32": p_f}
+    torch.cuda.empty_cache()
+
+
+def llama_width_training(torch, tlib, bridge, train_lib, common):
+    """llama_8b widths cut to 2 layers (layers 32 -> 2, so the f32
+    weights, gradients and Adam moments fit one card), B1 L2048, bf16,
+    flash and RMSNorm kernels on, no remat, 3 Adam steps; exact launch
+    counts."""
+    steps = 3
+    cfg = dataclasses.replace(tlib.llama_8b(), layers=2, remat=False,
+                              use_flash_attention=True, use_fused_norm=True,
+                              dtype=torch.bfloat16)
+    model = tlib.Transformer(
+        cfg, bridge.init_params(cfg, 11, "cuda", dtype=torch.float32),
+        device="cuda", trainable=True)
+    opt = train_lib.default_optimizer(1e-4)
+    state = train_lib.init_state(model, opt)
+    step = train_lib.make_train_step(lambda m, x: m(x), train_lib.lm_loss,
+                                     opt)
+    gen = torch.Generator().manual_seed(12)
+    batches = [torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen)
+               .cuda() for _ in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(state, (b, b))[1] for b in batches]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = common.launches()
+    losses = torch.stack(losses).tolist()
+    want = {"flash_fwd": cfg.layers * steps,
+            "flash_bwd_dq": cfg.layers * steps,
+            "flash_bwd_dkv": cfg.layers * steps,
+            "rms_norm": (2 * cfg.layers + 1) * steps}
+    if launches != want or not all(map(math.isfinite, losses)):
+        fail(f"llama-width training: launches {launches} (expected {want}),"
+             f" losses {losses}")
+    rec = {"phase": "train_llama_width",
+           "config": "llama_8b widths, layers 32 -> 2, bf16, flash+fused",
+           "reduced": {"layers": [32, 2]}, "batch": [1, 2048],
+           "steps": steps, "losses": losses, "wall_s": wall_s,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "expected_launches": want}
+    emit(rec)
+    REPORT["train_llama_width"] = rec
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -415,7 +777,9 @@ def main() -> int:
              "card")
     sys.path.insert(0, REPO)
     try:
-        from k8s_tpu_torch.models import bridge, decode, server
+        from k8s_tpu_torch import train_lm
+        from k8s_tpu_torch.models import bridge, decode, server, serving
+        from k8s_tpu_torch.models import train as train_lib
         from k8s_tpu_torch.models import transformer as tlib
         from k8s_tpu_torch.ops import _build, _common
         from k8s_tpu_torch.ops import flash_attention as flash
@@ -455,17 +819,38 @@ def main() -> int:
 
     rms = rms_cases(torch, F, fused_norm)
     fl = flash_cases(torch, F, flash)
+    bw = flash_bwd_cases(torch, F, flash)
     parity(torch, tlib, bridge, decode)
-    launches = serve_main_path(torch, tlib, bridge, server, _common)
+    train_parity(torch, tlib, bridge, train_lib, _common)
+    served = serve_main_path(torch, tlib, bridge, server, _common)
+    torch.cuda.empty_cache()
+    trained = train_main_path(torch, train_lm, server, serving, _common)
+    grads_at_width(torch, tlib, bridge, train_lib, train_lm)
+    llama = llama_width_training(torch, tlib, bridge, train_lib, _common)
 
+    # launches: this slice's training path (the gpt2-small main path and
+    # the llama-width phase, each counted from zero); the served path's
+    # counts beside them
     kernels = []
     for kname, route, source, replaces, rec in (
             ("flash_fwd", "cuda", "k8s_tpu_torch/csrc/flash_fwd.cu",
-             "k8s_tpu/ops/flash_attention.py:99", fl["main_prefill"]),
+             "k8s_tpu/ops/flash_attention.py:99", fl["gpt2_train"]),
             ("rms_norm", "triton", "k8s_tpu_torch/ops/fused_norm.py",
-             "k8s_tpu/ops/fused_norm.py:29", rms["main_prefill"])):
+             "k8s_tpu/ops/fused_norm.py:29", rms["bf16x_f32s"]),
+            ("flash_bwd_dq", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cu",
+             "k8s_tpu/ops/flash_attention.py:233",
+             bw[("flash_bwd_dq", "gpt2_train")]),
+            ("flash_bwd_dkv", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cu",
+             "k8s_tpu/ops/flash_attention.py:289",
+             bw[("flash_bwd_dkv", "gpt2_train")])):
         kernels.append({"name": kname, "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[kname],
+                        "replaces": replaces,
+                        "launches": trained[kname] + llama[kname],
+                        "launches_by_path": {
+                            "train_gpt2_small": trained[kname],
+                            "train_llama_width_2_layers": llama[kname],
+                            "serve_llama_8b": served[kname]},
+                        "case": rec["case"],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "wall_ms": rec["wall_ms"],
                         "plain_ms": rec["plain_ms"],
@@ -474,6 +859,7 @@ def main() -> int:
                         "library_ms": rec["library_ms"]})
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
+    emit({"phase": "done", "total_s": REPORT["total_s"]})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
     emit({"kernels": kernels})

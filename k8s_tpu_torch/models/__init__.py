@@ -1,1 +1,2 @@
-"""Model side of the port: the Transformer LM, generation, serving."""
+"""Model side of the port: the Transformer LM, training, generation,
+serving."""

@@ -3,27 +3,40 @@
 One decoder/encoder implementation (RMSNorm + SwiGLU + rotary embeddings,
 tied embeddings) with the reference's three modes:
 
-- ``"train"``: the full teacher-forced pass (forward only in this slice);
+- ``"train"``: the full teacher-forced pass, differentiable;
 - ``"prefill"``: the same pass plus writing the prompt's K/V into the cache;
 - ``"decode"``: cached steps over a dense KV cache (a windowed ring buffer
   when ``window_size`` is set, optionally int8).
 
-Numerics follow the reference: projections run in ``config.dtype`` (the
-weights are cast to it once, at load — the values every forward uses
-anyway); norm scales keep their own dtype, so a bf16 activation times an
-f32 scale gives f32, as ``result_type`` does; RoPE angles and softmax are
-f32; the tied head multiplies ``config.dtype``-rounded operands with f32
-accumulation and returns f32 logits.  The embedding is therefore held in
-f32 with its values rounded through ``config.dtype``: the gather and the
-head both see exactly the reference's bf16 operands, and the head's f32
-product accumulates as ``preferred_element_type=float32`` does.
+Numerics follow the reference: projections run in ``config.dtype``; norm
+scales keep their own dtype, so a bf16 activation times an f32 scale gives
+f32, as ``result_type`` does; RoPE angles and softmax are f32; the tied
+head multiplies ``config.dtype``-rounded operands with f32 accumulation and
+returns f32 logits.  Two constructions hold the weights:
+
+- served (the default): every projection is cast to ``config.dtype`` once,
+  at load (the values every forward uses anyway), and all weights are
+  frozen; the embedding is held in f32 with its values rounded through
+  ``config.dtype``, so the gather and the head see exactly the reference's
+  bf16 operands and the head's f32 product accumulates as
+  ``preferred_element_type=float32`` does;
+- trainable (``trainable=True``): f32 master weights as ``nn.Parameter``s,
+  as the reference's ``param_dtype=float32``, cast inside each forward where
+  the reference casts: the gather ``emb[tokens].astype(dtype)``, each
+  projection, and the head's ``config.dtype``-rounded embedding.  With
+  ``config.remat`` each block is recomputed in the backward
+  (``torch.utils.checkpoint``), as the reference's ``nn.remat``.
+
+The casts are no-ops on the served weights, so the served path's device
+work is the same in both.
 
 The KV cache is a list of per-layer dicts of tensors (``new_cache()``),
 updated in place — PyTorch's idiom for state the reference threads through
 flax's ``cache`` collection.
 
-Not in this slice (each raises ``NotImplementedError``): the paged decode
-step (batched engine), the sp ring and ulysses (``parallel/``), MoE.
+Not in this port yet (each raises ``NotImplementedError``): the paged
+decode step (batched engine), the sp ring and ulysses (``parallel/``),
+MoE.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from typing import Any, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from k8s_tpu_torch.models.paged import quantize_kv
 from k8s_tpu_torch.ops._common import resolve_device
@@ -78,7 +92,7 @@ class TransformerConfig:
     # KV-cache storage for decode: None stores dtype; "int8" stores
     # per-(slot, head) absmax-scaled int8
     kv_cache_dtype: Optional[str] = None
-    remat: bool = True  # recompute in the backward (training slice)
+    remat: bool = True  # recompute each block in the backward
     num_experts: int = 0
     expert_top_k: int = 2
     expert_capacity_factor: float = 1.25
@@ -137,6 +151,13 @@ def rotary_embedding(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _linear(x, layer: nn.Linear, dtype):
+    """``layer`` applied in ``dtype``: its weight is cast per call, as the
+    reference's ``Dense(dtype=...)`` casts its f32 kernel (a no-op for the
+    served weights, which are ``dtype`` already)."""
+    return F.linear(x, layer.weight.to(dtype))
 
 
 def _plain_attention(q, k, v, causal: bool, window: int | None = None):
@@ -293,9 +314,9 @@ class Attention(nn.Module):
         B, L = x.shape[:2]
         D = cfg.dims_per_head
         x = x.to(cfg.dtype)
-        q = self.q_proj(x).view(B, L, cfg.heads, D)
-        k = self.k_proj(x).view(B, L, cfg.kv_heads, D)
-        v = self.v_proj(x).view(B, L, cfg.kv_heads, D)
+        q = _linear(x, self.q_proj, cfg.dtype).view(B, L, cfg.heads, D)
+        k = _linear(x, self.k_proj, cfg.dtype).view(B, L, cfg.kv_heads, D)
+        v = _linear(x, self.v_proj, cfg.dtype).view(B, L, cfg.kv_heads, D)
         q = rotary_embedding(q, positions, cfg.rope_theta)
         k = rotary_embedding(k, positions, cfg.rope_theta)
 
@@ -315,7 +336,8 @@ class Attention(nn.Module):
             else:
                 out = _plain_attention(q, k, v, causal,
                                        window=cfg.window_size)
-        return self.o_proj(out.reshape(B, L, cfg.heads * D).to(cfg.dtype))
+        return _linear(out.reshape(B, L, cfg.heads * D).to(cfg.dtype),
+                       self.o_proj, cfg.dtype)
 
 
 class MLP(nn.Module):
@@ -329,8 +351,11 @@ class MLP(nn.Module):
                                    bias=False)
 
     def forward(self, x):
-        x = x.to(self.config.dtype)
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        dt = self.config.dtype
+        x = x.to(dt)
+        gate = _linear(x, self.gate_proj, dt)
+        return _linear(F.silu(gate) * _linear(x, self.up_proj, dt),
+                       self.down_proj, dt)
 
 
 class Block(nn.Module):
@@ -365,16 +390,19 @@ class Transformer(nn.Module):
 
     ``params`` is a state dict in this module's layout
     (``models/bridge.py`` maps the reference's flax tree to it, or draws a
-    random one).  Weights are placed on ``device`` in the dtype the forward
-    uses, sharing the given tensors where they already match."""
+    random one).  Served (default): weights are placed on ``device`` in the
+    dtype the forward uses, sharing the given tensors where they already
+    match, and frozen.  ``trainable=True``: f32 copies as trainable
+    parameters, cast inside each forward."""
 
     def __init__(self, config: TransformerConfig, params: dict, *,
-                 device="cuda"):
+                 device="cuda", trainable: bool = False):
         super().__init__()
         if config.num_experts > 0:
             raise NotImplementedError(
                 "MoE (num_experts > 0) comes with a later slice of the port")
         self.config = config
+        self.trainable = trainable
         with torch.device("meta"):
             self.embedding = nn.Parameter(
                 torch.empty(config.vocab_size, config.hidden))
@@ -383,22 +411,29 @@ class Transformer(nn.Module):
             self.final_norm = RMSNorm(config.hidden,
                                       fused=config.use_fused_norm)
         dev = resolve_device(device)
-        self.load_state_dict(
-            {n: _served_tensor(config, n, t, dev) for n, t in params.items()},
-            assign=True)
-        self.requires_grad_(False)
+        if trainable:
+            sd = {n: torch.as_tensor(t).to(device=dev, dtype=torch.float32,
+                                          copy=True)
+                  for n, t in params.items()}
+        else:
+            sd = {n: _served_tensor(config, n, t, dev)
+                  for n, t in params.items()}
+        self.load_state_dict(sd, assign=True)
+        self.requires_grad_(trainable)
 
     def new_cache(self) -> list[dict]:
         """An empty KV cache (one dict per layer, filled at first write)."""
         return [{} for _ in self.layers]
 
     def forward(self, tokens, positions=None, mode: str = "train",
-                cache: Optional[list] = None):
+                cache: Optional[list] = None, return_hidden: bool = False):
         """``mode``: "train" (the full teacher-forced pass), "prefill" (the
         same pass plus K/V-cache population) or "decode" (cached steps;
         ``positions`` carries absolute positions).  Prefill and decode
         update ``cache`` (from :meth:`new_cache`) in place.  Returns f32
-        logits ``[B, L, V]``."""
+        logits ``[B, L, V]``, or with ``return_hidden`` the final normed
+        hidden states ``[B, L, hidden]`` in ``config.dtype`` (the fused
+        cross-entropy head's input)."""
         cfg = self.config
         B, L = tokens.shape
         if mode not in ("train", "prefill", "decode"):
@@ -419,9 +454,22 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(L, device=tokens.device).expand(B, L)
         x = F.embedding(tokens, self.embedding).to(cfg.dtype)
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
-            x = block(x, positions, mode, None if cache is None else cache[i])
+            if remat:
+                # recompute the block in the backward: HBM for FLOPs
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, positions, use_reentrant=False)
+            else:
+                x = block(x, positions, mode,
+                          None if cache is None else cache[i])
         x = self.final_norm(x).to(cfg.dtype)
+        if return_hidden:
+            return x
         # tied head: config.dtype-rounded operands, f32 accumulation and
-        # f32 logits (a bf16 product rounded to bf16 could flip an argmax)
-        return torch.matmul(x.float(), self.embedding.T)
+        # f32 logits (a bf16 product rounded to bf16 could flip an argmax);
+        # the served embedding holds rounded values already
+        emb = self.embedding
+        if self.trainable:
+            emb = emb.to(cfg.dtype).float()
+        return torch.matmul(x.float(), emb.T)

@@ -5,10 +5,15 @@ from __future__ import annotations
 
 import torch
 
-# Launches of each hand-written kernel, counted by its wrapper right where
-# it launches (never on the plain path).  Plain ints: a run zeroes them
-# with reset_launches() and reads them back to prove the path it drove
-# went through the kernels.
+# The hand-written kernels: the forward ones the serving path runs, then
+# the flash backward's two (dq, then dk/dv).
+KERNELS = ("flash_fwd", "rms_norm", "flash_bwd_dq", "flash_bwd_dkv")
+
+# Launches of each kernel, counted by its wrapper right where it launches
+# (never on the plain path).  Plain ints: a run zeroes them with
+# reset_launches() and reads them back with launches() to prove the path
+# it drove went through the kernels.  A backward kernel's count appears
+# here at its first launch.
 LAUNCHES: dict[str, int] = {"flash_fwd": 0, "rms_norm": 0}
 
 
@@ -18,7 +23,14 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}")
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def launches() -> dict[str, int]:
+    """Every kernel's count since the last reset."""
+    return {name: LAUNCHES.get(name, 0) for name in KERNELS}
 
 
 def pick_block(length: int, preferred: int) -> int:

@@ -1,24 +1,33 @@
-"""Flash attention forward: a hand-written CUDA kernel for Hopper
-(``csrc/flash_fwd.cu``) beside its plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels for Hopper
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) beside their plain PyTorch
+versions, joined by an autograd Function.
 
-Port of ``k8s_tpu/ops/flash_attention.py``'s forward: the Pallas kernel
-``_fwd_kernel`` (driven by ``_flash_fwd``) becomes one CUDA kernel that
-loops over k/v tiles inside a thread block instead of walking a
-sequential grid dimension (see the note at the top of the source).
+Port of ``k8s_tpu/ops/flash_attention.py``.  Each Pallas kernel becomes one
+CUDA kernel that loops over tiles inside a thread block instead of walking
+a sequential grid dimension (see the notes at the top of the sources):
+
+- forward ``_fwd_kernel`` (driven by ``_flash_fwd``): o and lse by online
+  softmax;
+- backward ``_dq_kernel`` and ``_dkv_kernel`` (driven by ``_flash_bwd``):
+  dq, and dk/dv summed over each GQA group, from p recomputed with the
+  saved lse.  ``delta = rowsum(do * o)`` is an f32 torch reduction, as the
+  reference computes it in XLA.
 
 - :func:`flash_attention` keeps the public ``[B, L, H, D]`` layout and the
-  reference's guards; the kernel reads and writes that layout through
-  strides, so there is no transpose copy.
+  reference's guards; the kernels read and write that layout through
+  strides, so there is no transpose copy either way.
 - :func:`flash_fwd` is the counterpart of ``_flash_fwd``: ``[B, H, L, D]``
   in, ``(o, lse [B, H, L, 1] f32)`` out — the pair the ring variants
-  consume.
-- GQA (``Hkv`` dividing ``H``) is native in both: the kernel reads kv head
-  ``h // (H // Hkv)``; the plain version repeats K/V as the reference's
-  wrapper does.
+  consume.  :func:`flash_bwd` is the counterpart of ``_flash_bwd``.
+- Both public functions are differentiable on either device through one
+  ``torch.autograd.Function``: its forward saves ``(q, k, v, o, lse)`` and
+  its backward is :func:`flash_bwd`.  lse is not differentiable.
+- GQA (``Hkv`` dividing ``H``) is native in the kernels: they read kv head
+  ``h // (H // Hkv)``, and the dk/dv kernel sums the group itself; the
+  plain versions repeat K/V as the reference's wrapper does.
 
-Dispatch follows the tensors: CPU tensors take :func:`flash_fwd_plain`,
-CUDA tensors launch the kernel or raise.  The backward kernels (dq, dk/dv)
-come with the training slice.
+Dispatch follows the tensors: CPU tensors take the plain versions, CUDA
+tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -33,21 +42,25 @@ from k8s_tpu_torch.ops._common import count_launch, use_plain
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    """The ctypes entry point of ``csrc/flash_fwd.cu`` (built at first
-    use)."""
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_fwd").k8s_flash_fwd
+def _kernel(name: str = "fwd"):
+    """The ctypes entry point ``fwd``, ``bwd_dq`` or ``bwd_dkv`` of
+    ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` (built at first use)."""
+    fn = _fns.get(name)
+    if fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p,
-                       ctypes.c_float, i, i, p]
+        tail = [i, i, i, i, i, i, i, p, ctypes.c_float, i, i, p]
+        if name == "fwd":
+            fn = _build.load("flash_fwd").k8s_flash_fwd
+            fn.argtypes = [p] * 5 + tail
+        else:
+            fn = getattr(_build.load("flash_bwd"), "k8s_flash_" + name)
+            fn.argtypes = [p] * (7 if name == "bwd_dq" else 8) + tail
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check_window(causal: bool, window) -> None:
@@ -64,6 +77,26 @@ def _check_heads(H: int, Hkv: int) -> None:
         raise ValueError(f"heads {H} not a multiple of kv_heads {Hkv}")
 
 
+def _keep_mask(L: int, Lk: int, causal: bool, window, device):
+    """The element mask ``[L, Lk]`` (None when nothing is masked)."""
+    if not causal:
+        return None
+    qpos = torch.arange(L, device=device)[:, None]
+    kpos = torch.arange(Lk, device=device)[None, :]
+    keep = kpos <= qpos
+    if window is not None:
+        keep = keep & (qpos - kpos < window)
+    return keep
+
+
+def _repeat_kv(k, v, H: int):
+    Hkv = k.shape[1]
+    if Hkv == H:
+        return k, v
+    return (k.repeat_interleave(H // Hkv, dim=1),
+            v.repeat_interleave(H // Hkv, dim=1))
+
+
 def flash_fwd_plain(q, k, v, scale: float, causal: bool, window=None):
     """The plain version of :func:`flash_fwd`: ``q`` ``[B, H, L, D]``,
     ``k``/``v`` ``[B, Hkv, Lk, D]``.  f32 scores and softmax over the whole
@@ -73,17 +106,10 @@ def flash_fwd_plain(q, k, v, scale: float, causal: bool, window=None):
     _check_window(causal, window)
     H, L, Hkv, Lk = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
     _check_heads(H, Hkv)
-    if Hkv != H:
-        k = k.repeat_interleave(H // Hkv, dim=1)
-        v = v.repeat_interleave(H // Hkv, dim=1)
+    k, v = _repeat_kv(k, v, H)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    keep = None
-    if causal:
-        qpos = torch.arange(L, device=q.device)[:, None]
-        kpos = torch.arange(Lk, device=q.device)[None, :]
-        keep = kpos <= qpos
-        if window is not None:
-            keep = keep & (qpos - kpos < window)
+    keep = _keep_mask(L, Lk, causal, window, q.device)
+    if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - torch.where(m <= NEG_INF / 2, 0.0, m))
@@ -95,16 +121,64 @@ def flash_fwd_plain(q, k, v, scale: float, causal: bool, window=None):
     return o.to(q.dtype), lse
 
 
-def _launch(q, k, v, o, lse, scale: float, causal: bool, window) -> None:
-    """Launch the kernel over ``[B, H, L, D]``-indexed views (any batch,
-    head and row strides; the last dim contiguous) into ``o`` and the
-    contiguous ``[B, H, L]`` f32 ``lse``."""
+def flash_bwd_plain(q, k, v, o, lse, do, scale: float, causal: bool,
+                    window=None):
+    """The plain version of :func:`flash_bwd`, in the reference's formulas:
+    p recomputed from the saved lse (a fully masked row's NEG_INF taken as
+    0, masked entries 0), ``delta = rowsum(do * o)`` in f32,
+    ``ds = p * (dp - delta) * scale``; dk/dv summed over each GQA group.
+    Returns ``(dq, dk, dv)`` in the input types, dk/dv ``[B, Hkv, Lk,
+    D]``."""
+    _check_window(causal, window)
     B, H, L, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    code = _DTYPE_CODES.get(q.dtype)
-    if code is None or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes one of {list(_DTYPE_CODES)} for "
-                        f"q, k and v alike, got {q.dtype}/{k.dtype}/{v.dtype}")
+    _check_heads(H, Hkv)
+    kr, vr = _repeat_kv(k, v, H)
+    do32 = do.float()
+    delta = (do32 * o.float()).sum(-1, keepdim=True)
+    lse = lse.reshape(B, H, L, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    keep = _keep_mask(L, Lk, causal, window, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.exp(s - torch.where(lse <= NEG_INF / 2, 0.0, lse))
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, vr.float())
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    if Hkv != H:
+        dk = dk.reshape(B, Hkv, H // Hkv, Lk, D).sum(2)
+        dv = dv.reshape(B, Hkv, H // Hkv, Lk, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _dtype_code(*ts) -> int:
+    code = _DTYPE_CODES.get(ts[0].dtype)
+    if code is None or any(t.dtype != ts[0].dtype for t in ts):
+        raise TypeError(f"flash kernels take one of {list(_DTYPE_CODES)} for "
+                        f"all inputs alike, got {[t.dtype for t in ts]}")
+    return code
+
+
+def _aligned(t, code: int) -> bool:
+    """The kernels' layout: a contiguous head_dim and, for the 16-bit
+    bodies (which copy rows in 16-byte chunks), 16-byte aligned data and
+    batch/head/row strides that are multiples of 8."""
+    if t.stride(3) != 1:
+        return False
+    return not code or not (
+        t.data_ptr() % 16
+        or any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1))
+
+
+def _check_launch(q, k, v, *outs) -> int:
+    """The kernels' checks on ``[B, H, L, D]``-indexed q and ``[B, Hkv, Lk,
+    D]``-indexed k/v (and the other operands); returns the dtype code."""
+    B, H, L, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    code = _dtype_code(q, k, v, *outs)
     if D not in HEAD_DIMS or k.shape[3] != D or v.shape[3] != D:
         raise ValueError(f"flash kernel head_dim must be one of {HEAD_DIMS}, "
                          f"got {D}")
@@ -114,33 +188,127 @@ def _launch(q, k, v, o, lse, scale: float, causal: bool, window) -> None:
     if min(L, Lk) < 1 or B * H > 65535:
         raise ValueError(f"flash kernel needs L, Lk >= 1 and B*H <= 65535 "
                          f"(B={B}, H={H}, L={L}, Lk={Lk})")
-    if any(t.stride(3) != 1 for t in (q, k, v, o)):
-        raise ValueError("flash kernel needs a contiguous head_dim")
-    if code and any(t.data_ptr() % 16
-                    or any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1)
-                    for t in (q, k, v, o)):
-        # the tensor-core body copies rows in 16-byte chunks
-        raise ValueError("flash kernel needs 16-byte aligned bf16/fp16 rows "
-                         "(data and batch/head/row strides multiples of 8)")
-    strides = (ctypes.c_int64 * 12)(*(
-        t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)))
+    for t in (q, k, v, *outs):
+        if not _aligned(t, code):
+            if t.stride(3) != 1:
+                raise ValueError("flash kernel needs a contiguous head_dim")
+            raise ValueError(
+                "flash kernel needs 16-byte aligned bf16/fp16 rows (data "
+                "and batch/head/row strides multiples of 8)")
+    return code
+
+
+def _strides(*ts):
+    vals = [t.stride(i) for t in ts for i in (0, 1, 2)]
+    return ctypes.cast((ctypes.c_int64 * len(vals))(*vals), ctypes.c_void_p)
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(q, k, v, o, lse, scale: float, causal: bool, window) -> None:
+    """Launch the forward kernel over ``[B, H, L, D]``-indexed views (any
+    batch, head and row strides; the last dim contiguous) into ``o`` and
+    the contiguous ``[B, H, L]`` f32 ``lse``."""
+    B, H, L, D = q.shape
+    code = _check_launch(q, k, v, o)
+    strides = _strides(q, k, v, o)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(), code, B, H, Hkv, L,
-                        Lk, D, ctypes.cast(strides, ctypes.c_void_p),
-                        float(scale), int(causal),
-                        0 if window is None else int(window), stream)
+                        o.data_ptr(), lse.data_ptr(), code, B, H, k.shape[1],
+                        L, k.shape[2], D, strides, float(scale), int(causal),
+                        0 if window is None else int(window), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
     count_launch("flash_fwd")
+
+
+def _bwd_operands(q, o, lse, do):
+    """``do`` in the kernels' layout, ``lse`` and ``delta = rowsum(do *
+    o)`` as contiguous ``[B, H, L]`` f32 (delta is a torch reduction, as
+    the reference computes it in XLA)."""
+    B, H, L, _ = q.shape
+    if not _aligned(do, _dtype_code(q, do)):
+        # autograd may hand in an expanded (stride 0) or strided gradient
+        do = do.contiguous()
+    delta = (do.float() * o.float()).sum(-1)
+    return do, lse.reshape(B, H, L).contiguous(), delta
+
+
+def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
+                causal: bool, window) -> None:
+    """Launch the backward kernel ``name`` (``bwd_dq`` into ``outs =
+    (dq,)``, ``bwd_dkv`` into ``(dk, dv)``)."""
+    B, H, L, D = q.shape
+    code = _check_launch(q, k, v, do, *outs)
+    with torch.cuda.device(q.device):
+        err = _kernel(name)(
+            *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)), code,
+            B, H, k.shape[1], L, k.shape[2], D, _strides(q, k, v, do, *outs),
+            float(scale), int(causal), 0 if window is None else int(window),
+            _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash_{name} kernel launch failed: cudaError "
+                           f"{err}")
+    count_launch("flash_" + name)
+
+
+def flash_bwd(q, k, v, o, lse, do, scale: float, causal: bool = True,
+              window=None):
+    """Counterpart of the reference's ``_flash_bwd``: ``q``, ``o``, ``do``
+    ``[B, H, L, D]``, ``k``/``v`` ``[B, Hkv, Lk, D]``, ``lse`` the
+    forward's ``[B, H, L(, 1)]`` f32.  Returns ``(dq [B, H, L, D], dk, dv
+    [B, Hkv, Lk, D])`` in the input types, each laid out like its input.
+    CUDA tensors launch the dq kernel, then the dk/dv kernel."""
+    _check_window(causal, window)
+    _check_heads(q.shape[1], k.shape[1])
+    if use_plain(q, k, v, o, lse, do):
+        return flash_bwd_plain(q, k, v, o, lse, do, scale, causal, window)
+    do, lse, delta = _bwd_operands(q, o, lse, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch_bwd("bwd_dq", q, k, v, do, lse, delta, (dq,), scale, causal,
+                window)
+    _launch_bwd("bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale, causal,
+                window)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention over ``[B, H, L, D]``-indexed views with the
+    backward kernels as its gradient.  ``blhd``: allocate o in the
+    ``[B, L, H, D]`` memory layout (the public wrapper's)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, blhd):
+        if use_plain(q, k, v):
+            o, lse = flash_fwd_plain(q, k, v, scale, causal, window)
+            lse = lse[..., 0]
+        else:
+            B, H, L, D = q.shape
+            o = torch.empty((B, L, H, D) if blhd else (B, H, L, D),
+                            dtype=q.dtype, device=q.device)
+            if blhd:
+                o = o.transpose(1, 2)
+            lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+            _launch(q, k, v, o, lse, scale, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, causal, window)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_fwd(q, k, v, scale: float | None = None, causal: bool = True,
               window=None):
     """Counterpart of the reference's ``_flash_fwd``: ``q`` ``[B, H, L,
     D]``, ``k``/``v`` ``[B, Hkv, Lk, D]``; returns ``(o [B, H, L, D] in
-    q.dtype, lse [B, H, L, 1] f32)``."""
+    q.dtype, lse [B, H, L, 1] f32)``.  Differentiable in q, k and v."""
     _check_window(causal, window)
     _check_heads(q.shape[1], k.shape[1])
     if causal and q.shape[2] != k.shape[2]:
@@ -148,12 +316,7 @@ def flash_fwd(q, k, v, scale: float | None = None, causal: bool = True,
                          f"Lk={k.shape[2]})")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if use_plain(q, k, v):
-        return flash_fwd_plain(q, k, v, scale, causal, window)
-    B, H, L, D = q.shape
-    o = torch.empty((B, H, L, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    _launch(q, k, v, o, lse, scale, causal, window)
+    o, lse = _Flash.apply(q, k, v, scale, causal, window, False)
     return o, lse[..., None]
 
 
@@ -161,12 +324,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, window: int | None = None):
     """Fused attention.  q: ``[B, L, H, D]``; k, v: ``[B, Lk, Hkv, D]``
     with Hkv dividing H (grouped-query).  Returns ``[B, L, H, D]`` in
-    q.dtype.
+    q.dtype; differentiable in q, k and v.
 
     ``window`` (sliding-window attention): each query attends only the
     ``window`` most recent positions including itself (0 <= q_pos - k_pos
-    < window); causal only.  The kernel visits only the k tiles a q tile
-    can see, so compute drops from O(L^2) to O(L * window).
+    < window); causal only.  The kernels visit only the tiles a q tile (or
+    a k tile) can see, so compute drops from O(L^2) to O(L * window).
     """
     B, L, H, D = q.shape
     _check_window(causal, window)
@@ -180,10 +343,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if scale is None:
         scale = D ** -0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if use_plain(q, k, v):
-        return flash_fwd_plain(qt, kt, vt, scale, causal,
-                               window)[0].transpose(1, 2)
-    o = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    _launch(qt, kt, vt, o.transpose(1, 2), lse, scale, causal, window)
-    return o
+    o, _ = _Flash.apply(qt, kt, vt, scale, causal, window, True)
+    return o.transpose(1, 2)

@@ -17,8 +17,12 @@ byte once: one program per row loads the whole row (masked when D is not a
 power of two) into registers, reduces it in f32 and stores once; the
 variance never touches memory.
 
-Forward only in this slice: the closed-form backward comes with training.
-Dispatch follows the tensors: CPU tensors take :func:`rms_norm_plain`, CUDA
+:func:`rms_norm` is differentiable on either device through one
+``torch.autograd.Function``: its backward is the reference's closed form
+(``_rms_bwd``: ``dx = r * (g*s - xhat * mean(g*s * xhat))``,
+``dscale = sum(g * xhat)``) in plain PyTorch, as the JAX package leaves
+that short elementwise chain to XLA rather than a kernel.  Dispatch follows
+the tensors: CPU tensors take :func:`rms_norm_plain` for the forward, CUDA
 tensors launch the kernel or raise.
 """
 
@@ -72,17 +76,12 @@ def rms_norm_plain(x, scale, eps: float = 1e-6):
     return (y.float() * scale.float()).to(out_dtype)
 
 
-def rms_norm(x, scale, eps: float = 1e-6):
-    """RMSNorm over the last axis.  x: ``[..., D]``; scale: ``[D]``.
-    Returns ``promote_types(x.dtype, scale.dtype)``."""
-    D = x.shape[-1]
-    if tuple(scale.shape) != (D,):
-        raise ValueError(f"scale shape {tuple(scale.shape)} != ({D},)")
-    if use_plain(x, scale):
-        return rms_norm_plain(x, scale, eps)
+def _rms_norm_kernel(x, scale, eps: float):
+    """Launch the Triton kernel over the rows of ``x``."""
     if x.dtype not in _FLOAT_TYPES or scale.dtype not in _FLOAT_TYPES:
         raise TypeError(f"rms_norm kernel takes {_FLOAT_TYPES}, got "
                         f"x {x.dtype}, scale {scale.dtype}")
+    D = x.shape[-1]
     x2d = x.reshape(-1, D)
     if x2d.stride(1) != 1:
         x2d = x2d.contiguous()
@@ -98,3 +97,43 @@ def rms_norm(x, scale, eps: float = 1e-6):
             BLOCK_D=block, num_warps=max(1, min(8, block // 512)))
     count_launch("rms_norm")
     return out.reshape(x.shape)
+
+
+def rms_norm_bwd(x, scale, g, eps: float = 1e-6):
+    """The reference's closed-form VJP of :func:`rms_norm` (``_rms_bwd``):
+    returns ``(dx in x.dtype, dscale in scale.dtype)``."""
+    D = x.shape[-1]
+    x32 = x.reshape(-1, D).float()
+    g32 = g.reshape(-1, D).float()
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = x32 * r
+    dscale = (g32 * xhat).sum(dim=0).to(scale.dtype)
+    gs = g32 * scale.float()
+    dx = r * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype).reshape(x.shape), dscale
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if use_plain(x, scale):
+            return rms_norm_plain(x, scale, eps)
+        return _rms_norm_kernel(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_bwd(x, scale, g, ctx.eps)
+        return dx, dscale, None
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm over the last axis.  x: ``[..., D]``; scale: ``[D]``.
+    Returns ``promote_types(x.dtype, scale.dtype)``; differentiable in x
+    and scale."""
+    D = x.shape[-1]
+    if tuple(scale.shape) != (D,):
+        raise ValueError(f"scale shape {tuple(scale.shape)} != ({D},)")
+    return _RmsNorm.apply(x, scale, float(eps))
