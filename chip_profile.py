@@ -80,9 +80,15 @@ def summary(phase: str, by_name: dict, traced_s: float, kernels: list,
             top_n: int = 15) -> dict:
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
+    # the hand-written flash kernels (K2, K3, K4), by their entry names
+    flash = {n: rec for n, rec in by_name.items() if "flash_" in n}
+    flash_ms = sum(ms for _, ms in flash.values())
     return {"phase": phase, "traced_s": traced_s, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / 1e3 / traced_s,
             "device_ops": len(kernels),
+            "flash_ms": flash_ms, "flash_share_of_busy": flash_ms / busy_ms,
+            "flash": [{"name": n, "count": c, "ms": ms}
+                      for n, (c, ms) in sorted(flash.items())],
             "top": [{"name": n, "count": c, "ms": ms} for n, (c, ms) in top]}
 
 

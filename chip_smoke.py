@@ -9,9 +9,13 @@ Phases, each fatal on failure:
 2. build: every CUDA kernel source, compiled in parallel (one nvcc each),
    and the Triton kernel's first compile.
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serving and training paths' shapes, with stated
+   the card at the serving and training paths' shapes and at the edges of
+   the wgmma bodies (ragged tails, D 64 and 128, GQA groups 1 and 4, a
+   window inside one tile, bidirectional Lk != L), with stated
    tolerances; kernel, plain and library-call device times and
-   back-to-back wall times (CUDA events) beside the bound.
+   back-to-back wall times (CUDA events) beside the bound; each body's
+   registers, spills and shared memory; dk/dv bit-identical across two
+   runs on both the split and the unsplit path.
 4. parity: the tiny test model (f32, both kernels on) generates the same
    greedy tokens on cuda (kernels) and cpu (plain versions), and its
    logits agree; then it trains 5 Adam steps on each from the same
@@ -133,6 +137,50 @@ def card_line() -> str:
 # -- phase 3: kernels against their plain versions --------------------------
 
 
+_TYPE_TOKENS = {"torch.bfloat16": "13__nv_bfloat16", "torch.float16": "6__half"}
+
+
+def build_report(_build, kernel: str, dtype, D: int, split=False) -> dict:
+    """Registers, spills and shared memory of the body that runs ``kernel``
+    (flash_fwd, flash_bwd_dq or flash_bwd_dkv) for this type and head_dim:
+    the first from nvcc's ptxas report in ``_build.BUILD_LOGS``, the
+    dynamic shared memory from the library's own size query."""
+    import re
+    code = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}[str(dtype)]
+    body = "fma" if code == 0 else (
+        "wgmma" if D >= 64 and kernel != "flash_bwd_dq" else "mma")
+    tmpl = f"Li{D}E" if code == 0 else f"{_TYPE_TOKENS[str(dtype)]}Li{D}E"
+    if kernel == "flash_fwd":
+        source, fn = "flash_fwd", f"flash_fwd_{body}I" + ("f" if code == 0 else "") + tmpl
+        smem = _build.load(source).k8s_flash_fwd_smem(code, D)
+    else:
+        source, which = "flash_bwd", kernel[len("flash_bwd_"):]
+        fn = f"flash_bwd_{which}_{body}I" + tmpl
+        if body == "wgmma":
+            fn = f"flash_bwd_dkv_wgmmaI{_TYPE_TOKENS[str(dtype)]}" \
+                 f"{'f' if split else 'S1_'}Li{D}E"
+        smem = _build.load(source).k8s_flash_bwd_smem(int(which == "dkv"), code, D)
+    rep = {"body": f"{kernel}:{body}", "entry": fn, "smem_dynamic_bytes": smem,
+           "registers": None, "spill_stores": None, "spill_loads": None,
+           "smem_static_bytes": None}
+    lines = _build.BUILD_LOGS.get(source, "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and fn in line:
+            for nxt in lines[i + 1:i + 6]:
+                if m := re.search(r"Used (\d+) registers", nxt):
+                    rep["registers"] = int(m.group(1))
+                    m = re.search(r"(\d+) bytes smem", nxt)
+                    rep["smem_static_bytes"] = int(m.group(1)) if m else 0
+                if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                                  r"loads", nxt):
+                    rep["spill_stores"] = int(m.group(1))
+                    rep["spill_loads"] = int(m.group(2))
+            break
+    return rep
+
+
+
+
 def rms_cases(torch, F, fused_norm):
     """RMSNorm: x [N, D] with a scale [D].  Tolerance: f32 inputs 1e-5
     relative (summation order and rsqrt rounding only); 16-bit x one
@@ -196,14 +244,17 @@ def visible_pairs(L: int, Lk: int, causal: bool, window) -> int:
     return L * Lk
 
 
-def flash_cases(torch, F, flash):
+def flash_cases(torch, F, flash, _build):
     """Flash forward: q [B, H, L, D], k/v [B, Hkv, Lk, D].  Tolerance: f32
     2e-5 (summation order only, the reference's own test tolerance); bf16
     o 2e-2 absolute (the tensor-core body rounds p to bf16 before p.v and
     o itself is rounded to bf16, so o can move one bf16 step, 2^-6 at |o|
     in [2, 4)) and lse 1e-3 (f32 log-sum-exp over up to 2048 terms,
-    summed in another order)."""
-    bf, f32 = torch.bfloat16, torch.float32
+    summed in another order).  Beside the main-path shapes, the edges of
+    the 128-row wgmma body: ragged tails (L 1000, 301), D 64 and 128, GQA
+    groups 1 and 4, a window smaller than one tile, bidirectional with
+    Lk != L."""
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = [("gpt2_train", 8, 12, 12, 1024, 1024, 64, bf, True, None),
              ("main_prefill", 1, 32, 8, 509, 509, 128, bf, True, None),
              ("main_17", 1, 32, 8, 17, 17, 128, bf, True, None),
@@ -212,6 +263,12 @@ def flash_cases(torch, F, flash):
              ("llama_2048", 1, 32, 8, 2048, 2048, 128, bf, True, None),
              ("window_509", 1, 32, 8, 509, 509, 128, bf, True, 256),
              ("window_2048", 1, 32, 8, 2048, 2048, 128, bf, True, 256),
+             ("ragged_1000_d64_g1", 2, 4, 4, 1000, 1000, 64, bf, True, None),
+             ("ragged_301_d128_g4_f16", 2, 8, 2, 301, 301, 128, f16, True,
+              None),
+             ("window_48_d128_g4", 1, 8, 2, 509, 509, 128, bf, True, 48),
+             ("cross_d128_g4", 1, 8, 2, 301, 1000, 128, bf, False, None),
+             ("f16_d32_ragged", 2, 8, 2, 301, 301, 32, f16, True, None),
              ("f32_d16_causal", 2, 4, 2, 130, 130, 16, f32, True, None),
              ("f32_d16_window", 1, 4, 4, 77, 77, 16, f32, True, 4),
              ("f32_d16_cross", 2, 4, 2, 13, 37, 16, f32, False, None)]
@@ -259,26 +316,36 @@ def flash_cases(torch, F, flash):
                    q, k, v, scale, causal, window), iters=5),
                **timed(torch, "library_", library),
                "bound_ms": b_ms, "bound_by": b_by,
-               "visible_pairs": pairs}
+               "visible_pairs": pairs,
+               **build_report(_build, "flash_fwd", dt, D)}
         emit(rec)
         REPORT["cases"].append(rec)
         out[name] = rec
     return out
 
 
-def flash_bwd_cases(torch, F, flash):
+def flash_bwd_cases(torch, F, flash, _build):
     """Flash backward: K3 (dq) and K4 (dk/dv) against flash_bwd_plain on
     the same q, k, v, do and the forward kernel's o and lse.  Tolerance,
     as a share of the largest |gradient| of each tensor: f32 1e-4
     (summation order only); 16-bit 2e-2: the kernels round p and ds to the
     input type before their products (relative 2^-9 each, over sums of up
     to 2048 x 4 terms) and round each gradient to it once more on the way
-    out, while the plain version keeps all of it in f32."""
+    out, while the plain version keeps all of it in f32.  dk and dv must
+    come out bit-identical from a second run on the same inputs, on the
+    dk/dv kernel's split path (f32 partials summed by the wrapper) and its
+    unsplit path alike; ``_dkv_plan`` puts gpt2_train and llama_509 on
+    different sides, and each record names its side."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = [("gpt2_train", 8, 12, 12, 1024, 1024, 64, bf, True, None),
              ("llama_509", 1, 32, 8, 509, 509, 128, bf, True, None),
              ("llama_2048", 1, 32, 8, 2048, 2048, 128, bf, True, None),
              ("window_2048", 1, 32, 8, 2048, 2048, 128, bf, True, 256),
+             ("ragged_1000_d64_g1", 2, 4, 4, 1000, 1000, 64, bf, True, None),
+             ("ragged_301_d128_g4_f16", 2, 8, 2, 301, 301, 128, f16, True,
+              None),
+             ("window_48_d128_g4", 1, 8, 2, 509, 509, 128, bf, True, 48),
+             ("cross_d128_g4", 1, 8, 2, 301, 1000, 128, bf, False, None),
              ("f16_d32_ragged", 2, 8, 2, 301, 301, 32, f16, True, None),
              ("bf16_cross", 2, 4, 4, 100, 257, 64, bf, False, None),
              ("f32_d16_causal", 2, 4, 2, 130, 130, 16, f32, True, None),
@@ -309,14 +376,24 @@ def flash_bwd_cases(torch, F, flash):
                 fail(f"flash_bwd {name} {gname}: max abs err {err} beyond "
                      f"{tol} x max |grad| {top}")
             errs[gname] = {"max_abs_err": err, "max_abs": top}
+        again = flash.flash_bwd(q, k, v, o, lse, do, *args)
+        torch.cuda.synchronize()
+        plan = flash._dkv_plan(B, H, Hkv, L, Lk, D, causal, window, dt)
+        path = "split" if plan.nsplit > 1 else "unsplit"
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+            fail(f"flash_bwd {name}: dk/dv differ between two runs on the "
+                 f"same inputs ({path} path)")
 
-        # each kernel alone, on the operands flash_bwd hands it
+        # each kernel alone, on the operands flash_bwd hands it (the dk/dv
+        # kernel with its plan's partial sums), then the whole backward
         do_k, lse_k, delta = flash._bwd_operands(q, o, lse, do)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         t_dq = time_ms(torch, lambda: flash._launch_bwd(
             "bwd_dq", q, k, v, do_k, lse_k, delta, (dq,), *args))
-        t_dkv = time_ms(torch, lambda: flash._launch_bwd(
-            "bwd_dkv", q, k, v, do_k, lse_k, delta, (dk, dv), *args))
+        t_dkv = time_ms(torch, lambda: flash._launch_dkv(
+            q, k, v, do_k, lse_k, delta, dk, dv, *args))
+        t_pair = time_ms(torch, lambda: flash.flash_bwd(
+            q, k, v, o, lse, do, *args))
         t_plain = time_ms(torch, lambda: flash.flash_bwd_plain(
             q, k, v, o, lse, do, *args), iters=3)
         # the library's backward alone: SDPA forward + backward minus SDPA
@@ -343,11 +420,14 @@ def flash_bwd_cases(torch, F, flash):
         q_bytes, kv_bytes = esz * B * H * L * D, esz * B * Hkv * Lk * D
         row_bytes = 2 * 4 * B * H * L  # lse and delta
         peak = PEAK_16BIT if esz == 2 else PEAK_F32
-        for kname, flops_per, nbytes, t in (
+        for kname, flops_per, nbytes, t, extra in (
                 ("flash_bwd_dq", 6, 3 * q_bytes + 2 * kv_bytes + row_bytes,
-                 t_dq),
+                 t_dq, build_report(_build, "flash_bwd_dq", dt, D)),
                 ("flash_bwd_dkv", 8, 2 * q_bytes + 4 * kv_bytes + row_bytes,
-                 t_dkv)):
+                 t_dkv, {**build_report(_build, "flash_bwd_dkv", dt, D,
+                                        split=plan.nsplit > 1),
+                         "dkv_path": path, "nsplit": plan.nsplit,
+                         "blocks": plan.blocks, "deterministic": True})):
             b_ms, b_by = bound(flops_per * B * H * D * pairs, nbytes, peak)
             rec = {"phase": "kernel", "kernel": kname, "case": name,
                    "B": B, "H": H, "Hkv": Hkv, "L": L, "Lk": Lk, "D": D,
@@ -360,11 +440,17 @@ def flash_bwd_cases(torch, F, flash):
                    "plain_is": "flash_bwd_plain (dq, dk and dv together)",
                    "library_ms": library_ms,
                    "library_is": "SDPA forward+backward minus SDPA forward",
+                   "bwd_pair_ms": t_pair["ms"],
+                   "bwd_pair_is": "flash_bwd: delta, K3 and K4 together",
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "visible_pairs": pairs}
+                   "visible_pairs": pairs, **extra}
             emit(rec)
             REPORT["cases"].append(rec)
             out[(kname, name)] = rec
+    sides = {n: out[("flash_bwd_dkv", n)]["dkv_path"]
+             for n in ("gpt2_train", "llama_509")}
+    if sides["gpt2_train"] == sides["llama_509"]:
+        fail(f"_dkv_plan put gpt2_train and llama_509 on one side: {sides}")
     return out
 
 
@@ -818,8 +904,8 @@ def main() -> int:
             f.write(f"== {src}\n{text}\n")
 
     rms = rms_cases(torch, F, fused_norm)
-    fl = flash_cases(torch, F, flash)
-    bw = flash_bwd_cases(torch, F, flash)
+    fl = flash_cases(torch, F, flash, _build)
+    bw = flash_bwd_cases(torch, F, flash, _build)
     parity(torch, tlib, bridge, decode)
     train_parity(torch, tlib, bridge, train_lib, _common)
     served = serve_main_path(torch, tlib, bridge, server, _common)
@@ -856,7 +942,11 @@ def main() -> int:
                         "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"]})
+                        "library_ms": rec["library_ms"],
+                        **{key: rec[key] for key in (
+                            "body", "registers", "spill_stores",
+                            "spill_loads", "smem_dynamic_bytes")
+                           if key in rec}})
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     emit({"phase": "done", "total_s": REPORT["total_s"]})

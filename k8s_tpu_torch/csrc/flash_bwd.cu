@@ -16,36 +16,40 @@
 // line at the training shapes, so the tensor cores' arithmetic is the bound.
 // The TPU kernels carry dq_acc / dk_acc / dv_acc in VMEM scratch across an
 // in-order inner grid axis; on the card one block owns its output tile and
-// loops instead:
-//   - dq: one block per (batch, head, 64-row q tile), looping over the k
-//     tiles the forward visits (causal: none wholly in the future; window:
-//     from max(0, q_lo - window + 1));
-//   - dk/dv: one block per (batch, KV head, 64-row k tile), looping over the
-//     H / Hkv query heads of its GQA group times the q tiles that can see its
-//     keys (causal: from k_lo; window: up to k_lo + 63 + window), so the
-//     group sum happens in registers, with no atomics, and dk/dv come out
-//     deterministic and already [B, Hkv, Lk, D];
-//   - the accumulators stay in f32 registers and are written once;
-//   - q/k/v/do and the outputs are read and written through (batch, head,
-//     row) strides, so the [B, L, H, D] model layout needs no copies;
-//   - ragged L and Lk: tail rows are zero-filled on load, masked in the
-//     scores, and never written.
-// Two bodies per kernel, chosen by the input type:
-//   - bf16 / fp16: four warps of 16 rows each on mma.sync m16n8k16 with f32
-//     accumulation; tiles come in through cp.async (k/v double-buffered for
-//     dq, q/do/lse/delta double-buffered for dk/dv) and reach the tensor
-//     cores through ldmatrix; p and ds are rounded to the input type before
-//     their products, as the forward rounds p.  At head_dim 128 the dk/dv
-//     kernel streams 32-row q tiles so that two f32 [16, 128] accumulators
-//     per warp still fit in registers;
+// loops instead, accumulating in f32 registers and writing once, through
+// (batch, head, row) strides so the [B, L, H, D] model layout needs no
+// copies:
+//   - dq (K3): one block per (batch, head, 64-row q tile), looping over the
+//     k tiles the forward visits; four warps of 16 rows on mma.sync
+//     m16n8k16 with cp.async double buffering and ldmatrix;
+//   - dk/dv (K4), bf16 / fp16 at D 64 and 128: flash_bwd_dkv_wgmma.  One
+//     block per 128-key tile: a producer warpgroup (setmaxnreg down to 24
+//     registers) whose first warp loads K and V once and streams q and do
+//     tiles by TMA (4-D tensor maps over the caller's strides, 128-byte
+//     swizzle, zero fill past L) with their lse and delta into a two-stage
+//     mbarrier ring, for each query head of the GQA group and each 64-row
+//     q tile that can see the keys (causal: from k_lo; window: up to
+//     k_lo + 127 + window); two consumer warpgroups of 64 keys each run
+//     s^T = K.q^T and dp^T = V.do^T as wgmma from shared memory, recompute
+//     p = exp2(s^T scale log2(e) - lse log2(e)) and ds in registers (the
+//     element mask only on edge tiles), and accumulate dv += p^T.do and
+//     dk += ds^T.q as wgmma with p and ds rounded to the input type straight
+//     into the register A operand and do, q read with the transpose bit.
+//     The group sum stays inside the block, with no atomics, so dk/dv are
+//     deterministic.  Where B * Hkv * ceil(Lk / 128) blocks would leave SMs
+//     idle, the caller (ops/flash_attention.py:_dkv_plan) splits each
+//     block's (head, q tile) list into nsplit fixed chunks: each writes an
+//     f32 partial, and the caller sums them in a fixed order;
+//   - dk/dv, bf16 / fp16 at D 16 and 32 (the tiny test shapes only): one
+//     block per 64-key tile, four warps of 16 keys on mma.sync, as dq;
 //   - f32 (exact f32 arithmetic, as the tiny test model needs): f32 FMAs on
 //     the CUDA cores over tiles held in shared memory.
-// Not yet done: TMA, wgmma and warp specialisation, which is the way to the
-// bound.
+// p and ds are rounded to the input type before their products, as the
+// forward rounds p.
 
 #include <type_traits>
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -75,6 +79,7 @@ struct BwdArgs {
   Strides st;
   float scale;
   int causal, window;
+  int nsplit;  // dk/dv wgmma body: chunks of each block's (head, q tile) list
 };
 
 // Offset of (batch b, head h, row r) of tensor t (0 q, 1 k, 2 v, 3 do, 4 out0,
@@ -519,13 +524,14 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(const BwdArgs a)
   }
 }
 
-// dk/dv: the block's k and v tiles, then two stages of (q, do) tiles of QT
-// rows and their lse and delta.  QT is 32 at head_dim 128, where the two
-// [16, 128] f32 accumulators of a warp already take 128 registers a thread.
+// dk/dv at head_dim 16 and 32 (the wgmma body takes 64 and 128): the
+// block's k and v tiles, then two stages of (q, do) tiles of QT rows and
+// their lse and delta.
 template <typename T, int D>
 struct DkvMma {
+  static_assert(D <= 32, "head_dim 64 and 128 take flash_bwd_dkv_wgmma");
   static constexpr int KS = D + 8;
-  static constexpr int QT = D >= 128 ? 32 : 64;
+  static constexpr int QT = 64;
   static constexpr size_t bytes =
       (size_t)(2 * BK + 2 * 2 * QT) * KS * sizeof(T) + (size_t)2 * 2 * QT * sizeof(float);
 };
@@ -696,6 +702,224 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma(const BwdArgs a
 }
 
 // ---------------------------------------------------------------------------
+// dk/dv wgmma body (bf16 / fp16, head_dim 64 and 128)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+constexpr int BK = 128;       // keys per block: two consumer warpgroups of 64
+constexpr int BQ = 64;        // q rows per streamed tile
+constexpr int STAGES = 2;     // (q, do, lse, delta) ring depth
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
+}  // namespace wg
+
+// K and V [half][BK][64] for the whole block, then per stage q and do
+// [half][BQ][64] and the tile's lse * log2(e) and delta, then the mbarriers.
+template <int D>
+struct DkvSmem {
+  static constexpr int KV_BYTES = wg::BK * D * 2;
+  static constexpr int Q_BYTES = wg::BQ * D * 2;
+  static constexpr int STAGE_ELEMS = 2 * wg::BQ * D;
+  static constexpr size_t bytes =
+      1024 + 2 * KV_BYTES + wg::STAGES * (2 * Q_BYTES + 2 * wg::BQ * 4) + 64;
+};
+
+// One block per (128-key tile, batch and kv head, split).  The block walks
+// its share of the GQA group's (query head, visible 64-row q tile) list,
+// head-major: all of it (nsplit = 1, outputs dk/dv in T), or chunk
+// blockIdx.z of nsplit equal chunks (outputs an f32 partial at head index
+// hk * nsplit + chunk of a [B, Hkv * nsplit, Lk, D] scratch, summed by the
+// caller in a fixed order).
+template <typename T, typename OutT, int D>
+__global__ void __launch_bounds__(wg::THREADS, 1) flash_bwd_dkv_wgmma(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const BwdArgs a) {
+  constexpr int BQ = wg::BQ, BK = wg::BK, STAGES = wg::STAGES;
+  constexpr float LOG2E = wg::LOG2E;
+  using S = DkvSmem<D>;
+  constexpr int HALVES = D / 64;
+  constexpr int NO = D / 2;  // dk / dv accumulators a thread (m64nD)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_base1024(smem_raw);
+  T* ks = reinterpret_cast<T*>(base);  // [half][BK][64]
+  T* vs = ks + BK * D;
+  T* stg = vs + BK * D;  // [stage][q, do][half][BQ][64]
+  float* rowv = reinterpret_cast<float*>(stg + STAGES * S::STAGE_ELEMS);  // [stage][lse, delta][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rowv + STAGES * 2 * BQ);
+  uint64_t* full = kv_full + 1;     // [stage]: every producer lane arrives
+  uint64_t* empty = full + STAGES;  // [stage]: one arrival per consumer warp
+
+  const int tid = threadIdx.x, wgi = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
+  const int k_lo = blockIdx.x * BK;
+  const int b = blockIdx.y / a.Hkv, hk = blockIdx.y % a.Hkv, G = a.H / a.Hkv;
+  // the queries that can see a key of this tile, for each head of the group
+  const int q_begin = a.causal ? k_lo : 0;
+  const int q_end = a.window > 0 ? min(a.L, k_lo + BK - 1 + a.window) : a.L;
+  const int nqt = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
+  const int total = G * nqt;
+  const int it_lo = (int)((int64_t)blockIdx.z * total / a.nsplit);
+  const int n_items = (int)((int64_t)(blockIdx.z + 1) * total / a.nsplit) - it_lo;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    setmaxnreg_dec<24>();
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_arrive_tx(kv_full, 2 * S::KV_BYTES);
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load4(ks + hf * BK * 64, &tk, kv_full, hf * 64, hk, k_lo, b);
+          tma_load4(vs + hf * BK * 64, &tv, kv_full, hf * 64, hk, k_lo, b);
+        }
+      }
+      for (int i = 0; i < n_items; ++i) {
+        const int st = i % STAGES, use = i / STAGES;
+        if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
+        const int it = it_lo + i, h = hk * G + it / nqt, q0 = q_begin + (it % nqt) * BQ;
+        // lse (a fully masked row's NEG_INF taken as 0) and delta, 0 past L
+        float* rv = rowv + st * 2 * BQ;
+        const int64_t rb = (int64_t)(b * a.H + h) * a.L;
+        for (int r = lane; r < BQ; r += 32) {
+          const int qp = q0 + r;
+          float ls = 0.f, dl = 0.f;
+          if (qp < a.L) {
+            const float x = a.lse[rb + qp];
+            ls = x <= NEG_INF / 2 ? 0.f : x * LOG2E;
+            dl = a.delta[rb + qp];
+          }
+          rv[r] = ls;
+          rv[BQ + r] = dl;
+        }
+        if (lane == 0) {
+          T* qd = stg + st * S::STAGE_ELEMS;
+          mbar_arrive_tx(full + st, 2 * S::Q_BYTES);
+          for (int hf = 0; hf < HALVES; ++hf) {
+            tma_load4(qd + hf * BQ * 64, &tq, full + st, hf * 64, h, q0, b);
+            tma_load4(qd + BQ * D + hf * BQ * 64, &tdo, full + st, hf * 64, h, q0, b);
+          }
+        } else {
+          mbar_arrive(full + st);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int c = wgi - 1;  // consumer: keys kw_lo .. kw_lo + 63
+    const int kw_lo = k_lo + 64 * c;
+    const int g = lane >> 2, c2 = (lane & 3) * 2;
+    const int keys[2] = {kw_lo + warp * 16 + g, kw_lo + warp * 16 + g + 8};
+    const float sl2 = a.scale * LOG2E;
+    float dk[NO], dv[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dk[e] = dv[e] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < n_items; ++i) {
+      const int st = i % STAGES, ph = (i / STAGES) & 1;
+      const int it = it_lo + i, q0 = q_begin + (it % nqt) * BQ;
+      // a q tile wholly masked for these 64 keys (warpgroup-uniform)
+      const bool skip = (a.causal && q0 + BQ - 1 < kw_lo) ||
+                        (a.window > 0 && q0 - (kw_lo + 63) >= a.window);
+      mbar_wait(full + st, ph);
+      if (!skip) {
+        const T* qt = stg + st * S::STAGE_ELEMS;
+        const T* dot = qt + BQ * D;
+        const float* rv = rowv + st * 2 * BQ;
+        // s^T = K.q^T and dp^T = V.do^T: accumulator e is key
+        // keys[(e >> 1) & 1], query q0 + 8 (e / 4) + c2 + (e & 1)
+        float s[BQ / 2], dp[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ao = (kk / 4) * BK * 64 + c * 64 * 64 + (kk % 4) * 16;
+          const int bo = (kk / 4) * BQ * 64 + (kk % 4) * 16;
+          wgmma_ss(s, desc_sw128(ks + ao, 16, 1024), desc_sw128(qt + bo, 16, 1024), kk > 0,
+                   (T*)nullptr);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ao = (kk / 4) * BK * 64 + c * 64 * 64 + (kk % 4) * 16;
+          const int bo = (kk / 4) * BQ * 64 + (kk % 4) * 16;
+          wgmma_ss(dp, desc_sw128(vs + ao, 16, 1024), desc_sw128(dot + bo, 16, 1024), kk > 0,
+                   (T*)nullptr);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(s);
+        reg_fence(dp);
+
+        // p^T in place of s, ds^T = p (dp - delta) scale in place of dp;
+        // the element mask only on tiles at the diagonal, the window edge
+        // or the ends of q and k
+        const bool edge = q0 + BQ > a.L || kw_lo + 63 >= a.Lk ||
+                          (a.causal && kw_lo + 63 > q0) ||
+                          (a.window > 0 && q0 + BQ - 1 - kw_lo >= a.window);
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e) {
+          const int qi = (e / 4) * 8 + c2 + (e & 1);
+          float p = exp2f(fmaf(s[e], sl2, -rv[qi]));
+          if (edge && !(q0 + qi < a.L &&
+                        visible(q0 + qi, keys[(e >> 1) & 1], a.Lk, a.causal, a.window)))
+            p = 0.f;
+          s[e] = p;
+          dp[e] = p * (dp[e] - rv[BQ + qi]) * a.scale;
+        }
+        uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) {
+          acc_to_a<T>(s, j, pa[j]);
+          acc_to_a<T>(dp, j, sa[j]);
+        }
+        // dv += p^T.do and dk += ds^T.q: do and q [q rows][D] are MN-major
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) {
+          wgmma_rs(dv, pa[j], desc_sw128(dot + j * 16 * 64, BQ * 128, 1024), (T*)nullptr);
+          wgmma_rs(dk, sa[j], desc_sw128(qt + j * 16 * 64, BQ * 128, 1024), (T*)nullptr);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(dk);
+        reg_fence(dv);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+
+    OutT* dkp = static_cast<OutT*>(a.out0);
+    OutT* dvp = static_cast<OutT*>(a.out1);
+    const int oh = a.nsplit > 1 ? hk * a.nsplit + blockIdx.z : hk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kp = keys[r];
+      if (kp >= a.Lk) continue;
+      OutT* rk = dkp + off(a.st, 4, b, oh, kp);
+      OutT* rv = dvp + off(a.st, 5, b, oh, kp);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int e = 4 * j + 2 * r;
+        if constexpr (std::is_same<OutT, float>::value) {
+          *reinterpret_cast<float2*>(rk + 8 * j + c2) = make_float2(dk[e], dk[e + 1]);
+          *reinterpret_cast<float2*>(rv + 8 * j + c2) = make_float2(dv[e], dv[e + 1]);
+        } else {
+          *reinterpret_cast<uint32_t*>(rk + 8 * j + c2) = pack2<T>(dk[e], dk[e + 1]);
+          *reinterpret_cast<uint32_t*>(rv + 8 * j + c2) = pack2<T>(dv[e], dv[e + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -709,18 +933,46 @@ int run(Kernel kern, dim3 grid, int threads, size_t smem, const BwdArgs& a,
   return (int)cudaGetLastError();
 }
 
-// which: 0 = dq, 1 = dk/dv
+template <typename T, typename OutT, int D>
+int run_dkv_wgmma(const BwdArgs& a, cudaStream_t s) {
+  constexpr int dtype = std::is_same<T, __nv_bfloat16>::value ? 1 : 2;
+  const int64_t* st = a.st.s;
+  CUtensorMap mq, mk, mv, mdo;
+  int e = make_map(&mq, a.q, dtype, D, a.H, a.L, a.B, st[0], st[1], st[2], wg::BQ);
+  if (!e) e = make_map(&mk, a.k, dtype, D, a.Hkv, a.Lk, a.B, st[3], st[4], st[5], wg::BK);
+  if (!e) e = make_map(&mv, a.v, dtype, D, a.Hkv, a.Lk, a.B, st[6], st[7], st[8], wg::BK);
+  if (!e) e = make_map(&mdo, a.dout, dtype, D, a.H, a.L, a.B, st[9], st[10], st[11], wg::BQ);
+  if (e) return e;
+  auto kern = flash_bwd_dkv_wgmma<T, OutT, D>;
+  const size_t smem = DkvSmem<D>::bytes;
+  cudaError_t r = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (r != cudaSuccess) return (int)r;
+  const dim3 grid((a.Lk + wg::BK - 1) / wg::BK, a.B * a.Hkv, a.nsplit);
+  kern<<<grid, wg::THREADS, smem, s>>>(mq, mk, mv, mdo, a);
+  return (int)cudaGetLastError();
+}
+
+// which: 0 = dq, 1 = dk/dv.  The body for a type and head_dim is a static
+// choice; only the dk/dv wgmma body takes nsplit > 1.
 template <typename T, int D>
 int launch(int which, const BwdArgs& a, cudaStream_t s) {
   const dim3 dq_grid((a.L + BQ - 1) / BQ, a.B * a.H);
   const dim3 dkv_grid((a.Lk + BK - 1) / BK, a.B * a.Hkv);
+  constexpr bool wgmma = !std::is_same<T, float>::value && D >= 64;
+  if (a.nsplit < 1 || (a.nsplit > 1 && (which == 0 || !wgmma)))
+    return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
     if (which == 0) return run(flash_bwd_dq_fma<D>, dq_grid, NT, DqFma<D>::bytes, a, s);
     return run(flash_bwd_dkv_fma<D>, dkv_grid, NT, DkvFma<D>::bytes, a, s);
   } else {
     if (which == 0)
       return run(flash_bwd_dq_mma<T, D>, dq_grid, MMA_THREADS, DqMma<T, D>::bytes, a, s);
-    return run(flash_bwd_dkv_mma<T, D>, dkv_grid, MMA_THREADS, DkvMma<T, D>::bytes, a, s);
+    if constexpr (wgmma) {
+      if (a.nsplit > 1) return run_dkv_wgmma<T, float, D>(a, s);
+      return run_dkv_wgmma<T, T, D>(a, s);
+    } else {
+      return run(flash_bwd_dkv_mma<T, D>, dkv_grid, MMA_THREADS, DkvMma<T, D>::bytes, a, s);
+    }
   }
 }
 
@@ -748,7 +1000,7 @@ int dispatch(int which, int dtype, int D, const BwdArgs& a, void* stream) {
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* out0, void* out1, int B,
                   int H, int Hkv, int L, int Lk, const int64_t* strides, int n_strides,
-                  float scale, int causal, int window) {
+                  float scale, int causal, int window, int nsplit) {
   BwdArgs a{};
   a.q = q;
   a.k = k;
@@ -767,6 +1019,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.scale = scale;
   a.causal = causal;
   a.window = window;
+  a.nsplit = nsplit;
   return a;
 }
 
@@ -776,7 +1029,9 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
 // k, v [B, Hkv, Lk, D]; lse, delta contiguous [B, H, L] float32.  strides:
 // (batch, head, row) element strides of q, k, v, do and then the outputs,
 // whose last dim is contiguous like the inputs'.  window <= 0 means none.
-// Each returns the cudaError_t of its launch (0 = launched).
+// Each returns the cudaError_t of its launch (0 = launched), or for the
+// wgmma body flash::NO_ENCODER / flash::MAP_ERROR + CUresult when a tensor
+// map cannot be made.
 
 // dq [B, H, L, D] in the input type; 15 strides (q, k, v, do, dq).
 extern "C" int k8s_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -785,18 +1040,42 @@ extern "C" int k8s_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int Lk, int D, const int64_t* strides, float scale,
                                 int causal, int window, void* stream) {
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, H, Hkv, L, Lk,
-                              strides, 15, scale, causal, window);
+                              strides, 15, scale, causal, window, 1);
   return dispatch(0, dtype, D, a, stream);
 }
 
 // dk, dv [B, Hkv, Lk, D] in the input type, each summed over its GQA group;
-// 18 strides (q, k, v, do, dk, dv).
+// 18 strides (q, k, v, do, dk, dv).  With nsplit > 1 (wgmma body only) dk
+// and dv are instead f32 [B, Hkv * nsplit, Lk, D] partials, chunk z of kv
+// head hk at head index hk * nsplit + z, for the caller to sum over z.
 extern "C" int k8s_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dk, void* dv, int dtype, int B, int H, int Hkv,
                                  int L, int Lk, int D, const int64_t* strides,
-                                 float scale, int causal, int window, void* stream) {
+                                 float scale, int causal, int window, int nsplit,
+                                 void* stream) {
   const BwdArgs a = make_args(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, L, Lk,
-                              strides, 18, scale, causal, window);
+                              strides, 18, scale, causal, window, nsplit);
   return dispatch(1, dtype, D, a, stream);
+}
+
+// The dynamic shared memory of the body k8s_flash_bwd_dq (which = 0) or
+// k8s_flash_bwd_dkv (which = 1) launches for dtype and D (a report for the
+// smoke test), or -1.
+extern "C" int k8s_flash_bwd_smem(int which, int dtype, int D) {
+  if ((D != 16 && D != 32 && D != 64 && D != 128) || dtype < 0 || dtype > 2) return -1;
+  if (dtype == 0) {
+    switch (D) {
+      case 16: return (int)(which ? DkvFma<16>::bytes : DqFma<16>::bytes);
+      case 32: return (int)(which ? DkvFma<32>::bytes : DqFma<32>::bytes);
+      case 64: return (int)(which ? DkvFma<64>::bytes : DqFma<64>::bytes);
+      default: return (int)(which ? DkvFma<128>::bytes : DqFma<128>::bytes);
+    }
+  }
+  switch (D) {
+    case 16: return (int)(which ? DkvMma<__half, 16>::bytes : DqMma<__half, 16>::bytes);
+    case 32: return (int)(which ? DkvMma<__half, 32>::bytes : DqMma<__half, 32>::bytes);
+    case 64: return (int)(which ? DkvSmem<64>::bytes : DqMma<__half, 64>::bytes);
+    default: return (int)(which ? DkvSmem<128>::bytes : DqMma<__half, 128>::bytes);
+  }
 }

@@ -7,39 +7,50 @@
 // lse = NEG_INF; causal, sliding-window and bidirectional; returns o in the
 // input dtype and lse in f32.
 //
-// What bounds it on this card: at the serving shapes (D = 128, L in the
-// hundreds to thousands) attention does ~L/2 operations per byte it must
-// move, far above the H100's ~295 ops/byte line, so the bound is the
-// tensor cores' arithmetic, not HBM.  The TPU kernel's sequential k grid
-// with VMEM scratch becomes a loop inside one thread block:
-//   - one block per (batch, head, 64-row q tile), heaviest causal tiles
-//     scheduled first;
-//   - k/v stream through shared memory 64 rows at a time; only tiles that
-//     hold a visible key are visited (causal: none wholly in the future;
-//     window: from max(0, q_lo - window + 1), the visibility rule of
-//     _window_visible);
+// What bounds it on this card: at the serving and training shapes (D 64 or
+// 128, L in the hundreds to thousands) attention does ~L/2 operations per
+// byte it must move, far above the H100's ~295 ops/byte line, so the bound
+// is the tensor cores' arithmetic, and only wgmma reaches their full rate.
+// The TPU kernel's sequential k grid with VMEM scratch becomes a loop inside
+// one thread block; what every body shares:
+//   - heaviest causal q tiles are scheduled first;
+//   - only k tiles that hold a visible key are visited (causal: none wholly
+//     in the future; window: from max(0, q_lo - window + 1), the visibility
+//     rule of _window_visible);
 //   - m, l and the output accumulator stay in f32 registers;
 //   - GQA reads kv head h / (H / Hkv) directly, no repeated K/V;
 //   - q/k/v/o are read and written through (batch, head, row) strides, so
 //     both the [B, L, H, D] and [B, H, L, D] layouts need no copies;
-//   - ragged L and Lk are masked inside the tile (no divisor block sizes).
-// Two bodies, chosen by the input type:
-//   - bf16 / fp16 (the served path): flash_fwd_mma, four warps of 16 q rows
-//     each; q.k^T and p.v run on the tensor cores as mma.sync m16n8k16 with
-//     f32 accumulation; the q fragments stay in registers, k/v tiles come
-//     in through a two-stage cp.async pipeline and reach the tensor cores
-//     through ldmatrix (.trans for v), and the score tile's accumulator
-//     layout is reused directly as the A operand of p.v (p rounded to the
-//     input type, as flash kernels on GPUs do);
+//   - ragged L and Lk need no divisor block sizes.
+// Three bodies, chosen statically by input type and head_dim:
+//   - bf16 / fp16 at D 64 and 128 (the served and trained shapes):
+//     flash_fwd_wgmma.  One block per (batch, head, 128-row q tile): a
+//     producer warpgroup whose first thread issues every TMA load (Q once,
+//     then 128-key K and V tiles into a two-stage ring, completion on
+//     mbarriers; 4-D tensor maps over the caller's strides, whose
+//     out-of-bounds zero fill replaces tail masking on loads) and gives up
+//     its registers (setmaxnreg) to two consumer warpgroups of 64 q rows
+//     each.  A consumer runs S = Q.K^T as wgmma from shared memory (128-byte
+//     swizzle, D 128 split into two 64-column boxes), the online softmax in
+//     registers with exp2 and scale * log2(e) folded together, the element
+//     mask only on tiles that straddle the diagonal, the window edge or the
+//     end of the keys, then O += P.V as wgmma with P rounded to the input
+//     type straight from the score accumulators into the register A
+//     operand and V read [keys, D] with the transpose bit.  The two
+//     consumers share the tensor cores, so one's softmax overlaps the
+//     other's products; a consumer hands each stage back to the producer
+//     through an mbarrier, never __syncthreads;
+//   - bf16 / fp16 at D 16 and 32 (the tiny test shapes only):
+//     flash_fwd_mma, four warps of 16 q rows on mma.sync m16n8k16 with a
+//     cp.async double buffer and ldmatrix (a wgmma tile is 64 deep in k
+//     tiles of 16, wider than these heads need);
 //   - f32 (exact f32 arithmetic, as the tiny test model needs):
 //     flash_fwd_fma, f32 FMAs on the CUDA cores over a q tile held in
 //     shared memory.
-// Not yet done: TMA, wgmma and warp specialisation, which is the way to
-// the bound.
 
 #include <type_traits>
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -61,11 +72,13 @@ struct Tiles {
       (size_t)(BQ * QS + BK * QS + BK * D) * sizeof(T) + (size_t)BQ * PS * sizeof(float);
 };
 
-// mma body: two stages of k and v tiles in shared memory (the next tile
-// streams in with cp.async while the current one is used), rows padded by 16
-// bytes so the 8 row addresses of each ldmatrix hit different banks.
+// mma body (head_dim 16 and 32; the wgmma body takes 64 and 128): two
+// stages of k and v tiles in shared memory (the next tile streams in with
+// cp.async while the current one is used), rows padded by 16 bytes so the 8
+// row addresses of each ldmatrix hit different banks.
 template <typename T, int D>
 struct MmaTiles {
+  static_assert(D <= 32, "head_dim 64 and 128 take flash_fwd_wgmma");
   static constexpr int KS = D + 8;
   static constexpr size_t bytes = (size_t)2 * 2 * BK * KS * sizeof(T);
 };
@@ -386,6 +399,197 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(
   }
 }
 
+// wgmma body: tiles, warpgroups and shared memory.  Each box is
+// [rows][64] (128 bytes a row), so D = 128 keeps two boxes ("halves").
+namespace wg {
+constexpr int BQ = 128;       // q rows per block: two consumer warpgroups of 64
+constexpr int BK = 128;       // keys per streamed tile
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+}  // namespace wg
+
+template <int D>
+struct FwdSmem {
+  static constexpr int HALVES = D / 64;
+  static constexpr int Q_BYTES = wg::BQ * D * 2;
+  static constexpr int KV_BYTES = wg::BK * D * 2;
+  // 1024 bytes of alignment slack, Q, the K and V rings, the mbarriers
+  static constexpr size_t bytes = 1024 + Q_BYTES + 2 * wg::STAGES * KV_BYTES + 64;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(wg::THREADS, 1) flash_fwd_wgmma(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, T* __restrict__ o, float* __restrict__ lse, int H,
+    int Hkv, int L, int Lk, int64_t o_sb, int64_t o_sh, int64_t o_sl, float scale, int causal,
+    int window) {
+  constexpr int BQ = wg::BQ, BK = wg::BK, STAGES = wg::STAGES;
+  using S = FwdSmem<D>;
+  constexpr int HALVES = S::HALVES;
+  constexpr int NS = BK / 2;  // score accumulators a thread (m64n128)
+  constexpr int NO = D / 2;   // output accumulators a thread (m64nD)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_base1024(smem_raw);
+  T* qs = reinterpret_cast<T*>(base);               // [half][BQ][64]
+  T* ks = reinterpret_cast<T*>(base + S::Q_BYTES);  // [stage][half][BK][64]
+  T* vs = ks + STAGES * BK * D;                     // [stage][half][BK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + S::Q_BYTES + 2 * STAGES * S::KV_BYTES);
+  uint64_t* k_full = q_full + 1;       // [stage]
+  uint64_t* v_full = k_full + STAGES;  // [stage]
+  uint64_t* empty = v_full + STAGES;   // [stage]: one arrival per consumer warp
+
+  const int tid = threadIdx.x, wgi = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int kv_lo = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int kv_hi = causal ? min(Lk, q_lo + BQ) : Lk;
+  const int n_tiles = (kv_hi - kv_lo + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // producer: one thread issues every load; the warpgroup keeps 24
+    // registers a thread and hands the rest to the consumers
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_tx(q_full, S::Q_BYTES);
+      for (int hf = 0; hf < HALVES; ++hf)
+        tma_load4(qs + hf * BQ * 64, &tq, q_full, hf * 64, h, q_lo, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES, use = i / STAGES;
+        if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
+        const int t0 = kv_lo + i * BK;
+        T* kd = ks + st * BK * D;
+        T* vd = vs + st * BK * D;
+        mbar_arrive_tx(k_full + st, S::KV_BYTES);
+        for (int hf = 0; hf < HALVES; ++hf)
+          tma_load4(kd + hf * BK * 64, &tk, k_full + st, hf * 64, hk, t0, b);
+        mbar_arrive_tx(v_full + st, S::KV_BYTES);
+        for (int hf = 0; hf < HALVES; ++hf)
+          tma_load4(vd + hf * BK * 64, &tv, v_full + st, hf * 64, hk, t0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int c = wgi - 1;         // consumer: q rows r0 .. r0 + 63
+    const int r0 = q_lo + 64 * c;
+    const int g = lane >> 2, c2 = (lane & 3) * 2;
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+    // m: the running row max of score * scale * log2(e); l: this thread's
+    // share of the row sum (its quad holds the rest)
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float acc[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) acc[e] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES, ph = (i / STAGES) & 1;
+      const int t0 = kv_lo + i * BK;
+      const T* kt = ks + st * BK * D;
+      const T* vt = vs + st * BK * D;
+      // wholly masked for these 64 rows: nothing to do (warpgroup-uniform)
+      const bool skip = (causal && t0 > r0 + 63) || (window > 0 && r0 - (t0 + BK - 1) >= window);
+      mbar_wait(k_full + st, ph);
+      if (!skip) {
+        // S = Q.K^T: accumulator e is row rows[(e >> 1) & 1], key
+        // t0 + 8 (e / 4) + c2 + (e & 1)
+        float s[NS];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint64_t da =
+              desc_sw128(qs + (kk / 4) * BQ * 64 + c * 64 * 64 + (kk % 4) * 16, 16, 1024);
+          const uint64_t db = desc_sw128(kt + (kk / 4) * BK * 64 + (kk % 4) * 16, 16, 1024);
+          wgmma_ss(s, da, db, kk > 0, (T*)nullptr);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(s);
+
+        // the element mask, only where the tile straddles the diagonal,
+        // the window edge or the end of the keys
+        const bool edge = t0 + BK > Lk || (causal && t0 + BK - 1 > r0) ||
+                          (window > 0 && r0 + 63 - t0 >= window);
+        if (edge) {
+#pragma unroll
+          for (int e = 0; e < NS; ++e) {
+            const int kp = t0 + (e / 4) * 8 + c2 + (e & 1);
+            if (!visible(rows[(e >> 1) & 1], kp, Lk, causal, window)) s[e] = NEG_INF;
+          }
+        }
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int e = 0; e < NS; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+        float safe[2], alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r] <= NEG_INF / 2 ? NEG_INF : mx[r] * sl2);
+          safe[r] = m_new <= NEG_INF / 2 ? 0.f : m_new;
+          alpha[r] = m[r] <= NEG_INF / 2 ? 0.f : exp2f(m[r] - safe[r]);
+          m[r] = m_new;
+          l[r] *= alpha[r];
+        }
+        // p in place of s (a masked score gives exp2(-1.4e30) = 0)
+#pragma unroll
+        for (int e = 0; e < NS; ++e) {
+          const int r = (e >> 1) & 1;
+          s[e] = exp2f(fmaf(s[e], sl2, -safe[r]));
+          l[r] += s[e];
+        }
+#pragma unroll
+        for (int e = 0; e < NO; ++e) acc[e] *= alpha[(e >> 1) & 1];
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) acc_to_a<T>(s, j, pa[j]);
+
+        // O += P.V: V [keys][D] is the MN-major B operand
+        mbar_wait(v_full + st, ph);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j)
+          wgmma_rs(acc, pa[j], desc_sw128(vt + j * 16 * 64, BK * 128, 1024), (T*)nullptr);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(acc);
+      } else {
+        mbar_wait(v_full + st, ph);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int qp = rows[r];
+      if (qp >= L) continue;
+      const float den = fmaxf(l[r], 1e-30f);
+      T* ob = o + b * o_sb + h * o_sh + (int64_t)qp * o_sl;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(ob + 8 * j + c2) =
+            pack2<T>(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+      if ((lane & 3) == 0)
+        lse[(int64_t)bh * L + qp] =
+            m[r] <= NEG_INF / 2 ? NEG_INF : m[r] * 0.6931471805599453f + logf(den);
+    }
+  }
+}
+
 template <typename T, typename Kernel>
 int run(Kernel kern, int threads, size_t smem, const void* q, const void* k,
         const void* v, void* o, void* lse, int B, int H, int Hkv, int L, int Lk,
@@ -403,12 +607,37 @@ int run(Kernel kern, int threads, size_t smem, const void* q, const void* k,
 }
 
 template <typename T, int D>
+int run_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+              int Hkv, int L, int Lk, const int64_t* st, float scale, int causal, int window,
+              cudaStream_t stream) {
+  constexpr int dtype = std::is_same<T, __nv_bfloat16>::value ? 1 : 2;
+  CUtensorMap mq, mk, mv;
+  int e = make_map(&mq, q, dtype, D, H, L, B, st[0], st[1], st[2], wg::BQ);
+  if (!e) e = make_map(&mk, k, dtype, D, Hkv, Lk, B, st[3], st[4], st[5], wg::BK);
+  if (!e) e = make_map(&mv, v, dtype, D, Hkv, Lk, B, st[6], st[7], st[8], wg::BK);
+  if (e) return e;
+  auto kern = flash_fwd_wgmma<T, D>;
+  const size_t smem = FwdSmem<D>::bytes;
+  cudaError_t r = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (r != cudaSuccess) return (int)r;
+  dim3 grid((L + wg::BQ - 1) / wg::BQ, B * H);
+  kern<<<grid, wg::THREADS, smem, stream>>>(mq, mk, mv, static_cast<T*>(o),
+                                            static_cast<float*>(lse), H, Hkv, L, Lk, st[9],
+                                            st[10], st[11], scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+// The body for a type and head_dim (a static choice, no fallback).
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
            int H, int Hkv, int L, int Lk, const int64_t* st, float scale,
            int causal, int window, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value)
     return run<T>(flash_fwd_fma<T, D>, NT, Tiles<T, D>::bytes, q, k, v, o, lse, B,
                   H, Hkv, L, Lk, st, scale, causal, window, stream);
+  else if constexpr (D >= 64)
+    return run_wgmma<T, D>(q, k, v, o, lse, B, H, Hkv, L, Lk, st, scale, causal, window,
+                           stream);
   else
     return run<T>(flash_fwd_mma<T, D>, MMA_THREADS, MmaTiles<T, D>::bytes, q, k, v,
                   o, lse, B, H, Hkv, L, Lk, st, scale, causal, window, stream);
@@ -432,7 +661,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, void
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  strides: 12 element strides,
 // (batch, head, row) for q, k, v, o in that order; the last dim is contiguous.
 // lse is a contiguous [B, H, L] float32 buffer.  window <= 0 means none.
-// Returns the cudaError_t of the launch (0 = launched).
+// Returns the cudaError_t of the launch (0 = launched), or for the wgmma
+// body flash::NO_ENCODER / flash::MAP_ERROR + CUresult when a tensor map
+// cannot be made.
 extern "C" int k8s_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int dtype, int B, int H, int Hkv, int L,
                              int Lk, int D, const int64_t* strides, float scale,
@@ -443,5 +674,26 @@ extern "C" int k8s_flash_fwd(const void* q, const void* k, const void* v, void* 
     case 1: return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Hkv, L, Lk, strides, scale, causal, window, s);
     case 2: return dispatch_d<__half>(D, q, k, v, o, lse, B, H, Hkv, L, Lk, strides, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory of the body k8s_flash_fwd launches for dtype and
+// D (a report for the smoke test), or -1.
+extern "C" int k8s_flash_fwd_smem(int dtype, int D) {
+  if (D != 16 && D != 32 && D != 64 && D != 128) return -1;
+  if (dtype == 0) {
+    switch (D) {
+      case 16: return (int)Tiles<float, 16>::bytes;
+      case 32: return (int)Tiles<float, 32>::bytes;
+      case 64: return (int)Tiles<float, 64>::bytes;
+      default: return (int)Tiles<float, 128>::bytes;
+    }
+  }
+  if (dtype != 1 && dtype != 2) return -1;
+  switch (D) {
+    case 16: return (int)MmaTiles<__half, 16>::bytes;
+    case 32: return (int)MmaTiles<__half, 32>::bytes;
+    case 64: return (int)FwdSmem<64>::bytes;
+    default: return (int)FwdSmem<128>::bytes;
   }
 }

@@ -33,6 +33,7 @@ tensors launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -41,8 +42,12 @@ from k8s_tpu_torch.ops._common import count_launch, use_plain
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+N_SMS = 132  # streaming multiprocessors of one H100 SXM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns: dict = {}
+# what a launch's nonzero return means (csrc/flash_sm90.cuh)
+_ERRORS = ("error (a cudaError_t; 990: no tensor-map encoder in the driver; "
+           "1000 + a CUresult: a tensor map refused)")
 
 
 def _kernel(name: str = "fwd"):
@@ -51,13 +56,17 @@ def _kernel(name: str = "fwd"):
     fn = _fns.get(name)
     if fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        tail = [i, i, i, i, i, i, i, p, ctypes.c_float, i, i, p]
+        # dtype, B, H, Hkv, L, Lk, D, strides, scale, causal, window
+        shape = [i, i, i, i, i, i, i, p, ctypes.c_float, i, i]
         if name == "fwd":
             fn = _build.load("flash_fwd").k8s_flash_fwd
-            fn.argtypes = [p] * 5 + tail
-        else:
-            fn = getattr(_build.load("flash_bwd"), "k8s_flash_" + name)
-            fn.argtypes = [p] * (7 if name == "bwd_dq" else 8) + tail
+            fn.argtypes = [p] * 5 + shape + [p]
+        elif name == "bwd_dq":
+            fn = _build.load("flash_bwd").k8s_flash_bwd_dq
+            fn.argtypes = [p] * 7 + shape + [p]
+        else:  # bwd_dkv also takes nsplit
+            fn = _build.load("flash_bwd").k8s_flash_bwd_dkv
+            fn.argtypes = [p] * 8 + shape + [i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -164,13 +173,15 @@ def _dtype_code(*ts) -> int:
 
 def _aligned(t, code: int) -> bool:
     """The kernels' layout: a contiguous head_dim and, for the 16-bit
-    bodies (which copy rows in 16-byte chunks), 16-byte aligned data and
-    batch/head/row strides that are multiples of 8."""
+    bodies (which copy rows in 16-byte chunks, by TMA at D 64 and 128),
+    16-byte aligned data and batch/head/row strides that are nonzero
+    multiples of 8."""
     if t.stride(3) != 1:
         return False
     return not code or not (
         t.data_ptr() % 16
-        or any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1))
+        or any(t.stride(i) % 8 or not t.stride(i)
+               for i in range(3) if t.shape[i] > 1))
 
 
 def _check_launch(q, k, v, *outs) -> int:
@@ -194,7 +205,7 @@ def _check_launch(q, k, v, *outs) -> int:
                 raise ValueError("flash kernel needs a contiguous head_dim")
             raise ValueError(
                 "flash kernel needs 16-byte aligned bf16/fp16 rows (data "
-                "and batch/head/row strides multiples of 8)")
+                "and batch/head/row strides nonzero multiples of 8)")
     return code
 
 
@@ -220,7 +231,7 @@ def _launch(q, k, v, o, lse, scale: float, causal: bool, window) -> None:
                         L, k.shape[2], D, strides, float(scale), int(causal),
                         0 if window is None else int(window), _stream(q))
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_fwd kernel launch failed: {_ERRORS} {err}")
     count_launch("flash_fwd")
 
 
@@ -236,22 +247,125 @@ def _bwd_operands(q, o, lse, do):
     return do, lse.reshape(B, H, L).contiguous(), delta
 
 
+@dataclasses.dataclass(frozen=True)
+class DkvPlan:
+    """How the dk/dv kernel covers a problem: its ``body`` (``wgmma``,
+    ``mma`` or ``fma``), the keys a block owns (``block_keys``), the q rows
+    it streams at a time (``q_tile``), into how many chunks each block's
+    (query head, q tile) list is split (``nsplit``; above 1 each chunk
+    writes an f32 partial that the wrapper sums), and the launch ``grid``
+    ``(key tiles, B * Hkv, nsplit)``."""
+
+    body: str
+    block_keys: int
+    q_tile: int
+    nsplit: int
+    grid: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _q_span(k_lo: int, block_keys: int, L: int, causal: bool, window):
+    """The query rows ``[begin, end)`` that can see a key of the tile
+    starting at ``k_lo`` (the kernel's rule, ``_window_span_q``)."""
+    begin = k_lo if causal else 0
+    end = min(L, k_lo + block_keys - 1 + window) if window else L
+    return begin, end
+
+
+def _dkv_plan(B: int, H: int, Hkv: int, L: int, Lk: int, D: int,
+              causal: bool, window=None, dtype=torch.bfloat16,
+              sms: int = N_SMS) -> DkvPlan:
+    """The dk/dv kernel's body, tiles and grid for a shape; shape only,
+    never a failure.  The wgmma body (16-bit, D 64 and 128) owns 128 keys
+    a block.  When ``B * Hkv * ceil(Lk / 128)`` blocks would not fill the
+    ``sms`` SMs, each block's group list is split: into one chunk per
+    query head of the group, and into ``r`` chunks per head when that is
+    still too few, never more chunks than the busiest key tile has items."""
+    if dtype == torch.float32:
+        body, bk, bq = "fma", 64, 64
+    elif D < 64:
+        body, bk, bq = "mma", 64, 64
+    else:
+        body, bk, bq = "wgmma", 128, 64
+    tiles = -(-Lk // bk)
+    base = B * Hkv * tiles
+    G = H // Hkv
+    nsplit = 1
+    if body == "wgmma" and base < sms:
+        nsplit = G if base * G >= sms else G * -(-sms // (base * G))
+        begin, end = _q_span(0, bk, L, causal, window)
+        most = G * max(0, -(-(end - begin) // bq))
+        nsplit = max(1, min(nsplit, most))
+    return DkvPlan(body, bk, bq, nsplit, (tiles, B * Hkv, nsplit))
+
+
+def _dkv_block_items(plan: DkvPlan, key_tile: int, chunk: int, H: int,
+                     Hkv: int, L: int, causal: bool, window):
+    """The (query head within the group, first q row) items the block
+    ``(key_tile, *, chunk)`` walks, in the kernel's order."""
+    begin, end = _q_span(key_tile * plan.block_keys, plan.block_keys, L,
+                         causal, window)
+    nqt = -(-(end - begin) // plan.q_tile) if end > begin else 0
+    total = (H // Hkv) * nqt
+    lo = chunk * total // plan.nsplit
+    hi = (chunk + 1) * total // plan.nsplit
+    return [(it // nqt, begin + (it % nqt) * plan.q_tile)
+            for it in range(lo, hi)]
+
+
 def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
-                causal: bool, window) -> None:
+                causal: bool, window, nsplit: int = 1) -> None:
     """Launch the backward kernel ``name`` (``bwd_dq`` into ``outs =
-    (dq,)``, ``bwd_dkv`` into ``(dk, dv)``)."""
+    (dq,)``, ``bwd_dkv`` into ``(dk, dv)``, or with ``nsplit`` > 1 into
+    the two f32 ``[B, Hkv * nsplit, Lk, D]`` partials)."""
     B, H, L, D = q.shape
-    code = _check_launch(q, k, v, do, *outs)
+    if nsplit > 1:
+        code = _check_launch(q, k, v, do)
+    else:
+        code = _check_launch(q, k, v, do, *outs)
+    extra = (nsplit,) if name == "bwd_dkv" else ()
     with torch.cuda.device(q.device):
         err = _kernel(name)(
             *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)), code,
             B, H, k.shape[1], L, k.shape[2], D, _strides(q, k, v, do, *outs),
             float(scale), int(causal), 0 if window is None else int(window),
-            _stream(q))
+            *extra, _stream(q))
     if err != 0:
-        raise RuntimeError(f"flash_{name} kernel launch failed: cudaError "
+        raise RuntimeError(f"flash_{name} kernel launch failed: {_ERRORS} "
                            f"{err}")
     count_launch("flash_" + name)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, dk, dv, scale: float, causal: bool,
+                window) -> None:
+    """The dk/dv kernel by its plan: straight into ``dk``/``dv``, or into
+    f32 partials summed over each block's chunks in a fixed order (no
+    atomics, so the result does not change from run to run)."""
+    B, H, L, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    plan = _dkv_plan(B, H, Hkv, L, Lk, D, causal, window, q.dtype)
+    if plan.nsplit == 1:
+        _launch_bwd("bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale,
+                    causal, window)
+        return
+    part = torch.empty((2, B, Hkv * plan.nsplit, Lk, D), dtype=torch.float32,
+                       device=q.device)
+    _launch_bwd("bwd_dkv", q, k, v, do, lse, delta, (part[0], part[1]),
+                scale, causal, window, plan.nsplit)
+    total = _dkv_group_sum(part, Hkv, plan.nsplit)
+    dk.copy_(total[0])
+    dv.copy_(total[1])
+
+
+def _dkv_group_sum(part, Hkv: int, nsplit: int):
+    """The second pass of the split path: ``part`` ``[..., B, Hkv * nsplit,
+    Lk, D]`` f32 partials (chunk z of kv head hk at head hk * nsplit + z)
+    summed over z, one torch reduction in a fixed order."""
+    *lead, B, _, Lk, D = part.shape
+    return part.view(*lead, B, Hkv, nsplit, Lk, D).sum(-3)
 
 
 def flash_bwd(q, k, v, o, lse, do, scale: float, causal: bool = True,
@@ -269,8 +383,7 @@ def flash_bwd(q, k, v, o, lse, do, scale: float, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _launch_bwd("bwd_dq", q, k, v, do, lse, delta, (dq,), scale, causal,
                 window)
-    _launch_bwd("bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale, causal,
-                window)
+    _launch_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal, window)
     return dq, dk, dv
 
 
