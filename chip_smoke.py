@@ -14,8 +14,10 @@ Phases, each fatal on failure:
    window inside one tile, bidirectional Lk != L), with stated
    tolerances; kernel, plain and library-call device times and
    back-to-back wall times (CUDA events) beside the bound; each body's
-   registers, spills and shared memory; dk/dv bit-identical across two
-   runs on both the split and the unsplit path.
+   registers, spills and shared memory; dq and dk/dv bit-identical across
+   two runs (dk/dv on both the split and the unsplit path); the delta the
+   dq kernel writes against a torch reduction; RMSNorm timed over rotated
+   buffers larger than the L2.
 4. parity: the tiny test model (f32, both kernels on) generates the same
    greedy tokens on cuda (kernels) and cpu (plain versions), and its
    logits agree; then it trains 5 Adam steps on each from the same
@@ -65,6 +67,7 @@ OUT_DIR = os.path.join(REPO, "chip_reports")
 PEAK_16BIT = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50 * 2 ** 20  # the H100 SXM's L2 cache
 
 REPORT: dict = {"cases": []}
 
@@ -120,6 +123,19 @@ def timed(torch, prefix: str, fn, **kw) -> dict:
     return {prefix + "ms": t["ms"], prefix + "wall_ms": t["wall_ms"]}
 
 
+def rotating(fn, xs, n: int):
+    """A call of ``fn`` on ``xs[0]``, ``xs[1]``, ... in turn (``n`` of
+    them, then around again), each call's output kept alive until its slot
+    comes round again, so the calls read and write ``n`` distinct buffers."""
+    keep, count = [None] * n, [0]
+
+    def call():
+        i = count[0] % n
+        count[0] += 1
+        keep[i] = fn(xs[i])
+    return call
+
+
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, \
@@ -147,8 +163,7 @@ def build_report(_build, kernel: str, dtype, D: int, split=False) -> dict:
     dynamic shared memory from the library's own size query."""
     import re
     code = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}[str(dtype)]
-    body = "fma" if code == 0 else (
-        "wgmma" if D >= 64 and kernel != "flash_bwd_dq" else "mma")
+    body = "fma" if code == 0 else ("wgmma" if D >= 64 else "mma")
     tmpl = f"Li{D}E" if code == 0 else f"{_TYPE_TOKENS[str(dtype)]}Li{D}E"
     if kernel == "flash_fwd":
         source, fn = "flash_fwd", f"flash_fwd_{body}I" + ("f" if code == 0 else "") + tmpl
@@ -156,7 +171,7 @@ def build_report(_build, kernel: str, dtype, D: int, split=False) -> dict:
     else:
         source, which = "flash_bwd", kernel[len("flash_bwd_"):]
         fn = f"flash_bwd_{which}_{body}I" + tmpl
-        if body == "wgmma":
+        if body == "wgmma" and which == "dkv":
             fn = f"flash_bwd_dkv_wgmmaI{_TYPE_TOKENS[str(dtype)]}" \
                  f"{'f' if split else 'S1_'}Li{D}E"
         smem = _build.load(source).k8s_flash_bwd_smem(int(which == "dkv"), code, D)
@@ -186,7 +201,12 @@ def rms_cases(torch, F, fused_norm):
     relative (summation order and rsqrt rounding only); 16-bit x one
     rounding step of x.dtype (the normalized row is rounded to x.dtype, and
     an rsqrt one ulp apart can round it the other way), plus one step of a
-    16-bit output."""
+    16-bit output.  The timed calls rotate over copies of x and keep their
+    outputs, twice the L2's bytes in all, so every call reads x from HBM
+    and writes an output that is not in the L2.  The library call
+    (``F.rms_norm``, scale cast to x.dtype) writes x.dtype: it computes
+    K1's function only where the scale is x.dtype too (``bf16x_bf16s``);
+    no PyTorch call writes K1's f32 output from a bf16 x."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = [("main_prefill", 509, 4096, bf, f32),
              ("main_decode", 1, 4096, bf, f32),
@@ -219,18 +239,23 @@ def rms_cases(torch, F, fused_norm):
         if not bool((diff <= 1e-6 + rtol * ref.float().abs()).all()):
             fail(f"rms_norm {name}: max abs err {err} beyond rtol {rtol}")
         w16 = s.to(xd)
-        nbytes = N * D * (x.element_size() + got.element_size()) \
-            + D * s.element_size()
+        per_call = N * D * (x.element_size() + got.element_size())
+        n_buf = max(2, -(-2 * L2_BYTES // per_call))
+        xs = x.expand(n_buf, N, D).clone()
+        nbytes = per_call + D * s.element_size()
         b_ms, b_by = bound(4 * N * D, nbytes, PEAK_F32)
         rec = {"phase": "kernel", "kernel": "rms_norm", "case": name,
                "shape": [N, D], "x": str(xd), "scale": str(sd),
-               "max_abs_err": err, "rtol": rtol,
-               **timed(torch, "", lambda: fused_norm.rms_norm(x, s)),
-               **timed(torch, "plain_",
-                       lambda: fused_norm.rms_norm_plain(x, s)),
-               **timed(torch, "library_",
-                       lambda: F.rms_norm(x, (D,), w16, 1e-6)),
+               "max_abs_err": err, "rtol": rtol, "rotated_buffers": n_buf,
+               **timed(torch, "", rotating(
+                   lambda xi: fused_norm.rms_norm(xi, s), xs, n_buf)),
+               **timed(torch, "plain_", rotating(
+                   lambda xi: fused_norm.rms_norm_plain(xi, s), xs, n_buf)),
+               **timed(torch, "library_", rotating(
+                   lambda xi: F.rms_norm(xi, (D,), w16, 1e-6), xs, n_buf)),
+               "library_same_output_type": got.dtype == xd,
                "bound_ms": b_ms, "bound_by": b_by}
+        del xs
         emit(rec)
         REPORT["cases"].append(rec)
         out[name] = rec
@@ -331,11 +356,16 @@ def flash_bwd_cases(torch, F, flash, _build):
     (summation order only); 16-bit 2e-2: the kernels round p and ds to the
     input type before their products (relative 2^-9 each, over sums of up
     to 2048 x 4 terms) and round each gradient to it once more on the way
-    out, while the plain version keeps all of it in f32.  dk and dv must
-    come out bit-identical from a second run on the same inputs, on the
-    dk/dv kernel's split path (f32 partials summed by the wrapper) and its
-    unsplit path alike; ``_dkv_plan`` puts gpt2_train and llama_509 on
-    different sides, and each record names its side."""
+    out, while the plain version keeps all of it in f32.  dq, dk and dv
+    must come out bit-identical from a second run on the same inputs, on
+    the dk/dv kernel's split path (f32 partials summed by the wrapper) and
+    its unsplit path alike; ``_dkv_plan`` puts gpt2_train and llama_509 on
+    different sides, and each record names its side; each dq record names
+    its ``_dq_plan``, whose body must be the one the build reports.  The
+    delta the dq kernel writes (f32 ``rowsum(do * o)``) must match
+    ``(do.float() * o.float()).sum(-1)`` within 1e-5 of the row's
+    ``sum(|do * o|)``: the two sum the same f32 products in different
+    orders."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = [("gpt2_train", 8, 12, 12, 1024, 1024, 64, bf, True, None),
              ("llama_509", 1, 32, 8, 509, 509, 128, bf, True, None),
@@ -379,17 +409,30 @@ def flash_bwd_cases(torch, F, flash, _build):
         again = flash.flash_bwd(q, k, v, o, lse, do, *args)
         torch.cuda.synchronize()
         plan = flash._dkv_plan(B, H, Hkv, L, Lk, D, causal, window, dt)
+        dq_plan = flash._dq_plan(B, H, L, D, dt)
         path = "split" if plan.nsplit > 1 else "unsplit"
+        if not torch.equal(got[0], again[0]):
+            fail(f"flash_bwd {name}: dq differs between two runs on the same "
+                 "inputs")
         if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
             fail(f"flash_bwd {name}: dk/dv differ between two runs on the "
                  f"same inputs ({path} path)")
 
         # each kernel alone, on the operands flash_bwd hands it (the dk/dv
         # kernel with its plan's partial sums), then the whole backward
-        do_k, lse_k, delta = flash._bwd_operands(q, o, lse, do)
+        do_k, o_k, lse_k, delta = flash._bwd_operands(q, o, lse, do)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        flash._launch_bwd("bwd_dq", q, k, v, do_k, lse_k, delta, (dq,),
+                          *args, o=o_k)
+        prod = do.float() * o.float()
+        delta_err = ((delta - prod.sum(-1)).abs()
+                     / prod.abs().sum(-1).clamp_min(1e-30)).max().item()
+        if not delta_err <= 1e-5:
+            fail(f"flash_bwd {name}: the dq kernel's delta is {delta_err} of "
+                 "sum(|do * o|) off the f32 torch reduction (tol 1e-5)")
+        del prod
         t_dq = time_ms(torch, lambda: flash._launch_bwd(
-            "bwd_dq", q, k, v, do_k, lse_k, delta, (dq,), *args))
+            "bwd_dq", q, k, v, do_k, lse_k, delta, (dq,), *args, o=o_k))
         t_dkv = time_ms(torch, lambda: flash._launch_dkv(
             q, k, v, do_k, lse_k, delta, dk, dv, *args))
         t_pair = time_ms(torch, lambda: flash.flash_bwd(
@@ -420,9 +463,15 @@ def flash_bwd_cases(torch, F, flash, _build):
         q_bytes, kv_bytes = esz * B * H * L * D, esz * B * Hkv * Lk * D
         row_bytes = 2 * 4 * B * H * L  # lse and delta
         peak = PEAK_16BIT if esz == 2 else PEAK_F32
+        dq_rep = build_report(_build, "flash_bwd_dq", dt, D)
+        if dq_rep["body"] != "flash_bwd_dq:" + dq_plan.body:
+            fail(f"flash_bwd {name}: _dq_plan names body {dq_plan.body}, the "
+                 f"build runs {dq_rep['body']}")
         for kname, flops_per, nbytes, t, extra in (
-                ("flash_bwd_dq", 6, 3 * q_bytes + 2 * kv_bytes + row_bytes,
-                 t_dq, build_report(_build, "flash_bwd_dq", dt, D)),
+                ("flash_bwd_dq", 6, 4 * q_bytes + 2 * kv_bytes + row_bytes,
+                 t_dq, {**dq_rep, "plan": dataclasses.asdict(dq_plan),
+                        "blocks": dq_plan.blocks, "delta_rel_err": delta_err,
+                        "deterministic": True}),
                 ("flash_bwd_dkv", 8, 2 * q_bytes + 4 * kv_bytes + row_bytes,
                  t_dkv, {**build_report(_build, "flash_bwd_dkv", dt, D,
                                         split=plan.nsplit > 1),
@@ -441,7 +490,8 @@ def flash_bwd_cases(torch, F, flash, _build):
                    "library_ms": library_ms,
                    "library_is": "SDPA forward+backward minus SDPA forward",
                    "bwd_pair_ms": t_pair["ms"],
-                   "bwd_pair_is": "flash_bwd: delta, K3 and K4 together",
+                   "bwd_pair_is": "flash_bwd: K3 (with delta) and K4 "
+                                  "together",
                    "bound_ms": b_ms, "bound_by": b_by,
                    "visible_pairs": pairs, **extra}
             emit(rec)
@@ -922,7 +972,7 @@ def main() -> int:
             ("flash_fwd", "cuda", "k8s_tpu_torch/csrc/flash_fwd.cu",
              "k8s_tpu/ops/flash_attention.py:99", fl["gpt2_train"]),
             ("rms_norm", "triton", "k8s_tpu_torch/ops/fused_norm.py",
-             "k8s_tpu/ops/fused_norm.py:29", rms["bf16x_f32s"]),
+             "k8s_tpu/ops/fused_norm.py:29", rms["bf16x_bf16s"]),
             ("flash_bwd_dq", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cu",
              "k8s_tpu/ops/flash_attention.py:233",
              bw[("flash_bwd_dq", "gpt2_train")]),
@@ -944,7 +994,7 @@ def main() -> int:
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"],
                         **{key: rec[key] for key in (
-                            "body", "registers", "spill_stores",
+                            "body", "plan", "registers", "spill_stores",
                             "spill_loads", "smem_dynamic_bytes")
                            if key in rec}})
     REPORT["kernels"] = kernels

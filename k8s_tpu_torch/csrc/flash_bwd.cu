@@ -6,22 +6,45 @@
 //   - K4 _dkv_kernel: dv = sum_q p^T.do, dk = sum_q ds^T.q;
 // with p = exp(s - lse) recomputed from the forward's saved lse (s the
 // scaled, masked score), dp = do.v^T, ds = p * (dp - delta) * scale and
-// delta = rowsum(do * o) (an f32 reduction the caller computes, as the
-// reference does in XLA).  Masked entries give p = 0, so a fully masked row
-// contributes nothing; the element mask is the forward's (flash::visible).
+// delta = rowsum(do * o).  The reference computes delta in XLA before its
+// kernels; here the dq kernel computes it in f32 for its own q rows, uses
+// it, and writes it to a contiguous [B, H, L] buffer that the dk/dv kernel,
+// launched after it on the same stream, reads.  Masked entries give p = 0,
+// so a fully masked row contributes nothing; the element mask is the
+// forward's (flash::visible).
 //
 // What bounds it on this card: the backward does 2.5x the forward's
-// products over the same visible (q, k) pairs (dq: q.k^T, do.v^T, ds.k;
-// dk/dv: q.k^T, do.v^T, p^T.do, ds^T.q), far above the H100's ~295 ops/byte
-// line at the training shapes, so the tensor cores' arithmetic is the bound.
-// The TPU kernels carry dq_acc / dk_acc / dv_acc in VMEM scratch across an
-// in-order inner grid axis; on the card one block owns its output tile and
-// loops instead, accumulating in f32 registers and writing once, through
-// (batch, head, row) strides so the [B, L, H, D] model layout needs no
-// copies:
-//   - dq (K3): one block per (batch, head, 64-row q tile), looping over the
-//     k tiles the forward visits; four warps of 16 rows on mma.sync
-//     m16n8k16 with cp.async double buffering and ldmatrix;
+// products over the same visible (q, k) pairs (dq: q.k^T, do.v^T, ds.k, 6 D
+// flops a pair; dk/dv: q.k^T, do.v^T, p^T.do, ds^T.q, 8 D), far above the
+// H100's ~295 ops/byte line at the training shapes, so the tensor cores'
+// arithmetic is the bound.  The TPU kernels carry dq_acc / dk_acc / dv_acc
+// in VMEM scratch across an in-order inner grid axis; on the card one block
+// owns its output tile and loops instead, accumulating in f32 registers and
+// writing once, through (batch, head, row) strides so the [B, L, H, D]
+// model layout needs no copies:
+//   - dq (K3, k8s_tpu/ops/flash_attention.py:233 _dq_kernel), bf16 / fp16
+//     at D 64 and 128: flash_bwd_dq_wgmma.  One block per (batch, head,
+//     128-row q tile), built like the forward's wgmma body: a producer
+//     warpgroup (setmaxnreg down to 24 registers) whose first thread loads
+//     the q and do tiles once and streams K and V tiles by TMA into a
+//     two-stage mbarrier ring, over the key tiles the forward visits for
+//     those rows (causal: up to the last q row; window: from
+//     q_lo - window + 1); two consumer warpgroups of 64 q rows each compute
+//     their rows' delta from do and o while the first tiles land, then per
+//     key tile run s = Q.K^T and dp = dO.V^T as wgmma from shared memory,
+//     p = 2^(s scale log2(e) - lse log2(e)) on the special-function unit
+//     and ds in registers (the element mask only on edge tiles, p computed
+//     while dp's product still runs), and dq += ds.K as wgmma with ds
+//     rounded to the input type straight into the register A operand and K
+//     read with the transpose bit.  In bf16 (f32's exponent range) the
+//     scale is left out of ds and applied to dq once at the end; fp16 keeps
+//     it in ds for range.  dq is an f32 m64nD accumulator written once,
+//     with no atomics, so it is deterministic.  Blocks launch heaviest q
+//     tile first across every (batch, head) (ops/flash_attention.py:
+//     _dq_plan), so the causal tail is made of short blocks;
+//   - dq, bf16 / fp16 at D 16 and 32 (the tiny test shapes only): one block
+//     per 64-row q tile, four warps of 16 rows on mma.sync m16n8k16 with
+//     cp.async double buffering and ldmatrix;
 //   - dk/dv (K4), bf16 / fp16 at D 64 and 128: flash_bwd_dkv_wgmma.  One
 //     block per 128-key tile: a producer warpgroup (setmaxnreg down to 24
 //     registers) whose first warp loads K and V once and streams q and do
@@ -60,10 +83,13 @@ constexpr int BK = 64;            // k rows per block (dk/dv) or per tile (dq)
 constexpr int NT = 256;           // fma bodies: 16 x 16 threads
 constexpr int MMA_THREADS = 128;  // mma bodies: 4 warps x 16 rows
 
-// (batch, head, row) element strides of q, k, v, do and then the outputs
-// (dq; or dk, dv); the last dim is contiguous.
+// The tensors a launch addresses through strides.
+enum { T_Q, T_K, T_V, T_DO, T_OUT0, T_OUT1, T_O };
+
+// (batch, head, row) element strides of q, k, v, do, the outputs (dq; or
+// dk, dv) and o (dq only), in T_* order; the last dim is contiguous.
 struct Strides {
-  int64_t s[18];
+  int64_t s[21];
 };
 
 struct BwdArgs {
@@ -71,8 +97,9 @@ struct BwdArgs {
   const void* k;
   const void* v;
   const void* dout;
+  const void* o;       // dq only
   const float* lse;    // [B, H, L] contiguous
-  const float* delta;  // [B, H, L] contiguous
+  float* delta;        // [B, H, L] contiguous: written by dq, read by dk/dv
   void* out0;          // dq, or dk
   void* out1;          // dv
   int B, H, Hkv, L, Lk;
@@ -82,36 +109,90 @@ struct BwdArgs {
   int nsplit;  // dk/dv wgmma body: chunks of each block's (head, q tile) list
 };
 
-// Offset of (batch b, head h, row r) of tensor t (0 q, 1 k, 2 v, 3 do, 4 out0,
-// 5 out1).
+// Offset of (batch b, head h, row r) of tensor t (T_*).
 __device__ __forceinline__ int64_t off(const Strides& st, int t, int b, int h, int r) {
   return b * st.s[3 * t] + h * st.s[3 * t + 1] + (int64_t)r * st.s[3 * t + 2];
 }
 
-// lse with a fully masked row's NEG_INF taken as 0 (the reference's
-// safe_lse), and delta; 0 past L.
+// The lse of row qp with a fully masked row's NEG_INF taken as 0 (the
+// reference's safe_lse); 0 past L.
+__device__ __forceinline__ float row_lse(const BwdArgs& a, int bh, int qp) {
+  if (qp >= a.L) return 0.f;
+  const float l = a.lse[(int64_t)bh * a.L + qp];
+  return l <= NEG_INF / 2 ? 0.f : l;
+}
+
+// lse (row_lse) and delta; 0 past L.
 __device__ __forceinline__ void row_stats(const BwdArgs& a, int bh, int qp, float& lse,
                                           float& delta) {
-  if (qp < a.L) {
-    const float l = a.lse[(int64_t)bh * a.L + qp];
-    lse = l <= NEG_INF / 2 ? 0.f : l;
-    delta = a.delta[(int64_t)bh * a.L + qp];
+  lse = row_lse(a, bh, qp);
+  delta = qp < a.L ? a.delta[(int64_t)bh * a.L + qp] : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ float dot2(uint32_t x, uint32_t y, float acc) {
+  const float2 a = unpack2<T>(x), b = unpack2<T>(y);
+  return fmaf(a.y, b.y, fmaf(a.x, b.x, acc));
+}
+
+// This lane's share of the f32 dot product of two rows of D values: lane
+// `part` (0..3) of a quad takes every fourth 16-byte chunk (every fourth
+// word below D 32, every fourth value in f32), so the quad's four shares
+// sum to the row's.  16-bit rows are 16-byte aligned (the wrapper checks).
+template <typename T, int D>
+__device__ __forceinline__ float quad_dot(const T* x, const T* y, int part) {
+  float acc = 0.f;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) acc = fmaf(x[part + 4 * i], y[part + 4 * i], acc);
+  } else if constexpr (D % 32 == 0) {
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    const uint4* yv = reinterpret_cast<const uint4*>(y);
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      const uint4 a = xv[part + 4 * i], b = yv[part + 4 * i];
+      acc = dot2<T>(a.x, b.x, acc);
+      acc = dot2<T>(a.y, b.y, acc);
+      acc = dot2<T>(a.z, b.z, acc);
+      acc = dot2<T>(a.w, b.w, acc);
+    }
   } else {
-    lse = 0.f;
-    delta = 0.f;
+    const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
+    const uint32_t* yw = reinterpret_cast<const uint32_t*>(y);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) acc = dot2<T>(xw[part + 4 * i], yw[part + 4 * i], acc);
   }
+  return acc;
+}
+
+// delta = rowsum(do * o) of row qp (0 past L), summed over the calling
+// quad (every lane of the warp calls it): lane % 4 takes its quad_dot share.
+// Lane 0 of the quad stores it when `store`.
+template <typename T, int D>
+__device__ __forceinline__ float row_delta(const BwdArgs& a, int b, int h, int qp, int part,
+                                           bool store) {
+  float d = 0.f;
+  if (qp < a.L)
+    d = quad_dot<T, D>(static_cast<const T*>(a.dout) + off(a.st, T_DO, b, h, qp),
+                       static_cast<const T*>(a.o) + off(a.st, T_O, b, h, qp), part);
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  d += __shfl_xor_sync(0xffffffffu, d, 2);
+  if (store && part == 0 && qp < a.L) a.delta[(int64_t)(b * a.H + h) * a.L + qp] = d;
+  return d;
 }
 
 // ---------------------------------------------------------------------------
 // f32 bodies
 // ---------------------------------------------------------------------------
 
-// dq: q, do, k, v tiles (rows padded by one word) and the ds tile.
+// dq: q, do, k, v tiles (rows padded by one word), the ds tile and the q
+// tile's delta.
 template <int D>
 struct DqFma {
   static constexpr int QS = D + 1;
   static constexpr int PS = BK + 1;
-  static constexpr size_t bytes = (size_t)4 * 64 * QS * 4 + (size_t)BQ * PS * 4;
+  static constexpr size_t bytes =
+      (size_t)4 * 64 * QS * 4 + (size_t)BQ * PS * 4 + (size_t)BQ * 4;
 };
 
 template <int D>
@@ -123,25 +204,31 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma(const BwdArgs a) {
   float* ks = dos + BQ * QS;
   float* vs = ks + BK * QS;
   float* dss = vs + BK * QS;
+  float* dl_s = dss + BQ * PS;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const float* dout = static_cast<const float*>(a.dout);
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, hk = h / (a.H / a.Hkv);
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, hk = h / (a.H / a.Hkv);
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i % D, qp = q_lo + r;
     const bool in = qp < a.L;
-    qs[r * QS + d] = in ? q[off(a.st, 0, b, h, qp) + d] : 0.f;
-    dos[r * QS + d] = in ? dout[off(a.st, 3, b, h, qp) + d] : 0.f;
+    qs[r * QS + d] = in ? q[off(a.st, T_Q, b, h, qp) + d] : 0.f;
+    dos[r * QS + d] = in ? dout[off(a.st, T_DO, b, h, qp) + d] : 0.f;
   }
+  // delta: a quad of threads a row
+  const float dl = row_delta<float, D>(a, b, h, q_lo + (tid >> 2), tid & 3, true);
+  if ((tid & 3) == 0) dl_s[tid >> 2] = dl;
+  __syncthreads();
   float lse_r[4], dl_r[4], acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    row_stats(a, bh, q_lo + ty + 16 * i, lse_r[i], dl_r[i]);
+    lse_r[i] = row_lse(a, bh, q_lo + ty + 16 * i);
+    dl_r[i] = dl_s[ty + 16 * i];
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = 0.f;
   }
@@ -153,8 +240,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma(const BwdArgs a) {
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, d = i % D, kp = t0 + r;
       const bool in = kp < a.Lk;
-      ks[r * QS + d] = in ? k[off(a.st, 1, b, hk, kp) + d] : 0.f;
-      vs[r * QS + d] = in ? v[off(a.st, 2, b, hk, kp) + d] : 0.f;
+      ks[r * QS + d] = in ? k[off(a.st, T_K, b, hk, kp) + d] : 0.f;
+      vs[r * QS + d] = in ? v[off(a.st, T_V, b, hk, kp) + d] : 0.f;
     }
     __syncthreads();
 
@@ -216,7 +303,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma(const BwdArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int qp = q_lo + ty + 16 * i;
     if (qp >= a.L) continue;
-    float* row = dq + off(a.st, 4, b, h, qp);
+    float* row = dq + off(a.st, T_OUT0, b, h, qp);
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) row[tx + 16 * jd] = acc[i][jd];
   }
@@ -373,11 +460,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_fma(const BwdArgs a) {
 // product's n index (k^T, v^T, q^T, do^T) by plain ldmatrix, one whose rows
 // are the k index (k, q, do) by ldmatrix.trans.
 
-// dq: the block's q and do tiles, then two stages of k and v tiles; rows
-// padded by 16 bytes so the 8 row addresses of each ldmatrix hit different
-// banks.
+// dq at head_dim 16 and 32 (the wgmma body takes 64 and 128): the block's
+// q and do tiles, then two stages of k and v tiles; rows padded by 16 bytes
+// so the 8 row addresses of each ldmatrix hit different banks.
 template <typename T, int D>
 struct DqMma {
+  static_assert(D <= 32, "head_dim 64 and 128 take flash_bwd_dq_wgmma");
   static constexpr int KS = D + 8;
   static constexpr size_t bytes = (size_t)(2 * BQ + 2 * 2 * BK) * KS * sizeof(T);
 };
@@ -401,9 +489,9 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(const BwdArgs a)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int lr = lane & 7, lm = lane >> 3;
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int w_lo = q_lo + warp * 16;  // this warp's 16 q rows
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, hk = h / (a.H / a.Hkv);
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, hk = h / (a.H / a.Hkv);
   const int rows[2] = {w_lo + g, w_lo + g + 8};
 
   const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
@@ -432,9 +520,14 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(const BwdArgs a)
   };
   load_tile(0, kv_lo);
 
+  // lse and delta of this thread's two rows (delta from do and o, summed
+  // over the quad that shares the rows)
   float lse_r[2], dl_r[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) row_stats(a, bh, rows[i], lse_r[i], dl_r[i]);
+  for (int i = 0; i < 2; ++i) {
+    lse_r[i] = row_lse(a, bh, rows[i]);
+    dl_r[i] = row_delta<T, D>(a, b, h, rows[i], lane & 3, true);
+  }
   float acc[NDT][4];
 #pragma unroll
   for (int dn = 0; dn < NDT; ++dn)
@@ -515,7 +608,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(const BwdArgs a)
   for (int i = 0; i < 2; ++i) {
     const int qp = rows[i];
     if (qp >= a.L) continue;
-    T* row = dq + off(a.st, 4, b, h, qp);
+    T* row = dq + off(a.st, T_OUT0, b, h, qp);
 #pragma unroll
     for (int dn = 0; dn < NDT; ++dn) {
       row[dn * 8 + c2] = from_f<T>(acc[dn][2 * i]);
@@ -920,6 +1013,206 @@ __global__ void __launch_bounds__(wg::THREADS, 1) flash_bwd_dkv_wgmma(
 }
 
 // ---------------------------------------------------------------------------
+// dq wgmma body (bf16 / fp16, head_dim 64 and 128)
+// ---------------------------------------------------------------------------
+
+namespace wq {
+constexpr int BQ = 128;  // q rows per block: two consumer warpgroups of 64
+constexpr int BK = 128;  // keys per streamed tile
+}  // namespace wq
+
+// q and do [half][BQ][64] for the whole block, then per stage K and V
+// [half][BK][64], then the mbarriers.
+template <int D>
+struct DqSmem {
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = wq::BQ * D * 2;
+  static constexpr int KV_BYTES = wq::BK * D * 2;
+  static constexpr size_t bytes = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+};
+
+// One block per (batch and head, 128-row q tile), heaviest q tiles first.
+template <typename T, int D>
+__global__ void __launch_bounds__(wg::THREADS, 1) flash_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const BwdArgs a) {
+  using S = DqSmem<D>;
+  constexpr int BQ = wq::BQ, BK = wq::BK, STAGES = S::STAGES;
+  constexpr float LOG2E = wg::LOG2E;
+  constexpr int HALVES = D / 64;
+  constexpr int NS = BK / 2;  // score accumulators a thread (m64nBK)
+  constexpr int NO = D / 2;   // dq accumulators a thread (m64nD)
+  // bf16 has f32's exponent range, so ds / scale rounds to it with the same
+  // relative error as ds: scale dq once at the end instead of every ds
+  constexpr bool DEFER_SCALE = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_base1024(smem_raw);
+  T* qs = reinterpret_cast<T*>(base);  // [half][BQ][64]
+  T* dos = qs + BQ * D;                // [half][BQ][64]
+  T* ks = dos + BQ * D;                // [stage][half][BK][64]
+  T* vs = ks + STAGES * BK * D;        // [stage][half][BK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * BK * D);
+  uint64_t* k_full = q_full + 1;       // [stage]
+  uint64_t* v_full = k_full + STAGES;  // [stage]
+  uint64_t* empty = v_full + STAGES;   // [stage]: one arrival per consumer warp
+
+  const int tid = threadIdx.x, wgi = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, hk = h / (a.H / a.Hkv);
+  // the key tiles the forward visits for these rows
+  const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
+  const int kv_hi = a.causal ? min(a.Lk, q_lo + BQ) : a.Lk;
+  const int n_tiles = (kv_hi - kv_lo + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // producer: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_tx(q_full, 2 * S::Q_BYTES);
+      for (int hf = 0; hf < HALVES; ++hf) {
+        tma_load4(qs + hf * BQ * 64, &tq, q_full, hf * 64, h, q_lo, b);
+        tma_load4(dos + hf * BQ * 64, &tdo, q_full, hf * 64, h, q_lo, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES, use = i / STAGES;
+        if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
+        const int t0 = kv_lo + i * BK;
+        T* kd = ks + st * BK * D;
+        T* vd = vs + st * BK * D;
+        mbar_arrive_tx(k_full + st, S::KV_BYTES);
+        for (int hf = 0; hf < HALVES; ++hf)
+          tma_load4(kd + hf * BK * 64, &tk, k_full + st, hf * 64, hk, t0, b);
+        mbar_arrive_tx(v_full + st, S::KV_BYTES);
+        for (int hf = 0; hf < HALVES; ++hf)
+          tma_load4(vd + hf * BK * 64, &tv, v_full + st, hf * 64, hk, t0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int c = wgi - 1;  // consumer: q rows r0 .. r0 + 63
+    const int r0 = q_lo + 64 * c;
+    const int g = lane >> 2, c2 = (lane & 3) * 2;
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const float sl2 = a.scale * LOG2E;
+    // lse * log2(e) and delta of this thread's rows, while the tiles land
+    float ls[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ls[r] = row_lse(a, bh, rows[r]) * LOG2E;
+      dl[r] = row_delta<T, D>(a, b, h, rows[r], lane & 3, true);
+    }
+    float dq[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dq[e] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES, ph = (i / STAGES) & 1;
+      const int t0 = kv_lo + i * BK;
+      const T* kt = ks + st * BK * D;
+      const T* vt = vs + st * BK * D;
+      // wholly masked for these 64 rows: nothing to do (warpgroup-uniform)
+      const bool skip =
+          (a.causal && t0 > r0 + 63) || (a.window > 0 && r0 - (t0 + BK - 1) >= a.window);
+      mbar_wait(k_full + st, ph);
+      if (!skip) {
+        // s = Q.K^T and dp = dO.V^T: accumulator e is row rows[(e >> 1) & 1],
+        // key t0 + 8 (e / 4) + c2 + (e & 1)
+        float s[NS], dp[NS];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ao = (kk / 4) * BQ * 64 + c * 64 * 64 + (kk % 4) * 16;
+          const int bo = (kk / 4) * BK * 64 + (kk % 4) * 16;
+          wgmma_ss(s, desc_sw128(qs + ao, 16, 1024), desc_sw128(kt + bo, 16, 1024), kk > 0,
+                   (T*)nullptr);
+        }
+        wgmma_commit();
+        mbar_wait(v_full + st, ph);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ao = (kk / 4) * BQ * 64 + c * 64 * 64 + (kk % 4) * 16;
+          const int bo = (kk / 4) * BK * 64 + (kk % 4) * 16;
+          wgmma_ss(dp, desc_sw128(dos + ao, 16, 1024), desc_sw128(vt + bo, 16, 1024), kk > 0,
+                   (T*)nullptr);
+        }
+        wgmma_commit();
+        // s is done (dp may still run): p in place of s while dp finishes;
+        // the element mask only where the tile straddles the diagonal, the
+        // window edge or the end of the keys (rows past L have q = do = 0
+        // and lse = delta = 0, so their ds is 0)
+        wgmma_wait<1>();
+        reg_fence(s);
+        const bool edge = t0 + BK > a.Lk || (a.causal && t0 + BK - 1 > r0) ||
+                          (a.window > 0 && r0 + 63 - t0 >= a.window);
+#pragma unroll
+        for (int e = 0; e < NS; ++e) {
+          const int r = (e >> 1) & 1;
+          float p = exp2_ftz(fmaf(s[e], sl2, -ls[r]));
+          if (edge && !visible(rows[r], t0 + (e / 4) * 8 + c2 + (e & 1), a.Lk, a.causal,
+                               a.window))
+            p = 0.f;
+          s[e] = p;
+        }
+        wgmma_wait0();
+        reg_fence(dp);
+        // ds = p (dp - delta) scale (bf16: without the scale), rounded to T
+        // as the A operand
+        uint32_t da[BK / 16][4];
+#pragma unroll
+        for (int e = 0; e < NS; ++e) {
+          const float d = dp[e] - dl[(e >> 1) & 1];
+          s[e] *= DEFER_SCALE ? d : d * a.scale;
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) acc_to_a<T>(s, j, da[j]);
+
+        // dq += ds.K: K [keys][D] is the MN-major B operand
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j)
+          wgmma_rs(dq, da[j], desc_sw128(kt + j * 16 * 64, BK * 128, 1024), (T*)nullptr);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(dq);
+      } else {
+        mbar_wait(v_full + st, ph);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+    if constexpr (DEFER_SCALE) {
+#pragma unroll
+      for (int e = 0; e < NO; ++e) dq[e] *= a.scale;
+    }
+
+    T* dqp = static_cast<T*>(a.out0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = rows[r];
+      if (qp >= a.L) continue;
+      T* row = dqp + off(a.st, T_OUT0, b, h, qp);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 8 * j + c2) =
+            pack2<T>(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -933,21 +1226,21 @@ int run(Kernel kern, dim3 grid, int threads, size_t smem, const BwdArgs& a,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename OutT, int D>
-int run_dkv_wgmma(const BwdArgs& a, cudaStream_t s) {
+// A wgmma body: tensor maps over q and do (boxes of q_rows rows) and k and v
+// (boxes of k_rows), then the launch.
+template <typename T, int D, typename Kernel>
+int run_tma(Kernel kern, dim3 grid, size_t smem, int q_rows, int k_rows, const BwdArgs& a,
+            cudaStream_t s) {
   constexpr int dtype = std::is_same<T, __nv_bfloat16>::value ? 1 : 2;
   const int64_t* st = a.st.s;
   CUtensorMap mq, mk, mv, mdo;
-  int e = make_map(&mq, a.q, dtype, D, a.H, a.L, a.B, st[0], st[1], st[2], wg::BQ);
-  if (!e) e = make_map(&mk, a.k, dtype, D, a.Hkv, a.Lk, a.B, st[3], st[4], st[5], wg::BK);
-  if (!e) e = make_map(&mv, a.v, dtype, D, a.Hkv, a.Lk, a.B, st[6], st[7], st[8], wg::BK);
-  if (!e) e = make_map(&mdo, a.dout, dtype, D, a.H, a.L, a.B, st[9], st[10], st[11], wg::BQ);
+  int e = make_map(&mq, a.q, dtype, D, a.H, a.L, a.B, st[0], st[1], st[2], q_rows);
+  if (!e) e = make_map(&mk, a.k, dtype, D, a.Hkv, a.Lk, a.B, st[3], st[4], st[5], k_rows);
+  if (!e) e = make_map(&mv, a.v, dtype, D, a.Hkv, a.Lk, a.B, st[6], st[7], st[8], k_rows);
+  if (!e) e = make_map(&mdo, a.dout, dtype, D, a.H, a.L, a.B, st[9], st[10], st[11], q_rows);
   if (e) return e;
-  auto kern = flash_bwd_dkv_wgmma<T, OutT, D>;
-  const size_t smem = DkvSmem<D>::bytes;
   cudaError_t r = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (r != cudaSuccess) return (int)r;
-  const dim3 grid((a.Lk + wg::BK - 1) / wg::BK, a.B * a.Hkv, a.nsplit);
   kern<<<grid, wg::THREADS, smem, s>>>(mq, mk, mv, mdo, a);
   return (int)cudaGetLastError();
 }
@@ -956,7 +1249,7 @@ int run_dkv_wgmma(const BwdArgs& a, cudaStream_t s) {
 // choice; only the dk/dv wgmma body takes nsplit > 1.
 template <typename T, int D>
 int launch(int which, const BwdArgs& a, cudaStream_t s) {
-  const dim3 dq_grid((a.L + BQ - 1) / BQ, a.B * a.H);
+  const dim3 dq_grid(a.B * a.H, (a.L + BQ - 1) / BQ);
   const dim3 dkv_grid((a.Lk + BK - 1) / BK, a.B * a.Hkv);
   constexpr bool wgmma = !std::is_same<T, float>::value && D >= 64;
   if (a.nsplit < 1 || (a.nsplit > 1 && (which == 0 || !wgmma)))
@@ -964,15 +1257,21 @@ int launch(int which, const BwdArgs& a, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     if (which == 0) return run(flash_bwd_dq_fma<D>, dq_grid, NT, DqFma<D>::bytes, a, s);
     return run(flash_bwd_dkv_fma<D>, dkv_grid, NT, DkvFma<D>::bytes, a, s);
+  } else if constexpr (wgmma) {
+    if (which == 0)
+      return run_tma<T, D>(flash_bwd_dq_wgmma<T, D>,
+                           dim3(a.B * a.H, (a.L + wq::BQ - 1) / wq::BQ), DqSmem<D>::bytes,
+                           wq::BQ, wq::BK, a, s);
+    const dim3 grid((a.Lk + wg::BK - 1) / wg::BK, a.B * a.Hkv, a.nsplit);
+    const size_t smem = DkvSmem<D>::bytes;
+    return a.nsplit > 1 ? run_tma<T, D>(flash_bwd_dkv_wgmma<T, float, D>, grid, smem, wg::BQ,
+                                        wg::BK, a, s)
+                        : run_tma<T, D>(flash_bwd_dkv_wgmma<T, T, D>, grid, smem, wg::BQ,
+                                        wg::BK, a, s);
   } else {
     if (which == 0)
       return run(flash_bwd_dq_mma<T, D>, dq_grid, MMA_THREADS, DqMma<T, D>::bytes, a, s);
-    if constexpr (wgmma) {
-      if (a.nsplit > 1) return run_dkv_wgmma<T, float, D>(a, s);
-      return run_dkv_wgmma<T, T, D>(a, s);
-    } else {
-      return run(flash_bwd_dkv_mma<T, D>, dkv_grid, MMA_THREADS, DkvMma<T, D>::bytes, a, s);
-    }
+    return run(flash_bwd_dkv_mma<T, D>, dkv_grid, MMA_THREADS, DkvMma<T, D>::bytes, a, s);
   }
 }
 
@@ -998,7 +1297,7 @@ int dispatch(int which, int dtype, int D, const BwdArgs& a, void* stream) {
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* out0, void* out1, int B,
+                  const void* lse, void* delta, void* out0, void* out1, int B,
                   int H, int Hkv, int L, int Lk, const int64_t* strides, int n_strides,
                   float scale, int causal, int window, int nsplit) {
   BwdArgs a{};
@@ -1007,7 +1306,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.v = v;
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  a.delta = static_cast<float*>(delta);
   a.out0 = out0;
   a.out1 = out1;
   a.B = B;
@@ -1025,37 +1324,41 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q, do [B, H, L, D];
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q, do, o [B, H, L, D];
 // k, v [B, Hkv, Lk, D]; lse, delta contiguous [B, H, L] float32.  strides:
-// (batch, head, row) element strides of q, k, v, do and then the outputs,
-// whose last dim is contiguous like the inputs'.  window <= 0 means none.
+// (batch, head, row) element strides of q, k, v, do, then the outputs, then
+// o (dq only), each with a contiguous last dim.  window <= 0 means none.
 // Each returns the cudaError_t of its launch (0 = launched), or for the
-// wgmma body flash::NO_ENCODER / flash::MAP_ERROR + CUresult when a tensor
-// map cannot be made.
+// wgmma bodies flash::NO_ENCODER / flash::MAP_ERROR + CUresult when a
+// tensor map cannot be made.
 
-// dq [B, H, L, D] in the input type; 15 strides (q, k, v, do, dq).
+// dq [B, H, L, D] in the input type, and delta = rowsum(do * o) into
+// `delta`; 18 strides (q, k, v, do, dq, o).
 extern "C" int k8s_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse, const void* delta,
-                                void* dq, int dtype, int B, int H, int Hkv, int L,
-                                int Lk, int D, const int64_t* strides, float scale,
+                                const void* dout, const void* o, const void* lse,
+                                void* delta, void* dq, int dtype, int B, int H, int Hkv,
+                                int L, int Lk, int D, const int64_t* strides, float scale,
                                 int causal, int window, void* stream) {
-  const BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, H, Hkv, L, Lk,
-                              strides, 15, scale, causal, window, 1);
+  BwdArgs a = make_args(q, k, v, dout, lse, delta, dq, nullptr, B, H, Hkv, L, Lk, strides,
+                        15, scale, causal, window, 1);
+  a.o = o;
+  for (int i = 0; i < 3; ++i) a.st.s[3 * T_O + i] = strides[15 + i];
   return dispatch(0, dtype, D, a, stream);
 }
 
-// dk, dv [B, Hkv, Lk, D] in the input type, each summed over its GQA group;
-// 18 strides (q, k, v, do, dk, dv).  With nsplit > 1 (wgmma body only) dk
-// and dv are instead f32 [B, Hkv * nsplit, Lk, D] partials, chunk z of kv
-// head hk at head index hk * nsplit + z, for the caller to sum over z.
+// dk, dv [B, Hkv, Lk, D] in the input type, each summed over its GQA group,
+// from the delta the dq launch wrote; 18 strides (q, k, v, do, dk, dv).
+// With nsplit > 1 (wgmma body only) dk and dv are instead f32 [B, Hkv *
+// nsplit, Lk, D] partials, chunk z of kv head hk at head index
+// hk * nsplit + z, for the caller to sum over z.
 extern "C" int k8s_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dk, void* dv, int dtype, int B, int H, int Hkv,
                                  int L, int Lk, int D, const int64_t* strides,
                                  float scale, int causal, int window, int nsplit,
                                  void* stream) {
-  const BwdArgs a = make_args(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, L, Lk,
-                              strides, 18, scale, causal, window, nsplit);
+  const BwdArgs a = make_args(q, k, v, dout, lse, const_cast<void*>(delta), dk, dv, B, H,
+                              Hkv, L, Lk, strides, 18, scale, causal, window, nsplit);
   return dispatch(1, dtype, D, a, stream);
 }
 
@@ -1075,7 +1378,7 @@ extern "C" int k8s_flash_bwd_smem(int which, int dtype, int D) {
   switch (D) {
     case 16: return (int)(which ? DkvMma<__half, 16>::bytes : DqMma<__half, 16>::bytes);
     case 32: return (int)(which ? DkvMma<__half, 32>::bytes : DqMma<__half, 32>::bytes);
-    case 64: return (int)(which ? DkvSmem<64>::bytes : DqMma<__half, 64>::bytes);
-    default: return (int)(which ? DkvSmem<128>::bytes : DqMma<__half, 128>::bytes);
+    case 64: return (int)(which ? DkvSmem<64>::bytes : DqSmem<64>::bytes);
+    default: return (int)(which ? DkvSmem<128>::bytes : DqSmem<128>::bytes);
   }
 }

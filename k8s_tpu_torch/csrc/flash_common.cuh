@@ -62,6 +62,15 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The two 16-bit values of one register as f32 (x = lower index).
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t w);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t w) {
+  return __half22float2(*reinterpret_cast<__half2*>(&w));
+}
+
 // c += a.b on the tensor cores: m16n8k16, row-major A, column-major B, f32 C.
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1, __nv_bfloat16*) {

@@ -10,8 +10,9 @@ a sequential grid dimension (see the notes at the top of the sources):
   softmax;
 - backward ``_dq_kernel`` and ``_dkv_kernel`` (driven by ``_flash_bwd``):
   dq, and dk/dv summed over each GQA group, from p recomputed with the
-  saved lse.  ``delta = rowsum(do * o)`` is an f32 torch reduction, as the
-  reference computes it in XLA.
+  saved lse.  ``delta = rowsum(do * o)``, which the reference computes in
+  XLA before its kernels, is computed in f32 by the dq kernel for its own
+  rows and written to a buffer that the dk/dv kernel reads.
 
 - :func:`flash_attention` keeps the public ``[B, L, H, D]`` layout and the
   reference's guards; the kernels read and write that layout through
@@ -63,7 +64,7 @@ def _kernel(name: str = "fwd"):
             fn.argtypes = [p] * 5 + shape + [p]
         elif name == "bwd_dq":
             fn = _build.load("flash_bwd").k8s_flash_bwd_dq
-            fn.argtypes = [p] * 7 + shape + [p]
+            fn.argtypes = [p] * 8 + shape + [p]
         else:  # bwd_dkv also takes nsplit
             fn = _build.load("flash_bwd").k8s_flash_bwd_dkv
             fn.argtypes = [p] * 8 + shape + [i, p]
@@ -236,15 +237,71 @@ def _launch(q, k, v, o, lse, scale: float, causal: bool, window) -> None:
 
 
 def _bwd_operands(q, o, lse, do):
-    """``do`` in the kernels' layout, ``lse`` and ``delta = rowsum(do *
-    o)`` as contiguous ``[B, H, L]`` f32 (delta is a torch reduction, as
-    the reference computes it in XLA)."""
+    """``do`` and ``o`` in the kernels' layout, ``lse`` as a contiguous
+    ``[B, H, L]`` f32, and an empty ``[B, H, L]`` f32 buffer for ``delta =
+    rowsum(do * o)``, which the dq kernel computes and the dk/dv kernel
+    reads."""
     B, H, L, _ = q.shape
-    if not _aligned(do, _dtype_code(q, do)):
-        # autograd may hand in an expanded (stride 0) or strided gradient
-        do = do.contiguous()
-    delta = (do.float() * o.float()).sum(-1)
-    return do, lse.reshape(B, H, L).contiguous(), delta
+    code = _dtype_code(q, do, o)
+    # autograd may hand in an expanded (stride 0) or strided gradient
+    do, o = (t if _aligned(t, code) else t.contiguous() for t in (do, o))
+    delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    return do, o, lse.reshape(B, H, L).contiguous(), delta
+
+
+@dataclasses.dataclass(frozen=True)
+class DqPlan:
+    """How the dq kernel covers a problem: its ``body`` (``wgmma``,
+    ``mma`` or ``fma``), the q rows a block owns (``block_rows``), the keys
+    of each tile it streams (``block_keys``), and the launch ``grid`` ``(B
+    * H, q tiles)``: one block per (batch and head, q tile), each visiting
+    its tile's keys once, so dq needs no second pass."""
+
+    body: str
+    block_rows: int
+    block_keys: int
+    grid: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _k_span(q_lo: int, block_rows: int, Lk: int, causal: bool, window):
+    """The keys ``[begin, end)`` the forward visits for the q tile starting
+    at ``q_lo`` (the kernels' rule, ``_window_span_k``)."""
+    begin = max(0, q_lo - window + 1) if window else 0
+    end = min(Lk, q_lo + block_rows) if causal else Lk
+    return begin, end
+
+
+def _dq_plan(B: int, H: int, L: int, D: int,
+             dtype=torch.bfloat16) -> DqPlan:
+    """The dq kernel's body, tiles and grid for a shape; shape only, never
+    a failure.  The wgmma body (16-bit, D 64 and 128) owns 128 q rows a
+    block and streams 128-key tiles; the mma (16-bit, D 16 and 32) and fma
+    (f32) bodies own 64 rows and stream 64 keys.  The grid's second axis
+    runs from the last q tile down, so the heaviest tiles of every (batch,
+    head) launch first and the short ones fill the tail.  The plan never
+    splits a q tile's keys over blocks: at B1 H32 L509, 128 blocks for
+    132 SMs, a split's f32 partials and their sum would cost more than the
+    SMs left idle, and without it dq is written once, with no atomics."""
+    if dtype == torch.float32:
+        body, bq, bk = "fma", 64, 64
+    elif D < 64:
+        body, bq, bk = "mma", 64, 64
+    else:
+        body, bq, bk = "wgmma", 128, 128
+    return DqPlan(body, bq, bk, (B * H, -(-L // bq)))
+
+
+def _dq_block_tiles(plan: DqPlan, q_tile: int, Lk: int, causal: bool,
+                    window):
+    """The first keys of the key tiles the block for q tile ``q_tile``
+    (rows from ``q_tile * block_rows``) visits, in the kernel's order."""
+    begin, end = _k_span(q_tile * plan.block_rows, plan.block_rows, Lk,
+                         causal, window)
+    return list(range(begin, end, plan.block_keys))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,22 +374,22 @@ def _dkv_block_items(plan: DkvPlan, key_tile: int, chunk: int, H: int,
 
 
 def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
-                causal: bool, window, nsplit: int = 1) -> None:
-    """Launch the backward kernel ``name`` (``bwd_dq`` into ``outs =
-    (dq,)``, ``bwd_dkv`` into ``(dk, dv)``, or with ``nsplit`` > 1 into
-    the two f32 ``[B, Hkv * nsplit, Lk, D]`` partials)."""
+                causal: bool, window, nsplit: int = 1, o=None) -> None:
+    """Launch the backward kernel ``name``: ``bwd_dq`` (which also takes
+    ``o`` and writes ``delta``) into ``outs = (dq,)``, ``bwd_dkv`` (which
+    reads ``delta``) into ``(dk, dv)``, or with ``nsplit`` > 1 into the two
+    f32 ``[B, Hkv * nsplit, Lk, D]`` partials."""
     B, H, L, D = q.shape
-    if nsplit > 1:
-        code = _check_launch(q, k, v, do)
-    else:
-        code = _check_launch(q, k, v, do, *outs)
+    ins = (q, k, v, do, o) if name == "bwd_dq" else (q, k, v, do)
+    code = _check_launch(*ins, *(outs if nsplit == 1 else ()))
     extra = (nsplit,) if name == "bwd_dkv" else ()
     with torch.cuda.device(q.device):
         err = _kernel(name)(
-            *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)), code,
-            B, H, k.shape[1], L, k.shape[2], D, _strides(q, k, v, do, *outs),
-            float(scale), int(causal), 0 if window is None else int(window),
-            *extra, _stream(q))
+            *(t.data_ptr() for t in (*ins, lse, delta, *outs)), code,
+            B, H, k.shape[1], L, k.shape[2], D,
+            _strides(q, k, v, do, *outs, *ins[4:]), float(scale),
+            int(causal), 0 if window is None else int(window), *extra,
+            _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_{name} kernel launch failed: {_ERRORS} "
                            f"{err}")
@@ -374,15 +431,16 @@ def flash_bwd(q, k, v, o, lse, do, scale: float, causal: bool = True,
     ``[B, H, L, D]``, ``k``/``v`` ``[B, Hkv, Lk, D]``, ``lse`` the
     forward's ``[B, H, L(, 1)]`` f32.  Returns ``(dq [B, H, L, D], dk, dv
     [B, Hkv, Lk, D])`` in the input types, each laid out like its input.
-    CUDA tensors launch the dq kernel, then the dk/dv kernel."""
+    CUDA tensors launch the dq kernel (which also computes ``delta``),
+    then the dk/dv kernel."""
     _check_window(causal, window)
     _check_heads(q.shape[1], k.shape[1])
     if use_plain(q, k, v, o, lse, do):
         return flash_bwd_plain(q, k, v, o, lse, do, scale, causal, window)
-    do, lse, delta = _bwd_operands(q, o, lse, do)
+    do, o, lse, delta = _bwd_operands(q, o, lse, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _launch_bwd("bwd_dq", q, k, v, do, lse, delta, (dq,), scale, causal,
-                window)
+                window, o=o)
     _launch_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal, window)
     return dq, dk, dv
 
