@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's main paths, on one card.
 
-    python3 chip_profile.py [--path serve|train|both] [--prompt_len 509]
-                            [--new_tokens 32] [--seed 0]
+    python3 chip_profile.py [--path serve|train|engine|both]
+                            [--prompt_len 509] [--new_tokens 32] [--seed 0]
 
 ``serve``: builds the model chip_smoke.py serves (llama_8b widths, bf16,
 all 32 layers, the flash-attention and RMSNorm kernels on, random weights
@@ -15,6 +15,17 @@ from ``--seed``) and runs the generation loop the server runs
 - ``torch.profiler`` over one prefill and one full request: device time
   by kernel, the device-busy share of the traced wall time, and kernel
   launches per decode step.
+
+``engine``: the same model behind the continuous-batching engine with
+four slots (``models/engine.py``, no HTTP); four requests of
+``--prompt_len`` tokens and ``--new_tokens`` new tokens each decode
+together, twice: once with an EOS condition, which pins each batched
+step at one iteration, and once without, where the engine fuses four.
+For each, the host clock around the engine's step body while all four
+slots are active (three calls; each ends in the step's host read of its
+tokens); then both again, with ``torch.profiler`` over one such call:
+device time by kernel, the device-busy share of the step, and device
+time and ops per iteration.
 
 ``train``: one training step of the path ``train_lm`` runs at its
 default preset (gpt2-small, B8 L1024, bf16, flash kernels forward and
@@ -136,6 +147,90 @@ def profile_serve(torch, args, report) -> int:
     return 0
 
 
+def profile_engine(torch, args, report) -> int:
+    import threading
+
+    from k8s_tpu_torch.models import bridge
+    from k8s_tpu_torch.models import engine as engine_lib
+    from k8s_tpu_torch.models import transformer as tlib
+
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    eng = engine_lib.Engine(cfg, bridge.init_params(cfg, args.seed, "cuda"),
+                            slots=4, device="cuda")
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    step_fn = eng._step_fn
+    rounds: dict = {}
+    mode = {"profile": False}
+
+    def watched(pool, tables, ints, gens, temps, topks, k):
+        """The engine's step body: host-clocked for three calls with all
+        four rows active; in a profiling round, the next such call runs
+        under the profiler instead."""
+        def call():
+            return step_fn(pool, tables, ints, gens, temps, topks, k)
+        rnd = rounds.setdefault(k, {"walls": []})
+        full = int((ints[1] >= 0).sum()) == 4
+        if full and mode["profile"] and "profile" not in rnd:
+            out = {}
+            rnd["profile"] = profile_device(
+                torch, lambda: out.setdefault("toks", call()))
+            return out["toks"]
+        if not full or mode["profile"] or len(rnd["walls"]) == 3:
+            return call()
+        t0 = time.perf_counter()
+        toks = call()
+        rnd["walls"].append(time.perf_counter() - t0)
+        return toks
+
+    eng._step_fn = watched
+    try:
+        # an EOS condition on every row pins the step at one iteration
+        # (k = 1); without one the engine fuses MAX_STEP_TOKENS (k = 4).
+        # The EOS id is the last vocabulary entry, which random weights
+        # emit with probability ~1/vocab a token.  Both host clocks come
+        # before the first profiler session, after which the launch path
+        # has been seen to run slower for the rest of the process.
+        for profiling, eos in ((False, cfg.vocab_size - 1), (False, None),
+                               (True, cfg.vocab_size - 1), (True, None)):
+            mode["profile"] = profiling
+            prompts = [torch.randint(0, cfg.vocab_size, (args.prompt_len,),
+                                     generator=gen).tolist()
+                       for _ in range(4)]
+            threads = [threading.Thread(target=eng.submit, args=(
+                p, args.new_tokens), kwargs={"eos_id": eos, "timeout": 600})
+                for p in prompts]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+    finally:
+        eng.shutdown()
+    for k, rnd in sorted(rounds.items()):
+        if "profile" not in rnd:
+            continue
+        by_name, traced_s, kernels = rnd["profile"]
+        if not kernels:
+            print("FAIL: the profiler saw no device work", file=sys.stderr)
+            return 1
+        rec = summary(f"profile_engine_step_k{k}", by_name, traced_s,
+                      kernels)
+        rec.update({"fused_iterations": k, "active_slots": 4,
+                    "step_wall_s": rnd["walls"],
+                    "step_wall_s_median": median(rnd["walls"]),
+                    "wall_s_per_iteration": median(rnd["walls"]) / k,
+                    "device_ms_per_iteration": rec["device_busy_ms"] / k,
+                    "device_ops_per_iteration": rec["device_ops"] / k,
+                    "rms_norm_launches": sum(
+                        c for n, (c, _) in by_name.items() if "rms" in n)})
+        report[rec["phase"]] = rec
+        emit(rec)
+    if not any("profile" in r for r in rounds.values()):
+        print("FAIL: no step ran with four active slots", file=sys.stderr)
+        return 1
+    return 0
+
+
 def profile_train(torch, args, report) -> int:
     from k8s_tpu_torch import train_lm
     from k8s_tpu_torch.models import bridge
@@ -184,7 +279,7 @@ def profile_train(torch, args, report) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--path", choices=["serve", "train", "both"],
+    p.add_argument("--path", choices=["serve", "train", "engine", "both"],
                    default="both")
     p.add_argument("--prompt_len", type=int, default=509)
     p.add_argument("--new_tokens", type=int, default=32)
@@ -210,6 +305,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.path in ("train", "both"):
         rc = rc or profile_train(torch, args, report)
+    if args.path == "engine":
+        rc = rc or profile_engine(torch, args, report)
 
     os.makedirs(os.path.join(REPO, "chip_reports"), exist_ok=True)
     with open(os.path.join(REPO, "chip_reports", "chip_profile.json"),

@@ -28,6 +28,15 @@ Phases, each fatal on failure:
    the path went through the forward kernels and no other.  Then its
    prefill logits are held against the same weights run through the plain
    attention and norm.
+5b. engine: the continuous-batching engine (two slots, paged pool) gives
+   the exclusive lane's tokens on the tiny model (f32 and int8 KV: mixed
+   prompt lengths, a join mid-decode, EOS, a fixed-seed sampled request);
+   then the port's default serving mode, ``LmServer(slots=4)`` over the
+   same Llama-3-8B-width model, answers 8 concurrent requests, records a
+   prefix hit on a repeated prompt and repeats a sampled request exactly;
+   its counters must show RMSNorm at 2·32+1 launches a model call and no
+   flash kernel, and its prefill logits are held against the
+   single-flight model's.
 6. train: ``k8s_tpu_torch.train_lm.main`` trains the gpt2-small preset at
    full width and depth (bf16, flash on, synthetic corpus) with
    checkpoints, exports a serving artifact and generates; the counters,
@@ -49,6 +58,7 @@ non-zero and prints no result.  Details go to
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -203,13 +213,16 @@ def rms_cases(torch, F, fused_norm):
     an rsqrt one ulp apart can round it the other way), plus one step of a
     16-bit output.  The timed calls rotate over copies of x and keep their
     outputs, twice the L2's bytes in all, so every call reads x from HBM
-    and writes an output that is not in the L2.  The library call
+    and writes an output that is not in the L2; a warm-up call on each
+    buffer first leaves every output allocated, so no timed call waits
+    on the allocator.  The library call
     (``F.rms_norm``, scale cast to x.dtype) writes x.dtype: it computes
     K1's function only where the scale is x.dtype too (``bf16x_bf16s``);
     no PyTorch call writes K1's f32 output from a bf16 x."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = [("main_prefill", 509, 4096, bf, f32),
              ("main_decode", 1, 4096, bf, f32),
+             ("engine_decode_4", 4, 4096, bf, f32),
              ("main_17", 17, 4096, bf, f32),
              ("main_64", 64, 4096, bf, f32),
              ("main_128", 128, 4096, bf, f32),
@@ -248,11 +261,14 @@ def rms_cases(torch, F, fused_norm):
                "shape": [N, D], "x": str(xd), "scale": str(sd),
                "max_abs_err": err, "rtol": rtol, "rotated_buffers": n_buf,
                **timed(torch, "", rotating(
-                   lambda xi: fused_norm.rms_norm(xi, s), xs, n_buf)),
+                   lambda xi: fused_norm.rms_norm(xi, s), xs, n_buf),
+                   warmup=n_buf),
                **timed(torch, "plain_", rotating(
-                   lambda xi: fused_norm.rms_norm_plain(xi, s), xs, n_buf)),
+                   lambda xi: fused_norm.rms_norm_plain(xi, s), xs, n_buf),
+                   warmup=n_buf),
                **timed(torch, "library_", rotating(
-                   lambda xi: F.rms_norm(xi, (D,), w16, 1e-6), xs, n_buf)),
+                   lambda xi: F.rms_norm(xi, (D,), w16, 1e-6), xs, n_buf),
+                   warmup=n_buf),
                "library_same_output_type": got.dtype == xd,
                "bound_ms": b_ms, "bound_by": b_by}
         del xs
@@ -666,6 +682,282 @@ def check_against_plain(torch, tlib, lm, prompts):
     REPORT["serve_vs_plain"] = rec
 
 
+# -- phase 5b: the continuous-batching engine ----------------------------------
+
+
+def engine_parity(torch, tlib, bridge, decode, engine_lib):
+    """The engine (two slots, paged pool) against the port's exclusive lane
+    (the single-flight program on the engine's model) on the card, on the
+    tiny test model in f32 with both kernels on: mixed prompt lengths from
+    threads, a request joining mid-decode, an EOS request and a fixed-seed
+    sampled request give the same tokens on both lanes; so do a greedy and
+    a sampled request on the int8-KV config.  Pool refcounts are checked
+    after each engine's run."""
+    import threading
+
+    base = dataclasses.replace(tlib.tiny_test(), use_flash_attention=True,
+                               use_fused_norm=True)
+    rng = torch.Generator().manual_seed(14)
+
+    def prompt(n):
+        return torch.randint(0, base.vocab_size, (n,), generator=rng).tolist()
+
+    rec = {"phase": "engine_parity", "config": "tiny_test f32 flash+fused",
+           "slots": 2, "cases": {}}
+    for label, cfg in (("f32", base), ("int8_kv", dataclasses.replace(
+            base, kv_cache_dtype="int8"))):
+        params = bridge.init_params(cfg, seed=13, device="cpu")
+        eng = engine_lib.Engine(cfg, params, slots=2, queue_limit=32,
+                                device="cuda")
+
+        def exclusive(p, n, eos=None, temperature=0.0, top_k=None, seed=0):
+            fn = decode._cached_generate_fn(cfg, n, temperature, top_k, eos,
+                                            0)
+
+            def run():
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                row = fn(eng.model, torch.tensor([p], device="cuda"),
+                         gen)[0].tolist()
+                return row[:row.index(eos) + 1] if eos in row else row
+            return eng.submit_exclusive(run, timeout=300)
+
+        def check(name, got, want):
+            if got != want:
+                fail(f"engine_parity {label} {name}: engine {got}, "
+                     f"exclusive lane {want}")
+            rec["cases"][f"{label}/{name}"] = len(got)
+
+        try:
+            if label == "f32":
+                prompts = [prompt(n) for n in (3, 7, 13, 5, 21)]
+                got = {}
+
+                def run(i, p):
+                    got[i] = eng.submit(p, 8, timeout=300)
+                threads = [threading.Thread(target=run, args=(i, p))
+                           for i, p in enumerate(prompts)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+                for i, p in enumerate(prompts):
+                    check(f"mixed_{len(p)}", got.get(i), exclusive(p, 8))
+                long_p, short_p = prompt(9), prompt(4)
+                t = threading.Thread(target=lambda: got.__setitem__(
+                    "long", eng.submit(long_p, 24, timeout=300)))
+                t.start()
+                deadline = time.time() + 60
+                while eng.stats()["steps"] < 3 and time.time() < deadline:
+                    time.sleep(0.002)
+                got["short"] = eng.submit(short_p, 5, timeout=300)
+                t.join(300)
+                check("join_long", got.get("long"), exclusive(long_p, 24))
+                check("join_short", got["short"], exclusive(short_p, 5))
+                p = prompt(6)
+                eos = exclusive(p, 8)[3]
+                check("eos", eng.submit(p, 8, eos_id=eos, timeout=300),
+                      exclusive(p, 8, eos=eos))
+                p = prompt(9)
+                check("sampled", eng.submit(p, 10, temperature=0.8, top_k=5,
+                                            seed=3, timeout=300),
+                      exclusive(p, 10, temperature=0.8, top_k=5, seed=3))
+            else:
+                # greedy only: the exclusive lane's prefill attends the
+                # prompt's unquantized K/V, the engine's chunked prefill
+                # the int8 round trip, so a sampled draw may flip
+                for n in (9, 21):
+                    p = prompt(n)
+                    check(f"greedy_{n}", eng.submit(p, 6, timeout=300),
+                          exclusive(p, 6))
+            eng.debug_check_blocks()
+        finally:
+            eng.shutdown()
+    emit(rec)
+    REPORT["engine_parity"] = rec
+
+
+def engine_prefill_logits(torch, eng, ids):
+    """The engine's cold prefill of ``ids``: its own prefill body, chunk
+    by bucket chunk, into a private pool (so the served pool and prefix
+    tree are untouched), on the engine thread.  Returns the last
+    position's f32 logits ``[V]``."""
+    from k8s_tpu_torch.models.decode import split_prefill
+
+    bs = eng.block_size
+    nb = -(-len(ids) // bs)
+
+    def run():
+        with torch.inference_mode():
+            pool = eng._compute.build_pool(1 + nb, bs, "cuda")
+            table = torch.arange(1, 1 + nb, device="cuda")
+            off = 0
+            for c in split_prefill(len(ids), eng.buckets):
+                pos = torch.arange(off, off + c, device="cuda")[None]
+                last = eng._compute.prefill_paged(
+                    pool, table[:-(-(off + c) // bs)],
+                    torch.tensor([ids[off:off + c]], device="cuda"), pos)
+                off += c
+            return last[0]
+    return eng.submit_exclusive(run, timeout=600)
+
+
+def serve_engine(torch, tlib, bridge, server, common, requestlog):
+    """The port's default serving mode at the served width: llama_8b (32
+    layers, bf16, both forward kernels on, random weights from seed 0)
+    behind ``LmServer(slots=4)`` over HTTP.  Eight concurrent greedy
+    requests, a repeat of the longest prompt (a prefix hit), the same
+    sampled request twice, then the engine's prefill logits against the
+    single-flight model's.  The kernels' counters, zeroed just before the
+    requests and read just after, must show RMSNorm at 2·32+1 launches
+    for each model call the engine counts and no flash kernel: batched
+    prefill goes through the paged attention, as in the reference."""
+    import threading
+
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    os.environ["K8S_TPU_REQUEST_LOG"] = "1"  # per-request TTFT records
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    lm = server.LmServer(config=cfg, params=params, slots=4, device="cuda",
+                         default_max_new_tokens=32)
+    del params
+    eng = lm.engine
+    pool_gib = sum(t.numel() * t.element_size() for node in eng._pool
+                   for t in node.values()) / 2 ** 30
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    httpd = server.serve(lm, "127.0.0.1", 0)
+    url = "http://%s:%d" % httpd.server_address[:2]
+    rng = torch.Generator().manual_seed(5)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    def post(p, new, **extra):
+        code, body, secs = http(url + "/v1/generate", dict(
+            tokens=p, max_new_tokens=new, **extra))
+        toks = body.get("tokens")
+        if code != 200 or not isinstance(toks, list) or len(toks) != new \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"engine request ({len(p)} tokens): {code} "
+                 f"{str(body)[:300]}")
+        return toks, secs
+
+    try:
+        post(prompt(33), 4)  # warm-up: allocator, cuBLAS handles
+        prompts = {n: prompt(n) for n in (17, 64, 128, 509)}
+        batch = [n for n in (17, 64, 128, 509) for _ in range(2)]
+        st0 = eng.stats()
+        # the main path's run: counters zeroed just before, read just after
+        common.reset_launches()
+        results: dict = {}
+
+        def client(i, n):
+            results[i] = post(prompts[n], 32)
+        threads = [threading.Thread(target=client, args=(i, n))
+                   for i, n in enumerate(batch)]
+        t_batch = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        batch_s = time.perf_counter() - t_batch
+        if len(results) != len(batch):
+            fail(f"engine batch: {len(results)} of {len(batch)} answered")
+        st1 = eng.stats()
+        code_r, reqs, _ = http(url + "/debug/requests?n=64")
+        again, again_s = post(prompts[509], 32)
+        st2 = eng.stats()
+        sampled = {"temperature": 0.8, "top_k": 50, "seed": 7}
+        samp = [post(prompts[64], 32, **sampled)[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = common.launches()
+        st3 = eng.stats()
+        code, health, _ = http(url + "/healthz")
+        code_e, ledger, _ = http(url + "/debug/engine?n=8")
+        if code != 200 or health["serving"]["engine"] != \
+                "continuous-batching" or code_e != 200 or code_r != 200:
+            fail(f"engine /healthz {code} {health.get('serving')}, "
+                 f"/debug/engine {code_e}, /debug/requests {code_r}")
+        calls = st3["model_calls"] - st0["model_calls"]
+        want = {"flash_fwd": 0, "rms_norm": (2 * cfg.layers + 1) * calls,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if launches != want:
+            fail(f"engine main-path launches {launches}, expected {want} "
+                 f"({calls} model calls)")
+        if st1["peak_active"] < 3:
+            fail(f"engine peak_active {st1['peak_active']} < 3")
+        hits = st2["prefix_hits"] - st1["prefix_hits"]
+        saved = st2["prefix_tokens_saved"] - st1["prefix_tokens_saved"]
+        if hits != 1 or saved < 496:
+            fail(f"509-token repeat: prefix hits +{hits}, tokens saved "
+                 f"+{saved} (want +1, >= 496)")
+        if samp[0] != samp[1]:
+            fail("the repeated sampled request (seed 7) gave different "
+                 f"tokens on the engine: {samp[0]} vs {samp[1]}")
+        # the engine's cold prefill against the single-flight model's
+        vs_plain, first = {}, None
+        for n in (17, 509):
+            a = engine_prefill_logits(torch, eng, prompts[n])
+            with torch.inference_mode():
+                b = lm.model(torch.tensor([prompts[n]], device="cuda"),
+                             mode="prefill", cache=lm.model.new_cache())[0, -1]
+            if not bool(torch.isfinite(a).all()):
+                fail(f"engine prefill logits non-finite at length {n}")
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            if rel > 5e-2:
+                fail(f"engine prefill logits vs single-flight at length {n}:"
+                     f" rel err {rel} (> 5e-2)")
+            top2 = torch.topk(a, 2).values.tolist()
+            vs_plain[n] = {"rel_err": rel,
+                           "argmax_equal": int(a.argmax()) == int(b.argmax()),
+                           "top2_margin": top2[0] - top2[1]}
+            if n == 509:
+                first = int(a.argmax())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        lm.close()
+    emitted = sum(len(toks) - 1 for toks, _ in results.values())
+    ttft = {}  # the batch's requests (the warm-up's prompt is 33 tokens)
+    for r in reqs["requests"]:
+        if r.get("ttft_s") is not None and r["prompt_len"] in prompts:
+            ttft.setdefault(str(r["prompt_len"]), []).append(r["ttft_s"])
+    rec = {"phase": "serve_engine", "card": REPORT["card"],
+           "config": "llama_8b bf16 flash+fused, LmServer(slots=4)",
+           "layers": cfg.layers, "setup_s": setup_s,
+           "pool_blocks": st3["pool_blocks"], "block_size": st3["block_size"],
+           "pool_gib": pool_gib,
+           "batch": {"prompt_lens": batch, "new_tokens": 32,
+                     "wall_s": batch_s, "decode_tokens": emitted,
+                     "decode_tokens_per_s": emitted / batch_s,
+                     "client_s": {str(i): results[i][1]
+                                  for i in range(len(batch))}},
+           "ttft_s_by_prompt_len": ttft,
+           "peak_active": st1["peak_active"],
+           "repeat_509": {"prefix_hits_delta": hits,
+                          "prefix_tokens_saved_delta": saved,
+                          "seconds": again_s, "first_token": again[0],
+                          "cold_first_token": first,
+                          "first_token_equal": again[0] == first,
+                          "cold_top2_margin": vs_plain[509]["top2_margin"]},
+           "sampled_repeat_identical": True,
+           "vs_single_flight": vs_plain, "tol_rel": 5e-2,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "model_calls": calls, "launches": launches,
+           "expected_launches": want,
+           "engine_rollup": ledger.get("rollup"),
+           "stats": {k: v for k, v in st3.items()
+                     if k != "occupancy_timeline"}}
+    emit(rec)
+    REPORT["serve_engine"] = rec
+    requestlog.set_active(None)
+    os.environ.pop("K8S_TPU_REQUEST_LOG", None)
+    return launches
+
+
 def train_parity(torch, tlib, bridge, train_lib, common):
     """The tiny model (f32, both kernels on) trains 5 Adam steps on cuda
     (kernels, forward and backward) and on cpu (plain versions) from the
@@ -915,6 +1207,8 @@ def main() -> int:
     try:
         from k8s_tpu_torch import train_lm
         from k8s_tpu_torch.models import bridge, decode, server, serving
+        from k8s_tpu_torch.models import engine as engine_lib
+        from k8s_tpu_torch.models import requestlog
         from k8s_tpu_torch.models import train as train_lib
         from k8s_tpu_torch.models import transformer as tlib
         from k8s_tpu_torch.ops import _build, _common
@@ -957,16 +1251,20 @@ def main() -> int:
     fl = flash_cases(torch, F, flash, _build)
     bw = flash_bwd_cases(torch, F, flash, _build)
     parity(torch, tlib, bridge, decode)
+    engine_parity(torch, tlib, bridge, decode, engine_lib)
     train_parity(torch, tlib, bridge, train_lib, _common)
     served = serve_main_path(torch, tlib, bridge, server, _common)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batched = serve_engine(torch, tlib, bridge, server, _common, requestlog)
+    gc.collect()
     torch.cuda.empty_cache()
     trained = train_main_path(torch, train_lm, server, serving, _common)
     grads_at_width(torch, tlib, bridge, train_lib, train_lm)
     llama = llama_width_training(torch, tlib, bridge, train_lib, _common)
 
-    # launches: this slice's training path (the gpt2-small main path and
-    # the llama-width phase, each counted from zero); the served path's
-    # counts beside them
+    # launches: every main path's count (each zeroed just before it is
+    # driven and read just after), summed, and each path's beside it
     kernels = []
     for kname, route, source, replaces, rec in (
             ("flash_fwd", "cuda", "k8s_tpu_torch/csrc/flash_fwd.cu",
@@ -979,13 +1277,14 @@ def main() -> int:
             ("flash_bwd_dkv", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cu",
              "k8s_tpu/ops/flash_attention.py:289",
              bw[("flash_bwd_dkv", "gpt2_train")])):
+        by_path = {"train_gpt2_small": trained[kname],
+                   "train_llama_width_2_layers": llama[kname],
+                   "serve_llama_8b": served[kname],
+                   "serve_engine_llama_8b": batched[kname]}
         kernels.append({"name": kname, "route": route, "source": source,
                         "replaces": replaces,
-                        "launches": trained[kname] + llama[kname],
-                        "launches_by_path": {
-                            "train_gpt2_small": trained[kname],
-                            "train_llama_width_2_layers": llama[kname],
-                            "serve_llama_8b": served[kname]},
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "case": rec["case"],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "wall_ms": rec["wall_ms"],

@@ -1,10 +1,13 @@
 """Autoregressive generation: prefill plus a KV-cached token loop.
 
 Port of the one-shot path of ``k8s_tpu/models/decode.py``
-(``make_generate_fn`` without chunked prefill, ``generate``).  The
-reference's ``lax.scan`` becomes a Python loop over eager decode steps;
-the loop stays shape-static like the scan: rows that emit ``eos_id`` are
-frozen to ``pad_id`` for the remaining steps instead of exiting early.
+(``make_generate_fn`` without chunked prefill, ``generate``), plus what
+the serving engine takes from it: the prefill bucket set
+(``prefill_buckets_for``, ``split_prefill``) and the row-wise sampler
+(``sample_logits_rows``).  The reference's ``lax.scan`` becomes a Python
+loop over eager decode steps; the loop stays shape-static like the scan:
+rows that emit ``eos_id`` are frozen to ``pad_id`` for the remaining
+steps instead of exiting early.
 
 Sampling: temperature 0 is the argmax; otherwise a Gumbel-max draw over
 the temperature/top-k-processed logits with an explicit
@@ -12,8 +15,8 @@ the temperature/top-k-processed logits with an explicit
 give different numbers, so sampled tokens are the same under one seed
 within the port, never across the two.
 
-Not in this slice: speculative decoding, beam search, chunked prefill and
-the batched-row samplers the serving engine uses.
+Not in this slice: speculative decoding, beam search and chunked
+prefill in ``make_generate_fn``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,29 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None,
     return (logits + gumbel).argmax(dim=-1)
 
 
+def sample_logits_rows(logits, generators, temperature, top_k):
+    """Row-wise sampling for the engine's batched decode step: each row
+    of ``[B, V]`` ``logits`` draws from its own distribution with its own
+    generator.  ``generators``, ``temperature`` and ``top_k`` are
+    per-row lists (temperature 0 = greedy; top_k None or 0 = off).
+    Returns ``[B]`` tokens.
+
+    Exactness contract: every row computes what the exclusive lane's
+    :func:`make_generate_fn` computes for a batch-1 request.  A greedy
+    row takes the raw argmax and draws nothing; a sampled row runs
+    :func:`sample_logits` on its own ``[1, V]`` row, so it draws
+    ``torch.rand((1, V))`` once from its generator per emitted token and
+    its top-k threshold is the kth value, as in ``_process_logits``.  A
+    fixed-seed sampled request therefore emits the same tokens on either
+    lane."""
+    out = logits.argmax(dim=-1)
+    for b, t in enumerate(temperature):
+        if t > 0:
+            out[b] = sample_logits(logits[b:b + 1], generators[b], t,
+                                   top_k[b] or None)[0]
+    return out
+
+
 def _check_cache_capacity(config: TransformerConfig, prompt_len: int,
                           max_new_tokens: int) -> None:
     """The full-cache bound: the LAST sampled token is returned, never fed
@@ -68,6 +94,41 @@ def _check_cache_capacity(config: TransformerConfig, prompt_len: int,
             f"exceeds max_seq_len ({config.max_seq_len}) and no "
             "window_size is set (the full KV cache is max_seq_len "
             "long; sliding-window configs decode indefinitely)")
+
+
+def prefill_buckets_for(config: TransformerConfig) -> tuple[int, ...]:
+    """The default prefill chunk-size bucket set for a serving engine:
+    powers of two up to ``max_seq_len`` (capped at ``prefill_chunk`` for
+    sliding-window configs, whose ring cache only has window +
+    prefill_chunk - 1 slots per chunk write).  Any prompt length
+    decomposes into bucket-sized chunks (1 is always a bucket)."""
+    cap = config.max_seq_len
+    if config.window_size:
+        cap = min(cap, max(1, config.prefill_chunk))
+    out, b = [], 1
+    while b <= cap:
+        out.append(b)
+        b *= 2
+    return tuple(out)
+
+
+def split_prefill(length: int, buckets: tuple[int, ...]) -> list[int]:
+    """Greedy largest-first decomposition of a prompt length into
+    bucket-sized chunks (e.g. 13 over {1,2,4,8} -> [8, 4, 1]).  Each
+    chunk is one decode-mode cache call at exact absolute positions — no
+    padding, so there is no left-pad RoPE corruption to work around."""
+    if length < 1:
+        raise ValueError(f"length must be >= 1, got {length}")
+    bs = sorted(buckets, reverse=True)
+    if not bs or bs[-1] != 1:
+        raise ValueError(f"buckets must include 1, got {buckets}")
+    out: list[int] = []
+    rem = length
+    for b in bs:
+        while rem >= b:
+            out.append(b)
+            rem -= b
+    return out
 
 
 def make_generate_fn(config: TransformerConfig, max_new_tokens: int,

@@ -1,25 +1,46 @@
-"""HTTP inference server over a serving artifact: the port of
-``k8s_tpu/models/server.py``'s single-flight lane.
+"""HTTP inference server over a serving artifact: port of
+``k8s_tpu/models/server.py``.
 
     python -m k8s_tpu_torch.models.server --train_dir DIR --port 8000
 
 Endpoints (JSON over HTTP/1.1, stdlib only):
 
-- ``GET /healthz`` -> ``{"status": "ok", "model": {...}, "serving": {...}}``.
+- ``GET /healthz`` -> ``{"status": "ok", "model": {...}, "serving":
+  {...}}``: readiness, with queue depth and slot occupancy.  Stays 200
+  while the admission queue is shedding; 503 once the engine loop has
+  crashed.
 - ``GET /metrics`` -> Prometheus text exposition (serve_requests_total,
-  serve_tokens_total, serve_queue_depth, serve_request_duration_seconds).
+  serve_tokens_total, serve_queue_depth, serve_batch_occupancy,
+  serve_rejected_total, serve_request_duration_seconds, the prefix-reuse
+  counters and the TTFT/TPOT/queue-wait/step histograms).
+- ``GET /debug/requests`` / ``GET /debug/engine`` -> per-request serving
+  timelines and the engine step ledger (models/requestlog.py; 404 with an
+  explicit body until ``K8S_TPU_REQUEST_LOG=1`` activates the recorder),
+  and ``GET /debug``, the index of these endpoints.  ``/debug/traces``
+  and ``/debug/compiles`` answer 404 naming what they wait for.
 - ``POST /v1/generate`` with ``{"text": str | "tokens": [int], ...}`` ->
   ``{"text": str | "tokens": [int]}``.  Optional fields:
   ``max_new_tokens``, ``temperature``, ``top_k``, ``eos``, ``seed``.  Bad
-  input answers 400 with ``{"error": ..., "field": ...}`` naming the field.
+  input answers 400 with ``{"error": ..., "field": ...}`` naming the
+  field; a full admission queue answers 503 with a ``Retry-After``
+  header.
 
-Device work is single-flight: one lock around each whole generation,
-which runs prefill (through the flash-attention kernel when the config
-sets ``use_flash_attention``) and the cached decode loop on the model's
-device.  The continuous-batching engine (``--slots > 0``), speculative
-decoding and the ``/debug/*`` endpoints come with later slices of the
-port: ``slots > 0`` is refused at construction, ``speculative`` answers
-400 and ``/debug/*`` 404.
+Device work goes through the continuous-batching engine
+(models/engine.py): greedy and sampled requests share one batched decode
+step over ``K8S_TPU_SERVE_SLOTS`` (default 4) slots with iteration-level
+join/retire, a paged KV pool with shared-prefix reuse, and per-slot
+samplers, so fixed-seed output is the same on either lane.
+``K8S_TPU_SERVE_BATCH_SAMPLING=0`` (or ``--batch-sampling 0``) routes
+sampled requests to the engine's exclusive lane, which runs the
+single-flight program (``decode.make_generate_fn``, whose prefill goes
+through the flash-attention kernel when the config sets
+``use_flash_attention``).  ``--slots 0`` turns the engine off and
+restores the one-lock single-flight path.
+
+Not ported yet, each refused by name: speculative decoding (the
+``speculative`` field answers 400), disaggregated serving
+(``K8S_TPU_SERVE_ROLE``), mesh serving (``K8S_TPU_SERVE_MESH``) and the
+host spill tier (``K8S_TPU_SERVE_SPILL_MB``).
 """
 
 from __future__ import annotations
@@ -28,6 +49,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -37,7 +59,8 @@ import numpy as np
 import torch
 
 from k8s_tpu_torch.models import decode as decode_lib
-from k8s_tpu_torch.models import serving
+from k8s_tpu_torch.models import engine as engine_lib
+from k8s_tpu_torch.models import requestlog, serving
 from k8s_tpu_torch.models.dataset import decode_bytes, encode_bytes
 from k8s_tpu_torch.models.transformer import Transformer
 from k8s_tpu_torch.ops._common import resolve_device
@@ -142,19 +165,35 @@ def _emitted(toks, eos) -> int:
     return len(toks)
 
 
+def _refuse_later_slices() -> None:
+    """The serving features of later slices, refused by name when their
+    knobs are set."""
+    role = os.environ.get("K8S_TPU_SERVE_ROLE", "").strip().lower()
+    if role in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"K8S_TPU_SERVE_ROLE={role}: disaggregated serving (kvxfer) "
+            "is not ported yet; unset it to serve both phases")
+    if engine_lib._env_int("K8S_TPU_SERVE_MESH", 0) > 0:
+        raise NotImplementedError(
+            "K8S_TPU_SERVE_MESH: mesh serving comes with the parallel/ "
+            "slice of the port; unset it to serve on one device")
+
+
 class LmServer:
     """Loads a serving artifact (or takes config + params directly) once
-    onto ``device`` and serves thread-safe single-flight generations."""
+    onto ``device``; thread-safe generate() through the
+    continuous-batching engine (``slots`` > 0, default
+    ``K8S_TPU_SERVE_SLOTS`` or 4) or single-flight (``slots=0``)."""
 
     def __init__(self, train_dir: Optional[str] = None,
                  kv_cache: str = "model", param_dtype: str = "model",
                  default_max_new_tokens: int = 64, *, config=None,
-                 params=None, slots: int = 0, registry=None,
+                 params=None, slots: Optional[int] = None,
+                 queue_limit: Optional[int] = None,
+                 prefix_blocks: Optional[int] = None,
+                 batch_sampling: Optional[bool] = None, registry=None,
                  device="cuda"):
-        if slots:
-            raise NotImplementedError(
-                "the continuous-batching engine (slots > 0) comes with a "
-                "later slice of the port; use slots=0 (single-flight)")
+        _refuse_later_slices()
         self.device = resolve_device(device)
         if train_dir is not None:
             config, params = serving.load_for_serving(
@@ -163,21 +202,38 @@ class LmServer:
         elif config is None or params is None:
             raise ValueError("need train_dir or config+params")
         self.config = config
-        self.model = Transformer(config, params, device=self.device)
         self.default_max_new_tokens = default_max_new_tokens
         self.registry = registry or metrics_mod.Registry()
         self.metrics = metrics_mod.serving_metrics(self.registry)
         # the registry returns an existing gauge on a name collision:
         # rebind its callable to this server (latest wins)
         self.metrics["queue_depth"]._fn = self.queue_depth
+        if slots is None:
+            slots = engine_lib.env_slots()
+        if batch_sampling is None:
+            batch_sampling = engine_lib.env_batch_sampling()
+        self.batch_sampling = bool(batch_sampling)
+        if slots > 0:
+            self.engine: Optional[engine_lib.Engine] = engine_lib.Engine(
+                config, params, slots=slots, queue_limit=queue_limit,
+                prefix_blocks=prefix_blocks, metrics=self.metrics,
+                device=self.device)
+            # the exclusive lane runs on the engine's model
+            self.model = self.engine.model
+        else:
+            # single-flight: one lock around all device work
+            self.engine = None
+            self.model = Transformer(config, params, device=self.device)
         self._lock = threading.Lock()
 
     def close(self) -> None:
         if self.metrics["queue_depth"]._fn == self.queue_depth:
             self.metrics["queue_depth"]._fn = None
+        if self.engine is not None:
+            self.engine.shutdown()
 
     def queue_depth(self) -> int:
-        return 0
+        return self.engine.queue_depth() if self.engine is not None else 0
 
     def model_info(self) -> dict:
         c = self.config
@@ -186,23 +242,57 @@ class LmServer:
                 "kv_cache_dtype": c.kv_cache_dtype}
 
     def serving_info(self) -> dict:
-        return {"engine": "single-flight", "slots": 0, "queue_depth": 0,
+        """Engine occupancy for /healthz (shedding is NOT unreadiness)."""
+        if self.engine is None:
+            return {"engine": "single-flight", "slots": 0, "queue_depth": 0,
+                    "device": str(self.device)}
+        s = self.engine.stats()
+        return {"engine": "continuous-batching", "slots": s["slots"],
+                "placement": s["placement"],
+                "num_processes": s["num_processes"],
+                "mesh_shape": s["mesh_shape"],
+                "tp_degree": s["tp_degree"],
+                "active": s["active"], "queue_depth": s["queue_depth"],
+                "queue_limit": s["queue_limit"],
+                "batch_sampling": self.batch_sampling,
+                "paged": s["paged"], "block_size": s["block_size"],
+                "pool_blocks": s["pool_blocks"],
+                "blocks_in_use": s["blocks_in_use"],
+                "prefix_hits": s["prefix_hits"],
+                "prefix_tokens_saved": s["prefix_tokens_saved"],
+                "request_log": s["request_log"],
                 "device": str(self.device)}
 
     def generate(self, parsed: ParsedRequest) -> dict:
-        """One validated generation request, serialized with every other
-        one: the lock is held across the whole generation and the copy of
-        its tokens to the host."""
-        with self._lock:
-            toks = self._generate_exclusive(parsed)
-        self.metrics["tokens"].inc(_emitted(toks, parsed.eos))
-        toks = serving.strip_after_eos(toks, parsed.eos)
+        """One validated generation request.  May raise engine.QueueFull
+        under backpressure.  Sampled requests ride the batch unless
+        ``batch_sampling`` routes them to the exclusive lane; either
+        routing emits the same tokens at a fixed seed."""
+        use_batched = parsed.temperature == 0.0 or self.batch_sampling
+        if self.engine is not None and use_batched:
+            toks = self.engine.submit(parsed.ids, parsed.max_new_tokens,
+                                      eos_id=parsed.eos,
+                                      temperature=parsed.temperature,
+                                      top_k=parsed.top_k, seed=parsed.seed)
+        elif self.engine is not None:
+            toks = self.engine.submit_exclusive(
+                lambda: self._generate_exclusive(parsed))
+            self.metrics["tokens"].inc(_emitted(toks, parsed.eos))
+        else:
+            # the lock is held across the whole generation and the copy
+            # of its tokens to the host: serialized device work is the
+            # single-flight path's definition
+            with self._lock:
+                toks = self._generate_exclusive(parsed)
+            self.metrics["tokens"].inc(_emitted(toks, parsed.eos))
+        toks = serving.strip_after_eos(np.asarray(toks), parsed.eos)
         if parsed.echo_text is not None:
             return {"text": parsed.echo_text + decode_bytes(np.asarray(toks))}
         return {"tokens": [int(t) for t in toks]}
 
     def _generate_exclusive(self, parsed: ParsedRequest) -> np.ndarray:
-        """Whole generation on the device; returns the host token row."""
+        """Whole generation on the device (the single-flight program);
+        returns the host token row."""
         fn = decode_lib._cached_generate_fn(
             self.config, parsed.max_new_tokens, parsed.temperature,
             parsed.top_k, parsed.eos, 0)
@@ -210,6 +300,34 @@ class LmServer:
         prompt = torch.as_tensor(parsed.ids, dtype=torch.long,
                                  device=self.device)[None, :]
         return fn(self.model, prompt, gen)[0].cpu().numpy()
+
+
+_NOT_PORTED_DEBUG = {
+    "/debug/traces": "span tracing (k8s_tpu/trace) is not ported",
+    "/debug/compiles": "eager PyTorch compiles no programs, so the "
+                       "reference's compile ledger has no counterpart",
+}
+
+
+def debug_index_response() -> tuple[int, str, str]:
+    """The /debug index: each debug endpoint of this server with its
+    active state, what activates it and its query parameters (the
+    reference's shared index, for the endpoints a serving pod has)."""
+    active = requestlog.active() is not None
+    endpoints = [
+        {"path": "/debug/requests",
+         "subsystem": "request lifecycle recorder (models/requestlog.py)",
+         "active": active, "activation": "K8S_TPU_REQUEST_LOG=1",
+         "params": ["id", "slow", "phase", "n"]},
+        {"path": "/debug/engine",
+         "subsystem": "engine step ledger (models/requestlog.py)",
+         "active": active, "activation": "K8S_TPU_REQUEST_LOG=1",
+         "params": ["n"]},
+    ] + [{"path": path, "subsystem": why, "active": False,
+          "activation": "not ported", "params": []}
+         for path, why in _NOT_PORTED_DEBUG.items()]
+    return (200, json.dumps({"endpoints": endpoints}, indent=2) + "\n",
+            "application/json")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -224,11 +342,14 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):
         log.debug("server: " + fmt, *args)
 
-    def _send(self, code: int, obj: dict) -> None:
+    def _send(self, code: int, obj: dict, headers: Optional[dict] = None
+              ) -> None:
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
@@ -241,12 +362,17 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(data)
 
     def do_GET(self):
-        path = self.path.partition("?")[0]
+        path, _, query = self.path.partition("?")
         lm = self.server.lm
         if path == "/healthz":
-            return self._send(200, {"status": "ok",
-                                    "model": lm.model_info(),
-                                    "serving": lm.serving_info()})
+            # busy (shedding) is still ready; a CRASHED engine is not —
+            # 503 makes the kubelet recycle the pod instead of routing to
+            # a process that fails every generate
+            dead = lm.engine is not None and not lm.engine.healthy
+            return self._send(503 if dead else 200,
+                              {"status": "engine crashed" if dead else "ok",
+                               "model": lm.model_info(),
+                               "serving": lm.serving_info()})
         if path == "/metrics":
             try:
                 body = lm.registry.expose()
@@ -256,8 +382,16 @@ class _Handler(BaseHTTPRequestHandler):
                                        "text/plain")
             return self._send_text(
                 200, body, "text/plain; version=0.0.4; charset=utf-8")
-        if path.startswith("/debug"):
-            return self._send(404, {"error": f"{path} is not ported yet"})
+        if path == "/debug/requests":
+            return self._send_text(
+                *requestlog.debug_requests_response(query))
+        if path == "/debug/engine":
+            return self._send_text(*requestlog.debug_engine_response(query))
+        if path in ("/debug", "/debug/"):
+            return self._send_text(*debug_index_response())
+        if path in _NOT_PORTED_DEBUG:
+            return self._send(404, {"error": f"{path}: "
+                                    f"{_NOT_PORTED_DEBUG[path]}"})
         return self._send(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self):
@@ -288,6 +422,14 @@ class _Handler(BaseHTTPRequestHandler):
         start = time.monotonic()
         try:
             out = lm.generate(parsed)
+        except engine_lib.QueueFull as e:
+            # backpressure: shed with an explicit retry hint; /healthz
+            # stays 200 (serve_rejected_total is counted by the engine)
+            m["requests"].labels("rejected").inc()
+            return self._send(
+                503, {"error": str(e)},
+                headers={"Retry-After":
+                         str(max(1, int(round(e.retry_after_s))))})
         except ValueError as e:
             m["requests"].labels("bad_request").inc()
             return self._send(400, {"error": str(e)})
@@ -324,9 +466,22 @@ def main(argv=None) -> int:
     p.add_argument("--kv_cache", choices=["model", "int8"], default="model")
     p.add_argument("--param_dtype", choices=["model", "bfloat16"],
                    default="model")
-    p.add_argument("--slots", type=int, default=0,
-                   help="continuous-batching decode slots; only 0 "
-                   "(single-flight) is ported so far")
+    p.add_argument("--slots", type=int, default=None,
+                   help="continuous-batching decode slots (default "
+                   "K8S_TPU_SERVE_SLOTS or 4; 0 = single-flight)")
+    p.add_argument("--queue", type=int, default=None,
+                   help="admission queue bound before 503 shedding "
+                   "(default K8S_TPU_SERVE_QUEUE or 64)")
+    p.add_argument("--prefix-blocks", type=int, default=None,
+                   help="KV pool blocks retained for shared-prefix reuse "
+                   "beyond the per-slot floor (default "
+                   "K8S_TPU_SERVE_PREFIX_BLOCKS or auto; 0 disables "
+                   "prefix reuse)")
+    p.add_argument("--batch-sampling", type=int, choices=(0, 1),
+                   default=None,
+                   help="route temperature>0 requests onto the batched "
+                   "slot lanes (default K8S_TPU_SERVE_BATCH_SAMPLING or "
+                   "1; 0 = the exclusive lane)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
     args = p.parse_args(argv)
@@ -334,7 +489,10 @@ def main(argv=None) -> int:
     lm = LmServer(args.train_dir, kv_cache=args.kv_cache,
                   param_dtype=args.param_dtype,
                   default_max_new_tokens=args.max_new_tokens,
-                  slots=args.slots, device=args.device)
+                  slots=args.slots, queue_limit=args.queue,
+                  prefix_blocks=args.prefix_blocks,
+                  batch_sampling=None if args.batch_sampling is None
+                  else bool(args.batch_sampling), device=args.device)
     httpd = serve(lm, args.host, args.port)
     host, port = httpd.server_address[:2]
     log.info("serving %s on http://%s:%d (POST /v1/generate)",

@@ -6,7 +6,9 @@ tied embeddings) with the reference's three modes:
 - ``"train"``: the full teacher-forced pass, differentiable;
 - ``"prefill"``: the same pass plus writing the prompt's K/V into the cache;
 - ``"decode"``: cached steps over a dense KV cache (a windowed ring buffer
-  when ``window_size`` is set, optionally int8).
+  when ``window_size`` is set, optionally int8), or over the serving
+  engine's paged block pool when the cache dicts carry ``table`` and
+  ``len`` (``models/paged.py``).
 
 Numerics follow the reference: projections run in ``config.dtype``; norm
 scales keep their own dtype, so a bf16 activation times an f32 scale gives
@@ -34,9 +36,8 @@ The KV cache is a list of per-layer dicts of tensors (``new_cache()``),
 updated in place — PyTorch's idiom for state the reference threads through
 flax's ``cache`` collection.
 
-Not in this port yet (each raises ``NotImplementedError``): the paged
-decode step (batched engine), the sp ring and ulysses (``parallel/``),
-MoE.
+Not in this port yet (each raises ``NotImplementedError``): the sp ring
+and ulysses (``parallel/``), MoE.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from k8s_tpu_torch.models import paged
 from k8s_tpu_torch.models.paged import quantize_kv
 from k8s_tpu_torch.ops._common import resolve_device
 from k8s_tpu_torch.ops.flash_attention import flash_attention
@@ -254,16 +256,42 @@ class Attention(nn.Module):
                     * cache[name + "_scale"][..., None]).to(self.config.dtype)
         return cache[name]
 
+    def _paged_decode_step(self, q, k, v, positions, cache):
+        """Decode over the serving engine's block-pool cache: new K/V are
+        stored straight into pool blocks through the per-row block table
+        (write-masked slots at position -1 are dropped, never clipped
+        into a live block) and attention runs behind the
+        ``paged_attention`` seam (models/paged.py).  The engine provides
+        the cache dict: pool-shaped ``k``/``v`` (+ int8 scales) tensors,
+        updated in place, plus ``table`` [B, blocks] and ``len`` [B]
+        (each row's written length before this chunk, the validity
+        bound)."""
+        cfg = self.config
+        if cfg.window_size:
+            raise ValueError(
+                "paged decode needs a full cache: a windowed ring wraps "
+                "positions per row and does not decompose into "
+                "absolute-position pool blocks")
+        int8 = cfg.kv_cache_dtype == "int8"
+        tables, lengths = cache["table"], cache["len"]
+        for name, x in (("k", k), ("v", v)):
+            paged.paged_kv_write(
+                cache[name], tables, positions, x,
+                scale_leaf=cache.get(name + "_scale"), quantize=int8)
+        return paged.paged_attention(
+            q, cache["k"], cache["v"], tables, lengths, positions,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            dtype=cfg.dtype)
+
     def _decode_step(self, q, k, v, positions, cache):
         """One cached decode call: write this chunk's K/V, then attend the
         whole cache.  The mask does all the work: slot validity (kpos >=
         0), causality (kpos <= qpos, which also hides the chunk's own later
-        tokens) and the window (qpos - kpos < window)."""
+        tokens) and the window (qpos - kpos < window).  A cache dict
+        carrying a block ``table`` takes the paged path instead."""
         cfg = self.config
         if "table" in cache:
-            raise NotImplementedError(
-                "paged decode over the engine's block pool comes with the "
-                "batched-engine slice of the port")
+            return self._paged_decode_step(q, k, v, positions, cache)
         B, Lc = q.shape[0], q.shape[1]
         if cfg.window_size and Lc > max(1, cfg.prefill_chunk):
             raise ValueError(

@@ -1,7 +1,9 @@
 """Prometheus-style metrics: the port's own copy of the parts of
-``k8s_tpu/util/metrics.py`` the single-flight server uses — Counter,
-Gauge, Histogram, ``Registry.expose`` (text exposition format 0.0.4) and
-the serving families that lane touches."""
+``k8s_tpu/util/metrics.py`` the server uses — Counter, Gauge, Histogram,
+``Registry.expose`` (text exposition format 0.0.4) and the serving
+families of the single-flight lane and the continuous-batching engine
+(the reference's names and help text; its speculative and kv-transfer
+families are left out with those features)."""
 
 from __future__ import annotations
 
@@ -243,9 +245,11 @@ class Registry:
 
 
 def serving_metrics(registry: Registry) -> dict:
-    """The inference-server families the single-flight lane records:
-    request totals by result, emitted tokens, admission-queue depth (a
-    callable gauge its server binds) and end-to-end request latency."""
+    """The inference-server families: request totals by result,
+    backpressure rejections, emitted tokens, batch occupancy, admission
+    queue depth (a callable gauge its server binds), end-to-end request
+    latency, the paged KV cache's prefix-reuse counters and block gauge,
+    and the per-request phase histograms."""
     r = registry
     return {
         "requests": r.counter(
@@ -254,9 +258,19 @@ def serving_metrics(registry: Registry) -> dict:
             "error).",
             ("result",),
         ),
+        "rejected": r.counter(
+            "serve_rejected_total",
+            "Requests shed by admission-queue backpressure (HTTP 503 + "
+            "Retry-After).",
+        ),
         "tokens": r.counter(
             "serve_tokens_total",
             "Tokens emitted across all completed generations.",
+        ),
+        "occupancy": r.gauge(
+            "serve_batch_occupancy",
+            "Active decode slots in the most recent batched step "
+            "(continuous-batching engine; 0..K8S_TPU_SERVE_SLOTS).",
         ),
         "queue_depth": r.gauge(
             "serve_queue_depth",
@@ -268,5 +282,57 @@ def serving_metrics(registry: Registry) -> dict:
             "End-to-end /v1/generate latency (parse to response body), "
             "successful requests.",
         ),
+        # -- paged KV cache / shared-prefix reuse ---------------------------
+        "prefix_hits": r.counter(
+            "serve_prefix_hits_total",
+            "Requests that attached to at least one shared-prefix KV "
+            "block instead of prefilling it (radix prefix tree).",
+        ),
+        "prefill_saved": r.counter(
+            "serve_prefill_tokens_saved_total",
+            "Prompt tokens whose prefill was skipped by shared-prefix "
+            "KV reuse (attached by reference or copy-on-write).",
+        ),
+        "sampled_batched": r.counter(
+            "serve_sampled_batched_total",
+            "temperature>0 generations served on the batched slot lanes "
+            "(row-wise sampling) instead of the exclusive lane.",
+        ),
+        "blocks_in_use": r.gauge(
+            "serve_kv_blocks_in_use",
+            "Live KV-cache pool blocks (slot tables + prefix tree), "
+            "sampled after each allocation/release.",
+        ),
+        # -- per-request phase metrics --------------------------------------
+        "ttft": r.histogram(
+            "serve_ttft_seconds",
+            "Time to first token: request submit to the first emitted "
+            "token (queue wait + prefill + first sample), batched-lane "
+            "generations.",
+        ),
+        "tpot": r.histogram(
+            "serve_tpot_seconds",
+            "Time per output token after the first: (e2e - TTFT) / "
+            "(tokens - 1), per completed generation with >= 2 tokens.",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 1.0),
+        ),
+        "queue_wait": r.histogram(
+            "serve_queue_wait_seconds",
+            "Admission-queue wait: request submit to slot admission "
+            "(or to the exclusive lane picking it up).",
+        ),
+        "step_duration": r.histogram(
+            "serve_step_duration_seconds",
+            "Wall time of one batched engine program call (fused decode "
+            "scan or speculative verify step), host read included.",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 1.0, 2.5),
+        ),
+        "prefill_convoy": r.counter(
+            "serve_prefill_convoy_total",
+            "Admissions whose prefill ran while >= 1 decode-ready slot "
+            "waited (the prefill convoy: decode stalled behind another "
+            "request's prefill).",
+        ),
     }
-

@@ -151,8 +151,10 @@ def test_healthz_metrics_and_404(servers):
     assert 'serve_requests_total{result="ok"}' in text
     assert "serve_tokens_total" in text and "serve_queue_depth 0" in text
     assert "serve_request_duration_seconds_count" in text
-    for path in ("/nope", "/debug/traces", "/debug"):
+    for path in ("/nope", "/debug/traces"):
         assert _get(turl, path)[0] == 404
+    code, body = _get(turl, "/debug")  # the index, as the reference's
+    assert code == 200 and "/debug/requests" in body
     assert _post(turl, {"tokens": [1]}, path="/v2/other")[0] == 404
     code, body = _post(turl, None)
     assert code == 400
@@ -160,8 +162,11 @@ def test_healthz_metrics_and_404(servers):
 
 def test_later_slices_are_refused(model):
     _, ct, _, sd = model
-    with pytest.raises(NotImplementedError, match="slots"):
-        LmServer(config=ct, params=sd, slots=2, device="cpu")
+    lm = LmServer(config=ct, params=sd, slots=2, device="cpu")
+    try:  # the engine is this slice's: slots > 0 now builds it
+        assert lm.engine is not None and lm.serving_info()["slots"] == 2
+    finally:
+        lm.close()
     with pytest.raises(ValueError, match="config"):
         LmServer(device="cpu")
 

@@ -185,13 +185,3 @@ def test_later_slices_raise(kw, exc):
     with pytest.raises(exc, match="slice"):
         tt.Transformer(cfg, params, device="cpu")(
             torch.zeros(1, 4, dtype=torch.long))
-
-
-def test_paged_cache_is_a_later_slice():
-    model = tt.Transformer(tt.tiny_test(),
-                           bridge.init_params(tt.tiny_test(), 0, "cpu"),
-                           device="cpu")
-    cache = [{"table": torch.zeros(1, 1)} for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="batched-engine"):
-        model(torch.zeros(1, 1, dtype=torch.long), mode="decode",
-              cache=cache)
