@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's main paths, on one card.
 
-    python3 chip_profile.py [--path serve|train|engine|both]
+    python3 chip_profile.py [--path serve|train|engine|spec|both]
                             [--prompt_len 509] [--new_tokens 32] [--seed 0]
 
 ``serve``: builds the model chip_smoke.py serves (llama_8b widths, bf16,
@@ -27,6 +27,18 @@ tokens); then both again, with ``torch.profiler`` over one such call:
 device time by kernel, the device-busy share of the step, and device
 time and ops per iteration.
 
+``spec``: the same model, single-flight, after a ``--prompt_len``
+prefill: one W = 4 verify call of the speculative loop
+(``decode.make_speculative_generate_fn``'s body: host drafting with
+``lookup_draft_host``, one 4-token decode-mode call, greedy acceptance,
+the host read of its result) against one 1-token decode step of the
+vanilla loop (one decode call and its argmax), each ending in a host
+sync, median of 5 of each in turns; then the same inside whole
+``--new_tokens`` generations (median of 3 in turns: per decode call,
+the generation's time less a prefill's).  All host clocks come before
+any profiler session; then ``torch.profiler`` over one call of each:
+device time, device ops and RMSNorm launches.
+
 ``train``: one training step of the path ``train_lm`` runs at its
 default preset (gpt2-small, B8 L1024, bf16, flash kernels forward and
 backward, Adam on f32 master weights), built the way ``train_lm.main``
@@ -49,6 +61,7 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -231,6 +244,101 @@ def profile_engine(torch, args, report) -> int:
     return 0
 
 
+def profile_spec(torch, args, report) -> int:
+    from k8s_tpu_torch.models import bridge, decode
+    from k8s_tpu_torch.models import transformer as tlib
+
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    model = tlib.Transformer(cfg, bridge.init_params(cfg, args.seed),
+                             device="cuda")
+    Lp, K = args.prompt_len, 4
+    prompt = torch.randint(
+        0, cfg.vocab_size, (1, Lp),
+        generator=torch.Generator().manual_seed(args.seed + 1)).cuda()
+    cache = model.new_cache()
+    with torch.inference_mode():
+        tok = model(prompt, mode="prefill", cache=cache)[:, -1].argmax(-1)
+    ctx = prompt[0].tolist() + [int(tok)]
+    pos1 = torch.full((1, 1), Lp, device="cuda")
+    posk = (Lp + torch.arange(K, device="cuda"))[None]
+
+    # both rewrite the K/V of position Lp (and the verify Lp+1..Lp+3)
+    # with the same values each call, so repeated calls see one cache
+    def step():
+        with torch.inference_mode():
+            logits = model(tok[:, None], positions=pos1, mode="decode",
+                           cache=cache)
+            decode.sample_logits(logits[:, -1])
+        torch.cuda.synchronize()
+
+    def verify():
+        with torch.inference_mode():
+            chunk = torch.tensor([[ctx[-1]] + decode.lookup_draft_host(
+                ctx, K)], device="cuda")
+            logits = model(chunk, positions=posk, mode="decode",
+                           cache=cache)
+            acc, bonus = decode.spec_accept_greedy(logits, chunk[:, 1:])
+            torch.stack([acc, bonus]).tolist()
+        torch.cuda.synchronize()
+
+    def clock(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(2):  # warm-up
+        step()
+        verify()
+    walls = {"step": [], "verify": []}
+    for _ in range(5):
+        walls["step"].append(clock(step))
+        walls["verify"].append(clock(verify))
+    # the same inside whole generations (--new_tokens), where the
+    # vanilla loop never waits for the device and the speculative loop
+    # reads every verify back: (generation - prefill) per decode call
+    gens = {"prefill": decode.make_generate_fn(cfg, 1),
+            "vanilla": decode.make_generate_fn(cfg, args.new_tokens),
+            "spec": decode.make_speculative_generate_fn(
+                cfg, args.new_tokens, draft_k=K, return_stats=True)}
+    loops = {name: [] for name in gens}
+    for _ in range(3):
+        for name, fn in gens.items():
+            loops[name].append(clock(lambda: fn(model, prompt)))
+    verify_calls = gens["spec"](model, prompt)[1]["model_calls"] - 1
+    pre = median(loops["prefill"])
+    rec = {"phase": "spec_verify_vs_step", "card": report["nvidia_smi"],
+           "prompt_len": Lp, "draft_k": K,
+           "step_wall_s": walls["step"], "verify_wall_s": walls["verify"],
+           "step_wall_s_median": median(walls["step"]),
+           "verify_wall_s_median": median(walls["verify"]),
+           "verify_over_step_wall": median(walls["verify"])
+           / median(walls["step"]),
+           "generation_s": loops, "spec_verify_calls": verify_calls,
+           "loop_step_s": (median(loops["vanilla"]) - pre)
+           / (args.new_tokens - 1),
+           "loop_verify_s": (median(loops["spec"]) - pre) / verify_calls}
+    for name, fn in (("step", step), ("verify", verify)):
+        by_name, traced_s, kernels = profile_device(torch, fn)
+        if not kernels:
+            print("FAIL: the profiler saw no device work", file=sys.stderr)
+            return 1
+        busy = sum(ms for _, ms in by_name.values())
+        rec[f"{name}_device_ms"] = busy
+        rec[f"{name}_device_ops"] = len(kernels)
+        rec[f"{name}_rms_norm_launches"] = sum(
+            c for n, (c, _) in by_name.items() if "rms" in n)
+        rec[f"{name}_top"] = [
+            {"name": n, "count": c, "ms": ms} for n, (c, ms) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][1])[:8]]
+    rec["verify_over_step_device"] = rec["verify_device_ms"] \
+        / rec["step_device_ms"]
+    report["spec"] = rec
+    emit(rec)
+    return 0
+
+
 def profile_train(torch, args, report) -> int:
     from k8s_tpu_torch import train_lm
     from k8s_tpu_torch.models import bridge
@@ -279,7 +387,8 @@ def profile_train(torch, args, report) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--path", choices=["serve", "train", "engine", "both"],
+    p.add_argument("--path",
+                   choices=["serve", "train", "engine", "spec", "both"],
                    default="both")
     p.add_argument("--prompt_len", type=int, default=509)
     p.add_argument("--new_tokens", type=int, default=32)
@@ -298,7 +407,12 @@ def main(argv=None) -> int:
         "TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"card": torch.cuda.get_device_name(0), "args": vars(args)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    report = {"card": torch.cuda.get_device_name(0), "nvidia_smi": smi[0],
+              "args": vars(args)}
+    emit({"phase": "card", "nvidia_smi": smi[0]})
     rc = 0
     if args.path in ("serve", "both"):
         rc = rc or profile_serve(torch, args, report)
@@ -307,6 +421,8 @@ def main(argv=None) -> int:
         rc = rc or profile_train(torch, args, report)
     if args.path == "engine":
         rc = rc or profile_engine(torch, args, report)
+    if args.path == "spec":
+        rc = rc or profile_spec(torch, args, report)
 
     os.makedirs(os.path.join(REPO, "chip_reports"), exist_ok=True)
     with open(os.path.join(REPO, "chip_reports", "chip_profile.json"),

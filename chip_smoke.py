@@ -35,8 +35,19 @@ Phases, each fatal on failure:
    same Llama-3-8B-width model, answers 8 concurrent requests, records a
    prefix hit on a repeated prompt and repeats a sampled request exactly;
    its counters must show RMSNorm at 2·32+1 launches a model call and no
-   flash kernel, and its prefill logits are held against the
-   single-flight model's.
+   flash kernel, its prefill logits are held against the single-flight
+   model's, and each request's tokens against the exclusive lane's (a
+   bf16 difference passes only within twice the logit error at the top-2
+   margin, ``token_check``).
+5c. speculative, beam: the batched speculative lane equals the exclusive
+   lane and vanilla greedy on the tiny model in f32 (greedy at draft_k
+   2-4, fixed-seed sampled, two draft_k groups beside a plain row); then
+   on the served Llama-3-8B-width weights, ``speculative: 4`` over HTTP
+   on the batched lane and on single-flight against vanilla greedy on the
+   same prompts (a repeated 509- and 128-token pattern, a random 64),
+   with tokens per model call, both tokens/s, exact K1 launches (65 a
+   model call) and K2 (32 a single-flight prefill, none batched); beam 1
+   equals greedy and beam 4 reports its peak memory, exact launches.
 6. train: ``k8s_tpu_torch.train_lm.main`` trains the gpt2-small preset at
    full width and depth (bf16, flash on, synthetic corpus) with
    checkpoints, exports a serving artifact and generates; the counters,
@@ -46,7 +57,9 @@ Phases, each fatal on failure:
    gpt2-small step's gradients with the kernels are held against the same
    weights and batch through the plain attention, and a 2-layer cut of the
    Llama-3-8B widths trains 3 steps through GQA, head_dim 128 and the
-   RMSNorm kernel with exact launch counts.
+   RMSNorm kernel with exact launch counts.  ``python -m
+   k8s_tpu_torch.serve_lm`` runs ``--beam``, ``--chunked_prefill`` and
+   ``--speculative`` on the exported artifact with exact launch counts.
 
 Prints the card line first, one JSON object per phase and case, then a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -223,6 +236,7 @@ def rms_cases(torch, F, fused_norm):
     cases = [("main_prefill", 509, 4096, bf, f32),
              ("main_decode", 1, 4096, bf, f32),
              ("engine_decode_4", 4, 4096, bf, f32),
+             ("engine_spec_16", 16, 4096, bf, f32),
              ("main_17", 17, 4096, bf, f32),
              ("main_64", 64, 4096, bf, f32),
              ("main_128", 128, 4096, bf, f32),
@@ -301,6 +315,7 @@ def flash_cases(torch, F, flash, _build):
              ("main_17", 1, 32, 8, 17, 17, 128, bf, True, None),
              ("main_64", 1, 32, 8, 64, 64, 128, bf, True, None),
              ("main_128", 1, 32, 8, 128, 128, 128, bf, True, None),
+             ("gpt2_serve_32", 1, 12, 12, 32, 32, 64, bf, True, None),
              ("llama_2048", 1, 32, 8, 2048, 2048, 128, bf, True, None),
              ("window_509", 1, 32, 8, 509, 509, 128, bf, True, 256),
              ("window_2048", 1, 32, 8, 2048, 2048, 128, bf, True, 256),
@@ -776,6 +791,176 @@ def engine_parity(torch, tlib, bridge, decode, engine_lib):
     REPORT["engine_parity"] = rec
 
 
+class ModelCalls:
+    """Counts ``Transformer.forward`` calls by mode while active (every
+    instance, every thread): the model calls a path's launch counts are
+    held against."""
+
+    def __init__(self, tlib):
+        self.tlib = tlib
+        self.by_mode = {"prefill": 0, "decode": 0, "train": 0}
+
+    def __enter__(self):
+        orig = self.orig = self.tlib.Transformer.forward
+        counts = self.by_mode
+
+        def forward(model, *args, **kwargs):
+            mode = kwargs.get("mode", args[2] if len(args) > 2 else "train")
+            counts[mode] += 1
+            return orig(model, *args, **kwargs)
+        self.tlib.Transformer.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.tlib.Transformer.forward = self.orig
+
+    @property
+    def total(self) -> int:
+        return sum(self.by_mode.values())
+
+
+def spec_parity(torch, tlib, bridge, decode, engine_lib):
+    """The engine's batched speculative lane against the port's exclusive
+    lane (``make_speculative_generate_fn`` on the engine's model) on the
+    card, on the tiny test model in f32 with both kernels on: greedy
+    batched spec equals exclusive spec equals vanilla greedy at draft_k
+    2, 3 and 4 on a random and a repetitive prompt; a fixed-seed sampled
+    spec request gives the same tokens on both lanes; spec slots of two
+    draft_k groups beside a plain greedy row, from threads, each equal
+    their oracle; refcounts stay exact."""
+    import threading
+
+    cfg = dataclasses.replace(tlib.tiny_test(), use_flash_attention=True,
+                              use_fused_norm=True)
+    params = bridge.init_params(cfg, seed=15, device="cpu")
+    rng = torch.Generator().manual_seed(16)
+    rand = torch.randint(0, cfg.vocab_size, (11,), generator=rng).tolist()
+    rep = (torch.randint(0, cfg.vocab_size, (5,), generator=rng).tolist()
+           * 6)[:27]
+    eng = engine_lib.Engine(cfg, params, slots=2, queue_limit=32,
+                            device="cuda")
+
+    def exclusive(p, n, k=0, temperature=0.0, top_k=None, seed=0):
+        if k:
+            fn = decode.cached_speculative_fn(
+                cfg, n, draft_k=k, temperature=temperature, top_k=top_k)
+        else:
+            fn = decode._cached_generate_fn(cfg, n, temperature, top_k,
+                                            None, 0)
+
+        def run():
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return fn(eng.model, torch.tensor([p], device="cuda"),
+                      gen)[0].tolist()
+        return eng.submit_exclusive(run, timeout=300)
+
+    rec = {"phase": "spec_parity", "config": "tiny_test f32 flash+fused",
+           "slots": 2, "cases": {}}
+
+    def check(name, got, *wants):
+        if any(got != w for w in wants):
+            fail(f"spec_parity {name}: batched {got}, exclusive/vanilla "
+                 f"{list(wants)}")
+        rec["cases"][name] = len(got)
+
+    try:
+        for label, p in (("random", rand), ("repetitive", rep)):
+            greedy = exclusive(p, 16)
+            for k in (2, 3, 4):
+                check(f"{label}_k{k}",
+                      eng.submit(p, 16, speculative=k, timeout=300),
+                      exclusive(p, 16, k), greedy)
+        sampled = dict(temperature=0.9, top_k=20, seed=5)
+        check("sampled_k4", eng.submit(rand, 12, speculative=4, timeout=300,
+                                       **sampled),
+              exclusive(rand, 12, 4, **sampled))
+        got = {}
+        plan = {"mixed_k4": (rep, 4), "mixed_k2": (rand, 2),
+                "mixed_plain": (rand[:7], 0)}
+        threads = [threading.Thread(target=lambda n=n, p=p, k=k: got.__setitem__(
+            n, eng.submit(p, 12, speculative=k, timeout=300)))
+            for n, (p, k) in plan.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        for n, (p, k) in plan.items():
+            check(n, got.get(n), exclusive(p, 12, k))
+        eng.debug_check_blocks()
+        st = eng.stats()
+        rec.update({k: st[k] for k in ("spec_steps", "spec_proposed",
+                                       "spec_accepted",
+                                       "spec_mean_accepted")})
+    finally:
+        eng.shutdown()
+    emit(rec)
+    REPORT["spec_parity"] = rec
+
+
+def path_logits(torch, model, ctx, buckets) -> dict:
+    """Last-position f32 logits of ``ctx`` through each decode path the
+    served lanes use: one prefill (flash), a prefill then one 1-token
+    decode step, a prefill then one 4-token chunk (a verify call), and the
+    engine's bucket chunks through a private paged pool."""
+    from k8s_tpu_torch.models.decode import split_prefill
+    from k8s_tpu_torch.models.placement import PagedCompute
+
+    t = torch.tensor([ctx], device="cuda")
+    n = len(ctx)
+    out = {}
+    with torch.inference_mode():
+        out["prefill"] = model(t, mode="prefill",
+                               cache=model.new_cache())[0, -1]
+        for w in (1, 4):
+            cache = model.new_cache()
+            model(t[:, :-w], mode="prefill", cache=cache)
+            pos = torch.arange(n - w, n, device="cuda")[None]
+            out[f"decode_{w}"] = model(t[:, -w:], positions=pos,
+                                       mode="decode", cache=cache)[0, -1]
+        comp, bs = PagedCompute(model), 16
+        nb = -(-n // bs)
+        pool = comp.build_pool(1 + nb, bs, "cuda")
+        table = torch.arange(1, 1 + nb, device="cuda")
+        off = 0
+        for c in split_prefill(n, buckets):
+            last = comp.prefill_paged(
+                pool, table[:-(-(off + c) // bs)], t[:, off:off + c],
+                torch.arange(off, off + c, device="cuda")[None])
+            off += c
+        out["paged"] = last[0]
+    return out
+
+
+def token_check(torch, model, prompt, got, want, what, buckets) -> dict:
+    """``got`` against ``want`` for one request (same weights, two lanes
+    or two programs).  In bf16 the lanes round differently, so a token
+    may differ where a step's top-2 margin lies within the logit error:
+    at the first mismatch, the margin of the logits over the agreed
+    context (one prefill) is held against the largest logit difference
+    between the decode paths over that same context (``path_logits``).
+    A flip moves two logits apart by the margin, which an error e on each
+    does up to 2e: fail only where the margin exceeds that."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None:
+        if len(got) != len(want):
+            fail(f"{what}: {len(got)} tokens against {len(want)}")
+        return {"equal": True}
+    logits = path_logits(torch, model, list(prompt) + list(want[:i]),
+                         buckets)
+    ref = logits["prefill"]
+    top2 = torch.topk(ref, 2).values.tolist()
+    margin = top2[0] - top2[1]
+    err = max((x - ref).abs().max().item() for k, x in logits.items()
+              if k != "prefill")
+    rec = {"equal": False, "first_mismatch": i,
+           "tokens": [got[i], want[i]], "top2_margin": margin,
+           "logit_err": err, "within_error": margin <= 2 * err}
+    if not rec["within_error"]:
+        fail(f"{what}: token {i} differs ({got[i]} vs {want[i]}) with a "
+             f"top-2 margin {margin} beyond twice the logit error {err}")
+    return rec
+
+
 def engine_prefill_logits(torch, eng, ids):
     """The engine's cold prefill of ``ids``: its own prefill body, chunk
     by bucket chunk, into a private pool (so the served pool and prefix
@@ -810,7 +995,11 @@ def serve_engine(torch, tlib, bridge, server, common, requestlog):
     single-flight model's.  The kernels' counters, zeroed just before the
     requests and read just after, must show RMSNorm at 2·32+1 launches
     for each model call the engine counts and no flash kernel: batched
-    prefill goes through the paged attention, as in the reference."""
+    prefill goes through the paged attention, as in the reference.  Each
+    request's 32 tokens are then held against the exclusive lane's (the
+    single-flight program on the same model) by ``token_check``.
+    Returns the launches and the served weights (a state dict), which the
+    speculative and beam phases reuse."""
     import threading
 
     cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
@@ -896,6 +1085,14 @@ def serve_engine(torch, tlib, bridge, server, common, requestlog):
         if samp[0] != samp[1]:
             fail("the repeated sampled request (seed 7) gave different "
                  f"tokens on the engine: {samp[0]} vs {samp[1]}")
+        # the exclusive lane's tokens for each distinct prompt
+        excl = {}
+        for n in prompts:
+            parsed = server.parse_request(
+                cfg, {"tokens": prompts[n], "max_new_tokens": 32}, 32)
+            excl[n] = eng.submit_exclusive(
+                lambda parsed=parsed: lm._generate_exclusive(
+                    parsed).tolist(), timeout=600)
         # the engine's cold prefill against the single-flight model's
         vs_plain, first = {}, None
         for n in (17, 509):
@@ -919,6 +1116,10 @@ def serve_engine(torch, tlib, bridge, server, common, requestlog):
         httpd.shutdown()
         httpd.server_close()
         lm.close()
+    vs_exclusive = {str(i): token_check(
+        torch, lm.model, prompts[n], results[i][0], excl[n],
+        f"serve_engine request {i} ({n} tokens) vs the exclusive lane",
+        eng.buckets) for i, n in enumerate(batch)}
     emitted = sum(len(toks) - 1 for toks, _ in results.values())
     ttft = {}  # the batch's requests (the warm-up's prompt is 33 tokens)
     for r in reqs["requests"]:
@@ -944,6 +1145,9 @@ def serve_engine(torch, tlib, bridge, server, common, requestlog):
                           "cold_top2_margin": vs_plain[509]["top2_margin"]},
            "sampled_repeat_identical": True,
            "vs_single_flight": vs_plain, "tol_rel": 5e-2,
+           "tokens_vs_exclusive_lane": vs_exclusive,
+           "tokens_equal_exclusive_lane": sum(
+               r["equal"] for r in vs_exclusive.values()),
            "max_memory_allocated_gib":
                torch.cuda.max_memory_allocated() / 2 ** 30,
            "model_calls": calls, "launches": launches,
@@ -955,6 +1159,191 @@ def serve_engine(torch, tlib, bridge, server, common, requestlog):
     REPORT["serve_engine"] = rec
     requestlog.set_active(None)
     os.environ.pop("K8S_TPU_REQUEST_LOG", None)
+    return launches, lm.model.state_dict()
+
+
+def serve_spec(torch, tlib, server, common, sd):
+    """Speculative decoding at the served width, on the served weights
+    (``sd``): ``speculative: 4`` requests over HTTP on the engine's
+    batched lane (``LmServer(slots=4)``, no prefix reuse, so every prefill
+    is cold) and on the single-flight lane (``slots=0``, the exclusive
+    program), against vanilla greedy requests for the same prompts on the
+    same server, in turns (vanilla, spec, spec, vanilla).  Prompts: a
+    seeded 23-token pattern repeated to 509 tokens, the same to 128, and
+    a random 64.  Each lane's requests run with the counters zeroed just
+    before and read just after: K1 must show 2·32+1 launches per model
+    call (the engine's ``model_calls``; on single-flight every
+    ``Transformer`` call, counted by ``ModelCalls``), K2 32 launches per
+    single-flight prefill and none on the batched lane.  Spec tokens are
+    held against vanilla greedy's on the same lane and across the lanes
+    by ``token_check``."""
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    # no prefix reuse: the prompts share a pattern, and a spec request
+    # attaching its vanilla twin's blocks would skip the prefill the
+    # vanilla request paid
+    lms = {"batched": server.LmServer(config=cfg, params=sd, slots=4,
+                                      prefix_blocks=0, device="cuda"),
+           "single_flight": server.LmServer(config=cfg, params=sd, slots=0,
+                                            device="cuda")}
+    httpds = {k: server.serve(lm, "127.0.0.1", 0) for k, lm in lms.items()}
+    urls = {k: "http://%s:%d" % h.server_address[:2]
+            for k, h in httpds.items()}
+    rng = torch.Generator().manual_seed(6)
+    pattern = torch.randint(0, cfg.vocab_size, (23,), generator=rng).tolist()
+    prompts = {"rep_509": (pattern * 23)[:509], "rep_128": (pattern * 6)[:128],
+               "random_64": torch.randint(0, cfg.vocab_size, (64,),
+                                          generator=rng).tolist()}
+    new = 32
+
+    def post(lane, p, **extra):
+        code, body, secs = http(urls[lane] + "/v1/generate", dict(
+            tokens=p, max_new_tokens=new, **extra))
+        toks = body.get("tokens")
+        if code != 200 or not isinstance(toks, list) or len(toks) != new \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"serve_spec {lane} ({len(p)} tokens, {extra}): {code} "
+                 f"{str(body)[:300]}")
+        return toks, secs
+
+    out = {"phase": "serve_spec", "card": REPORT["card"],
+           "config": "llama_8b bf16 flash+fused", "layers": cfg.layers,
+           "draft_k": 4, "new_tokens": new, "lanes": {}}
+    launches = {}
+    try:
+        for lane in lms:
+            post(lane, prompts["random_64"][:20], speculative=4)  # warm-up
+        for lane, lm in lms.items():
+            eng = lm.engine
+            st0 = eng.stats() if eng else None
+            per, vanilla = {}, {}
+
+            def spec_request(p):
+                """One spec request: its tokens, seconds and verify and
+                model calls (the engine's counts, or ModelCalls')."""
+                s0 = eng.stats() if eng else None
+                calls0 = dict(mc.by_mode)
+                toks, secs = post(lane, p, speculative=4)
+                if eng:
+                    s1 = eng.stats()
+                    return toks, secs, s1["spec_steps"] - s0["spec_steps"], \
+                        s1["model_calls"] - s0["model_calls"]
+                return toks, secs, mc.by_mode["decode"] - calls0["decode"], \
+                    mc.total - sum(calls0.values())
+
+            # the lane's run: counters zeroed just before, read after;
+            # vanilla and spec alternate (v s s v) so a drift of the
+            # host's speed does not bias their ratio
+            common.reset_launches()
+            with ModelCalls(tlib) as mc:
+                for n, p in prompts.items():
+                    v1 = post(lane, p)
+                    s1, s2 = spec_request(p), spec_request(p)
+                    v2 = post(lane, p)
+                    if v1[0] != v2[0] or s1[0] != s2[0] or s1[2:] != s2[2:]:
+                        fail(f"serve_spec {lane} {n}: a repeated request "
+                             "gave other tokens or calls")
+                    vanilla[n] = v1
+                    spec_s, vanilla_s = s1[1] + s2[1], v1[1] + v2[1]
+                    per[n] = {"tokens": s1[0], "spec_s": [s1[1], s2[1]],
+                              "vanilla_s": [v1[1], v2[1]],
+                              "verify_calls": s1[2], "model_calls": s1[3],
+                              "tokens_per_call": (new - 1) / max(s1[2], 1),
+                              "spec_tokens_per_s": 2 * new / spec_s,
+                              "vanilla_tokens_per_s": 2 * new / vanilla_s,
+                              "spec_over_vanilla": vanilla_s / spec_s}
+                torch.cuda.synchronize()
+                got = common.launches()
+            if eng:
+                calls = eng.stats()["model_calls"] - st0["model_calls"]
+                prefills = 0
+            else:
+                calls, prefills = mc.total, mc.by_mode["prefill"]
+            want = {"flash_fwd": cfg.layers * prefills,
+                    "rms_norm": (2 * cfg.layers + 1) * calls,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            if got != want:
+                fail(f"serve_spec {lane} launches {got}, expected {want} "
+                     f"({calls} model calls, {prefills} prefills)")
+            launches[lane] = got
+            for n in prompts:
+                per[n]["vs_vanilla"] = token_check(
+                    torch, lm.model, prompts[n], per[n]["tokens"],
+                    vanilla[n][0], f"serve_spec {lane} {n} spec vs vanilla",
+                    (eng or lms["batched"].engine).buckets)
+            out["lanes"][lane] = {"model_calls": calls, "prefills": prefills,
+                                  "launches": got, "expected_launches": want,
+                                  "requests": per}
+    finally:
+        for k in lms:
+            httpds[k].shutdown()
+            httpds[k].server_close()
+            lms[k].close()
+    b, f = out["lanes"]["batched"], out["lanes"]["single_flight"]
+    out["batched_vs_single_flight"] = {n: token_check(
+        torch, lms["single_flight"].model, prompts[n],
+        b["requests"][n]["tokens"], f["requests"][n]["tokens"],
+        f"serve_spec {n}: batched vs single-flight spec",
+        lms["batched"].engine.buckets) for n in prompts}
+    for lane in out["lanes"].values():
+        for r in lane["requests"].values():
+            r.pop("tokens")
+    emit(out)
+    REPORT["serve_spec"] = out
+    return launches
+
+
+def beam_llama(torch, tlib, decode, common, sd):
+    """Beam search at the served width on the served weights: beam 1 on a
+    random 509-token prompt must equal greedy (the same single-row decode
+    path); then beam 4 with ``max_memory_allocated`` taken over it (the
+    dense cache repeated to 4 rows, 131,072 B a token x 8192 slots a row,
+    gathered by parent beam every step).  K1 must show 2·32+1 launches a
+    model call and K2 32 a prefill, over both beam runs."""
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    model = tlib.Transformer(cfg, sd, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 509),
+                           generator=torch.Generator().manual_seed(7)).cuda()
+    new = 32
+    greedy = decode.make_generate_fn(cfg, new)(model, prompt)[0].tolist()
+    common.reset_launches()
+    with ModelCalls(tlib) as mc:
+        b1, s1 = decode.make_beam_generate_fn(cfg, new, beam_size=1)(
+            model, prompt)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b4, s4 = decode.make_beam_generate_fn(cfg, new, beam_size=4)(
+            model, prompt)
+        torch.cuda.synchronize()
+        beam4_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    launches = common.launches()
+    want = {"flash_fwd": cfg.layers * mc.by_mode["prefill"],
+            "rms_norm": (2 * cfg.layers + 1) * mc.total,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want or mc.total != 2 * new:
+        fail(f"beam launches {launches}, expected {want} ({mc.by_mode})")
+    if b1[0].tolist() != greedy:
+        fail(f"beam 1 {b1[0].tolist()} differs from greedy {greedy}")
+    b4 = b4[0].tolist()
+    if len(b4) != new or not all(0 <= t < cfg.vocab_size for t in b4) or \
+            not all(math.isfinite(float(x)) for x in (s1[0], s4[0])):
+        fail(f"beam 4 tokens {b4}, scores {s1.tolist()} {s4.tolist()}")
+    rec = {"phase": "beam", "card": REPORT["card"],
+           "config": "llama_8b bf16 flash+fused", "prompt_len": 509,
+           "new_tokens": new, "beam1_equals_greedy": True,
+           "beam1_score": float(s1[0]), "beam4_score": float(s4[0]),
+           "beam4_s": beam4_s,
+           "memory_allocated_before_gib": base / 2 ** 30,
+           "beam4_max_memory_allocated_gib": peak / 2 ** 30,
+           "beam4_peak_over_before_gib": (peak - base) / 2 ** 30,
+           "model_calls": mc.by_mode, "launches": launches,
+           "expected_launches": want}
+    emit(rec)
+    REPORT["beam"] = rec
     return launches
 
 
@@ -1033,11 +1422,85 @@ TRAIN_ARGS = ["--preset", "gpt2-small", "--batch_size", "8", "--seq_len",
               "5", "--log_every", "1", "--generate", "8", "--device", "cuda"]
 
 
-def train_main_path(torch, train_lm, server, serving, common):
+def serve_lm_runs(torch, tlib, common, train_dir, cfg) -> dict:
+    """``python -m k8s_tpu_torch.serve_lm`` on the exported artifact, run
+    in this process (``runpy``, as ``-m`` runs it) so its launches can be
+    counted: ``--beam 4``, ``--chunked_prefill`` and ``--speculative 4``
+    on a 32-token prompt, 16 new tokens each.  Each run's counters are
+    zeroed just before and read just after: K2 must show one launch per
+    layer per prefill-mode call (none under chunked prefill, which streams
+    the prompt through decode-mode chunks), K1 2·layers+1 per model call
+    when the artifact turns it on (gpt2-small does not)."""
+    import contextlib
+    import io
+    import logging
+    import runpy
+
+    prompt = ",".join(str(t) for t in list(range(101, 117)) * 2)
+    logs: list[str] = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            logs.append(record.getMessage())
+
+    handler = Collect()
+    logging.getLogger("serve_lm").addHandler(handler)
+    out = {}
+    try:
+        for mode, extra in (("beam", ["--beam", "4"]),
+                            ("chunked_prefill", ["--chunked_prefill"]),
+                            ("speculative", ["--speculative", "4"])):
+            argv = ["serve_lm", f"--train_dir={train_dir}",
+                    f"--tokens={prompt}", "--max_new_tokens=16",
+                    "--device=cuda", *extra]
+            saved, sys.argv, buf = sys.argv, argv, io.StringIO()
+            logs.clear()
+            common.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with ModelCalls(tlib) as mc, contextlib.redirect_stdout(buf):
+                    runpy.run_module("k8s_tpu_torch.serve_lm",
+                                     run_name="__main__", alter_sys=True)
+            except SystemExit as e:
+                if e.code not in (0, None):
+                    fail(f"serve_lm {mode} exited {e.code}")
+            finally:
+                sys.argv = saved
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = common.launches()
+            want = {"flash_fwd": cfg.layers * mc.by_mode["prefill"],
+                    "rms_norm": (2 * cfg.layers + 1) * mc.total
+                    if cfg.use_fused_norm else 0,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            toks = [int(t) for t in buf.getvalue().split()[-1].split(",")]
+            if launches != want or len(toks) != 16 or \
+                    not all(0 <= t < cfg.vocab_size for t in toks):
+                fail(f"serve_lm {mode}: tokens {toks}, launches {launches} "
+                     f"(expected {want}, calls {mc.by_mode})")
+            if mode == "chunked_prefill" and mc.by_mode["prefill"]:
+                fail(f"serve_lm --chunked_prefill ran {mc.by_mode}")
+            out[mode] = {"seconds": secs, "tokens": toks,
+                         "model_calls": dict(mc.by_mode),
+                         "launches": launches, "log": list(logs)}
+    finally:
+        logging.getLogger("serve_lm").removeHandler(handler)
+    spec = out["speculative"]
+    calls = sum(spec["model_calls"].values())
+    line = next((m for m in spec["log"] if m.startswith("speculative: ")),
+                "")
+    if not line.endswith(f" over {calls} calls"):
+        fail(f"serve_lm --speculative logged {line!r} for {calls} model "
+             "calls")
+    return out
+
+
+def train_main_path(torch, train_lm, server, serving, common, tlib):
     """train_lm.main at the gpt2-small preset, full width and depth.  The
     step time is read from the per-step metrics records (each written
     after a host sync on that step's loss), leaving out warm-up and the
-    steps that saved a checkpoint."""
+    steps that saved a checkpoint.  The exported artifact then serves
+    through the server and through ``serve_lm`` (``serve_lm_runs``)."""
     with tempfile.TemporaryDirectory() as train_dir:
         args = TRAIN_ARGS + ["--train_dir", train_dir]
         torch.cuda.reset_peak_memory_stats()
@@ -1080,6 +1543,7 @@ def train_main_path(torch, train_lm, server, serving, common):
         toks = out.get("tokens", [])
         if len(toks) != 8 or not all(0 <= x < cfg.vocab_size for x in toks):
             fail(f"the exported artifact answered {out}")
+        lm_runs = serve_lm_runs(torch, tlib, common, train_dir, cfg)
     tokens_per_step = 8 * 1024
     rec = {"phase": "train", "config": "gpt2-small bf16 flash, train_lm.main",
            "args": TRAIN_ARGS, "layers": cfg.layers, "steps": TRAIN_STEPS,
@@ -1091,7 +1555,11 @@ def train_main_path(torch, train_lm, server, serving, common):
            "export_answer": toks, "card": REPORT["card"]}
     emit(rec)
     REPORT["train"] = rec
-    return launches
+    rec = {"phase": "serve_lm", "config": "gpt2-small artifact of train",
+           **lm_runs}
+    emit(rec)
+    REPORT["serve_lm"] = rec
+    return launches, {mode: r["launches"] for mode, r in lm_runs.items()}
 
 
 def grads_at_width(torch, tlib, bridge, train_lib, train_lm):
@@ -1252,14 +1720,24 @@ def main() -> int:
     bw = flash_bwd_cases(torch, F, flash, _build)
     parity(torch, tlib, bridge, decode)
     engine_parity(torch, tlib, bridge, decode, engine_lib)
+    spec_parity(torch, tlib, bridge, decode, engine_lib)
     train_parity(torch, tlib, bridge, train_lib, _common)
     served = serve_main_path(torch, tlib, bridge, server, _common)
     gc.collect()
     torch.cuda.empty_cache()
-    batched = serve_engine(torch, tlib, bridge, server, _common, requestlog)
+    batched, weights = serve_engine(torch, tlib, bridge, server, _common,
+                                    requestlog)
     gc.collect()
     torch.cuda.empty_cache()
-    trained = train_main_path(torch, train_lm, server, serving, _common)
+    spec = serve_spec(torch, tlib, server, _common, weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    beam = beam_llama(torch, tlib, decode, _common, weights)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained, lm_runs = train_main_path(torch, train_lm, server, serving,
+                                       _common, tlib)
     grads_at_width(torch, tlib, bridge, train_lib, train_lm)
     llama = llama_width_training(torch, tlib, bridge, train_lib, _common)
 
@@ -1280,7 +1758,13 @@ def main() -> int:
         by_path = {"train_gpt2_small": trained[kname],
                    "train_llama_width_2_layers": llama[kname],
                    "serve_llama_8b": served[kname],
-                   "serve_engine_llama_8b": batched[kname]}
+                   "serve_engine_llama_8b": batched[kname],
+                   "serve_spec_batched_llama_8b": spec["batched"][kname],
+                   "serve_spec_single_flight_llama_8b":
+                       spec["single_flight"][kname],
+                   "beam_llama_8b": beam[kname],
+                   **{f"serve_lm_{mode}_gpt2_small": r[kname]
+                      for mode, r in lm_runs.items()}}
         kernels.append({"name": kname, "route": route, "source": source,
                         "replaces": replaces,
                         "launches": sum(by_path.values()),

@@ -28,6 +28,19 @@ shared-prefix reuse and a batched sampling lane:
   distribution exactly as the exclusive lane's program does, so a
   fixed-seed ``temperature>0`` request emits the same tokens on either
   lane;
+- **speculative decoding rides the batch too**: a spec slot verifies its
+  ``draft_k``-token prompt-lookup chunk in the same model call that
+  advances its 1-token neighbours — per-slot widths with write-masked
+  padding lanes (a masked lane rides at position -1 and its K/V write is
+  dropped), host-side drafting (``decode.lookup_draft_host``) mirroring
+  the exclusive lane's exactly, and the shared ``decode.spec_accept_*``
+  accept/reject with the exclusive lane's per-verify draw schedule from
+  the slot's generator, so at a fixed seed a batched spec slot emits
+  token for token what ``decode.make_speculative_generate_fn`` emits
+  for the same batch-1 request.  Spec slots with different ``draft_k``
+  are grouped per step (round-robin across groups), so the chunk width
+  stays uniform.  Speculative requests on windowed configs (dense rows,
+  no write-maskable pool) take the exclusive lane;
 - a **bounded admission queue** gives backpressure: when it is full,
   submit() raises :class:`QueueFull` and the HTTP layer answers 503 with
   ``Retry-After``;
@@ -43,8 +56,8 @@ treats 0 as "engine off" → single-flight), ``K8S_TPU_SERVE_QUEUE``
 (admission queue bound, default 64) and ``K8S_TPU_SERVE_PREFIX_BLOCKS``
 (extra pool blocks retained for the prefix tree beyond the ``1 + slots x
 blocks_per_row`` floor; 0 disables prefix reuse, unset auto-sizes to two
-full-length rows).  ``K8S_TPU_SERVE_BATCH_SAMPLING`` routes in the
-server.
+full-length rows).  ``K8S_TPU_SERVE_BATCH_SAMPLING`` and
+``K8S_TPU_SERVE_BATCH_SPEC`` route in the server.
 
 A single engine thread owns all device work.  With
 ``K8S_TPU_REQUEST_LOG=1`` every request gets a bounded timeline
@@ -60,8 +73,7 @@ What the reference has and this port does not:
   lengths drawn from the bucket set, decode widths from powers of two —
   holds here too and is reported by ``stats()`` (``prefill_programs``
   lists the chunk lengths used, ``decode_step_ks`` the widths);
-- later slices, each refused by name: batched speculative decoding
-  (``submit(speculative=...)``), disaggregated export/import
+- later slices, each refused by name: disaggregated export/import
   (``prefill_export``, ``submit_prefilled``), the fleet prefix index
   (``prefix_index``, ``dedup_have``, ``fetch_prefix``,
   ``import_prefix``), the host spill tier (``K8S_TPU_SERVE_SPILL_MB``;
@@ -86,6 +98,8 @@ from k8s_tpu_torch.models import requestlog
 from k8s_tpu_torch.models import placement as placement_lib
 from k8s_tpu_torch.models.decode import (
     _check_cache_capacity,
+    check_speculative_capacity,
+    lookup_draft_host,
     prefill_buckets_for,
     sample_logits,
     split_prefill,
@@ -148,6 +162,16 @@ def env_batch_sampling() -> bool:
     return raw not in ("0", "false", "no", "off")
 
 
+def env_batch_spec() -> bool:
+    """K8S_TPU_SERVE_BATCH_SPEC: route speculative requests onto the
+    batched slot lanes (default on; 0/false routes them to the exclusive
+    single-flight lane).  Consumed by models/server.py; windowed configs
+    ride the exclusive lane regardless (their dense rows have no
+    write-maskable block pool)."""
+    raw = os.environ.get("K8S_TPU_SERVE_BATCH_SPEC", "").strip().lower()
+    return raw not in ("0", "false", "no", "off")
+
+
 class QueueFull(RuntimeError):
     """Admission queue at capacity; carries the Retry-After hint."""
 
@@ -172,7 +196,8 @@ def _later_slice(feature: str):
 @dataclasses.dataclass
 class _Request:
     """One queued unit of work: either a batched generation (``ids``
-    set; greedy or sampled) or an exclusive-lane callable (``fn``)."""
+    set; greedy, sampled or speculative) or an exclusive-lane callable
+    (``fn``)."""
 
     ids: Optional[np.ndarray] = None
     max_new_tokens: int = 0
@@ -180,6 +205,7 @@ class _Request:
     temperature: float = 0.0
     top_k: Optional[int] = None
     seed: int = 0
+    speculative: int = 0  # draft_k (>= 2) for batched spec; 0 = off
     fn: Optional[Callable[[], Any]] = None
     done: threading.Event = dataclasses.field(
         default_factory=threading.Event)
@@ -203,7 +229,7 @@ class _Slot:
     (windowed fallback).  ``ready`` flips True once prefill landed."""
 
     __slots__ = ("idx", "req", "pos", "last", "tokens", "ready", "gen",
-                 "table", "nblocks")
+                 "table", "nblocks", "ctx")
 
     def __init__(self, idx: int, maxb: int):
         self.idx = idx
@@ -215,6 +241,9 @@ class _Slot:
         self.gen: Optional[torch.Generator] = None  # per-slot sampler
         self.table = np.zeros(maxb, np.int64)  # pool block ids (0 = null)
         self.nblocks = 0
+        # full context (prompt + emitted) of a speculative slot: the
+        # host-side drafting reads it
+        self.ctx: Optional[list[int]] = None
 
     @property
     def free(self) -> bool:
@@ -227,6 +256,7 @@ class _Slot:
         self.gen = None
         self.table[:] = 0
         self.nblocks = 0
+        self.ctx = None
 
 
 class Engine:
@@ -312,6 +342,8 @@ class Engine:
         self._step_ks: set[tuple[int, bool, bool]] = set()
         if self.paged:
             self._step_fn = wrap(self._compute.paged_step)
+            # the variable-width speculative verify step
+            self._spec_fn = wrap(self._compute.spec_step)
             self._cow_fn = wrap(self._compute.cow)
             self._prefill_body = wrap(self._compute.prefill_paged)
             self._pool = self._placement.build_pool(
@@ -346,6 +378,10 @@ class Engine:
         self._prefix_hits = 0
         self._prefix_tokens_saved = 0
         self._cow_copies = 0
+        self._spec_proposed = 0   # draft tokens offered to verify steps
+        self._spec_accepted = 0   # draft tokens accepted by verify steps
+        self._spec_steps = 0      # verify calls (per participating slot)
+        self._spec_rr = 0         # round-robin over draft_k groups
         self._occupancy: deque[tuple[int, int]] = deque(maxlen=4096)
 
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -360,27 +396,33 @@ class Engine:
                timeout: Optional[float] = None) -> list[int]:
         """Batched generation (greedy at ``temperature == 0``, otherwise
         temperature/top-k sampling with the exclusive lane's exact draw
-        schedule for ``seed``).  Returns emitted tokens, stopping at the
-        first EOS inclusive.  Raises QueueFull under backpressure."""
-        if speculative:
-            _later_slice("batched speculative decoding (speculative=)")
+        schedule for ``seed``); ``speculative=draft_k`` (>= 2) verifies
+        prompt-lookup draft chunks in the batched variable-width step —
+        fixed-seed output token-identical to the exclusive lane's
+        ``make_speculative_generate_fn``.  Returns emitted tokens,
+        stopping at the first EOS inclusive.  Raises QueueFull under
+        backpressure."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         # the capacity bound, surfaced BEFORE the request occupies queue
         # space (an over-capacity row would run past its table)
         self._validate_gen_args(ids, int(max_new_tokens),
-                                float(temperature), top_k)
+                                float(temperature), top_k,
+                                int(speculative))
         req = _Request(ids=ids, max_new_tokens=int(max_new_tokens),
                        eos_id=eos_id, temperature=float(temperature),
-                       top_k=top_k, seed=int(seed))
+                       top_k=top_k, seed=int(seed),
+                       speculative=int(speculative))
         req.t_submit = time.monotonic()
         if self._reqlog is not None:
             req.rid = self._reqlog.begin(
                 int(ids.size), int(max_new_tokens),
-                temperature=float(temperature), top_k=top_k)
+                temperature=float(temperature), top_k=top_k,
+                speculative=int(speculative))
         return self._enqueue_and_wait(req, timeout)
 
     def _validate_gen_args(self, ids, max_new_tokens: int,
-                           temperature: float, top_k: Optional[int]) -> None:
+                           temperature: float, top_k: Optional[int],
+                           speculative: int = 0) -> None:
         if ids.size < 1:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -389,6 +431,21 @@ class Engine:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if top_k is not None and top_k < 1:
             raise ValueError(f"top_k must be >= 1, got {top_k}")
+        if speculative:
+            if speculative < 2:
+                raise ValueError(
+                    f"speculative draft_k must be >= 2, got {speculative}")
+            if not self.paged:
+                raise ValueError(
+                    "batched speculative decoding needs the paged block "
+                    "cache; windowed configs ride the exclusive lane "
+                    "(models/server.py routes them there)")
+            if ids.size < 2:
+                raise ValueError(
+                    "prompt-lookup drafting needs prompt_len >= 2")
+            check_speculative_capacity(self.config, int(ids.size),
+                                       int(max_new_tokens),
+                                       int(speculative))
         _check_cache_capacity(self.config, int(ids.size),
                               int(max_new_tokens))
 
@@ -502,6 +559,13 @@ class Engine:
                 "decode_programs": len(self._step_ks),
                 "decode_step_ks": sorted(
                     [list(t) for t in self._step_ks]),
+                # speculative lane: drafting efficiency for /healthz
+                "spec_proposed": self._spec_proposed,
+                "spec_accepted": self._spec_accepted,
+                "spec_steps": self._spec_steps,
+                "spec_mean_accepted": round(
+                    self._spec_accepted / self._spec_steps, 3)
+                if self._spec_steps else 0.0,
                 # model calls: one per prefill chunk and per decode
                 # iteration (what the kernels' launch counts scale with)
                 "prefill_chunks": self._prefill_chunks,
@@ -598,6 +662,20 @@ class Engine:
         slot.nblocks = 0
         self._tables_dirty = True
         self._update_block_gauge()
+
+    def _grow_tables(self, writes: list) -> None:
+        """For each ``(slot, n)``, grow the slot's table so the writes of
+        its next ``n`` positions land in owned blocks."""
+        grew = False
+        for s, n in writes:
+            need_bi = (s.pos + n - 1) // self.block_size
+            while s.nblocks <= need_bi:
+                s.table[s.nblocks] = self._alloc_block(s)
+                s.nblocks += 1
+                grew = True
+        if grew:
+            self._tables_dirty = True
+            self._update_block_gauge()
 
     def _update_block_gauge(self) -> None:
         gauge = self.metrics.get("blocks_in_use")
@@ -861,6 +939,9 @@ class Engine:
         slot.tokens = tokens
         slot.last = first
         slot.pos = len(ids)
+        if req.speculative:
+            # host-side prompt-lookup drafting reads the full context
+            slot.ctx = [int(t) for t in ids] + tokens
         slot.ready = True
         with self._cond:
             self._peak_active = max(
@@ -900,9 +981,26 @@ class Engine:
         position -1: (paged) their writes are dropped before reaching the
         pool, or (dense) the model's write slot wraps to S-1 in a row the
         next join's scatter fully replaces.  Row independence of the
-        batched math keeps active rows exact."""
+        batched math keeps active rows exact.
+
+        Speculative slots divert the whole step into the variable-width
+        path: all plain slots advance one token while every spec slot of
+        the chosen ``draft_k`` group verifies its draft chunk in the
+        same model call.  Groups with other ``draft_k`` values sit the
+        step out (their generators only advance on actual verifies) and
+        a round-robin pointer rotates the pick, so no group starves and
+        each row's draws keep the exclusive lane's shapes."""
         B = len(self._slots)
         active = [s for s in self._slots if s.ready]
+        spec_ks = sorted({s.req.speculative for s in active
+                          if s.req.speculative})
+        if spec_ks:
+            pick = spec_ks[self._spec_rr % len(spec_ks)]
+            self._spec_rr += 1
+            self._spec_step(
+                [s for s in active if s.req.speculative in (0, pick)],
+                pick)
+            return
         k = 1
         if self.paged and active:
             if all(s.req.eos_id is None for s in active):
@@ -911,18 +1009,7 @@ class Engine:
                             for s in active))
                 while k & (k - 1):  # round down to a power of two
                     k &= k - 1
-            # grow tables so every write of the fused window lands in an
-            # owned block
-            grew = False
-            for s in active:
-                need_bi = (s.pos + k - 1) // self.block_size
-                while s.nblocks <= need_bi:
-                    s.table[s.nblocks] = self._alloc_block(s)
-                    s.nblocks += 1
-                    grew = True
-            if grew:
-                self._tables_dirty = True
-                self._update_block_gauge()
+            self._grow_tables([(s, k) for s in active])
         ints = np.zeros((2, B), np.int64)  # [toks, poss]
         ints[0] = self.pad_id
         ints[1] = -1
@@ -990,3 +1077,107 @@ class Engine:
                     self._retire(s, req, s.tokens,
                                  "eos" if hit_eos else "max_tokens")
                     break
+
+    def _spec_step(self, active: list, draft_k: int) -> None:
+        """One write-masked variable-width batched step (chunk width
+        W = ``draft_k``): every spec slot of the chosen group feeds its
+        last token + W-1 host-proposed prompt-lookup drafts; every plain
+        slot feeds just its last token with its padding lanes
+        write-masked at position -1.  Emissions are truncated host-side
+        at the first EOS / max_new_tokens exactly as the exclusive
+        lane's loop truncates, so fixed-seed output matches it
+        token-for-token; rejected drafts need no rollback — their pool
+        writes sit above the row's written length, masked until the
+        next chunk overwrites them (the write-then-mask contract)."""
+        B = len(self._slots)
+        W = draft_k
+        # plain slots only write their next position
+        self._grow_tables([(s, W if s.req.speculative else 1)
+                           for s in active])
+        chunk = np.full((B, W), self.pad_id, np.int64)
+        ints = np.zeros((2, B), np.int64)  # [poss, widths]
+        ints[0] = -1
+        gens: list = [None] * B
+        temps = [0.0] * B
+        topks = [0] * B
+        for s in active:
+            chunk[s.idx, 0] = s.last
+            if s.req.speculative:
+                chunk[s.idx, 1:W] = lookup_draft_host(s.ctx, W)
+                ints[1, s.idx] = W
+            else:
+                ints[1, s.idx] = 1
+            ints[0, s.idx] = s.pos
+            gens[s.idx] = s.gen
+            temps[s.idx] = s.req.temperature
+            topks[s.idx] = s.req.top_k or 0
+        sampling = any(s.req.temperature > 0 for s in active)
+        step_key = (W, sampling, True)
+        t_step = time.monotonic()
+        if self._tables_dirty:
+            self._tables_dev = self._placement.put_tables(
+                np.stack([s.table for s in self._slots]))
+            self._tables_dirty = False
+        # the table columns any row's chunk reaches
+        width = max(-(-(s.pos + (W if s.req.speculative else 1))
+                      // self.block_size) for s in active)
+        emit_host, n_host = self._spec_fn(
+            self._pool, self._tables_dev[:, :width], chunk, ints, gens,
+            temps, topks, W)
+        step_dur = time.monotonic() - t_step
+        sd_h = self.metrics.get("step_duration")
+        if sd_h is not None:
+            sd_h.observe(step_dur)
+        self._step_ks = self._step_ks | {step_key}
+        occ = self.metrics.get("occupancy")
+        if occ is not None:
+            occ.set(len(active))
+        with self._cond:
+            self._steps += 1
+            self._occupancy.append((self._steps, len(active)))
+            seq = self._steps
+        rlog = self._reqlog
+        if rlog is not None:
+            emitted = sum(int(n_host[s.idx]) for s in active)
+            rlog.engine_step(seq, len(active), W, W, emitted, step_dur)
+        prop_c = self.metrics.get("spec_proposed")
+        acc_c = self.metrics.get("spec_accepted")
+        for s in active:
+            req = s.req
+            n = int(n_host[s.idx])
+            toks = [int(t) for t in emit_host[s.idx, :n]]
+            if req.speculative:
+                with self._cond:
+                    self._spec_steps += 1
+                    self._spec_proposed += W - 1
+                    self._spec_accepted += n - 1
+                if prop_c is not None:
+                    prop_c.inc(W - 1)
+                if acc_c is not None:
+                    acc_c.inc(n - 1)
+            if rlog is not None:
+                # a spec slot's verify chunk splits its wall time into
+                # accepted (decode) and rejected (spec_reject) shares;
+                # a plain rider records a width-1 decode participation
+                rlog.step(req.rid, seq,
+                          W if req.speculative else 1, n, step_dur,
+                          spec=bool(req.speculative),
+                          proposed=W - 1 if req.speculative else 0,
+                          accepted=n - 1 if req.speculative else 0)
+            out: list[int] = []
+            done = False
+            # truncate exactly as the exclusive lane's loop: at the
+            # first emitted EOS inclusive, capped at max_new_tokens
+            for t in toks[:req.max_new_tokens - len(s.tokens)]:
+                out.append(t)
+                if req.eos_id is not None and t == req.eos_id:
+                    done = True
+                    break
+            s.tokens.extend(out)
+            s.pos += len(out)
+            s.last = out[-1]
+            if s.ctx is not None:
+                s.ctx.extend(out)
+            if done or len(s.tokens) >= req.max_new_tokens:
+                self._retire(s, req, s.tokens,
+                             "eos" if done else "max_tokens")

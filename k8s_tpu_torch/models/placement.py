@@ -3,15 +3,16 @@
 
 The engine (models/engine.py) is a host-side scheduler (slot admission,
 block-pool bookkeeping, batch-plan construction over numpy) above a set
-of device bodies (batched decode step, chunked prefill, copy-on-write).
+of device bodies (batched decode step, speculative verify step, chunked
+prefill, copy-on-write).
 This module holds the bodies and the placement that runs them:
 
 - :class:`PagedCompute` — functions on tensors over the port's
   :class:`~k8s_tpu_torch.models.transformer.Transformer`.  The pool is a
   list of per-layer dicts of ``[num_blocks, block_size, ...]`` tensors
   that the transformer's paged decode step updates in place, so a body
-  returns what the engine reads (tokens, last-position logits) and
-  nothing else.
+  returns what the engine reads (tokens, accepted counts,
+  last-position logits) and nothing else.
 - :class:`LocalPlacement` — runs a body under ``torch.inference_mode()``
   on the engine's device, with no compile (eager PyTorch has no program
   to build); allocates the zero pool on the device and uploads block
@@ -31,7 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from k8s_tpu_torch.models.decode import sample_logits_rows
+from k8s_tpu_torch.models.decode import sample_logits_rows, spec_verify_rows
 from k8s_tpu_torch.models.transformer import Transformer
 
 
@@ -118,6 +119,35 @@ class PagedCompute:
             toks = torch.where(act, nxt, toks)
             poss = torch.where(act, poss + 1, poss)
         return torch.stack(out).cpu().numpy()
+
+    def spec_step(self, pool, tables, chunk, ints, gens, temps, topks,
+                  k: int):
+        """One write-masked variable-width batched step (``k`` = the
+        chunk width W): every participating slot feeds its own row of
+        ``chunk`` ``[B, W]`` — a speculative slot its last token plus
+        ``draft_k - 1`` prompt-lookup drafts (width W), a plain slot just
+        its last token (width 1) — at per-slot positions.  Lanes past a
+        row's width ride at position -1, so ``paged_kv_write`` drops their
+        K/V writes (masked onto the null block's slot 0: a mixed-width
+        batch never scribbles past a short row's block capacity) and their
+        queries attend nothing.  Accept/reject runs row-wise in
+        :func:`spec_verify_rows` with the per-slot generators.  ``ints``
+        packs [poss, widths] as a ``[2, B]`` host array.  Returns ``(emit
+        [B, W], n_emit [B])`` on the host, from one read."""
+        dev = tables.device
+        plan = torch.as_tensor(ints, dtype=torch.long).to(dev)
+        poss, widths = plan[0], plan[1]
+        ar = torch.arange(k, device=dev)[None, :]
+        cpos = torch.where((poss >= 0)[:, None] & (ar < widths[:, None]),
+                           poss[:, None] + ar, -1)  # [B, W]; -1 = masked
+        chunk = torch.as_tensor(chunk, dtype=torch.long).to(dev)
+        cache = self.paged_cache(pool, tables, poss.clamp_min(0))
+        logits = self.model(chunk, positions=cpos, mode="decode",
+                            cache=cache)
+        emit, n_emit = spec_verify_rows(logits, chunk, gens, temps, topks,
+                                        ints[1].tolist())
+        out = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
+        return out[:, :k], out[:, k]
 
     def prefill_paged(self, pool, table, chunk, positions):
         """One chunked decode-mode prefill call writing straight into the

@@ -35,10 +35,12 @@ the serving pod's HTTP server, 404 with an explicit body while no
 recorder is active.  The recorder's lock is a leaf: it never calls back
 into the engine, so it can be invoked from any engine code path.
 
-The phase set keeps the reference's (``migrate``, ``spec_reject``,
-``spill``, ``promote`` and ``compile`` included) so the JSON has the
-reference's schema; the port's engine never bills those phases, since
-it runs no speculative, disaggregated, spill-tier or compiled path.
+The phase set keeps the reference's (``migrate``, ``spill``,
+``promote`` and ``compile`` included) so the JSON has the reference's
+schema; the port's engine never bills those four, since it runs no
+disaggregated, spill-tier or compiled path.  Its batched speculative
+lane records ``spec_chunk`` events and bills rejected drafts to
+``spec_reject``.
 """
 
 from __future__ import annotations

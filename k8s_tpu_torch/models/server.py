@@ -20,25 +20,30 @@ Endpoints (JSON over HTTP/1.1, stdlib only):
   and ``/debug/compiles`` answer 404 naming what they wait for.
 - ``POST /v1/generate`` with ``{"text": str | "tokens": [int], ...}`` ->
   ``{"text": str | "tokens": [int]}``.  Optional fields:
-  ``max_new_tokens``, ``temperature``, ``top_k``, ``eos``, ``seed``.  Bad
+  ``max_new_tokens``, ``temperature``, ``top_k``, ``eos``, ``seed``,
+  ``speculative`` (draft_k: prompt-lookup speculative decoding).  Bad
   input answers 400 with ``{"error": ..., "field": ...}`` naming the
   field; a full admission queue answers 503 with a ``Retry-After``
   header.
 
 Device work goes through the continuous-batching engine
-(models/engine.py): greedy and sampled requests share one batched decode
-step over ``K8S_TPU_SERVE_SLOTS`` (default 4) slots with iteration-level
-join/retire, a paged KV pool with shared-prefix reuse, and per-slot
-samplers, so fixed-seed output is the same on either lane.
+(models/engine.py): greedy, sampled and speculative requests share one
+batched decode step over ``K8S_TPU_SERVE_SLOTS`` (default 4) slots with
+iteration-level join/retire, a paged KV pool with shared-prefix reuse,
+per-slot samplers and per-slot step widths (a speculative slot verifies
+its draft chunk in the same call that advances its 1-token neighbours),
+so fixed-seed output is the same on either lane.
 ``K8S_TPU_SERVE_BATCH_SAMPLING=0`` (or ``--batch-sampling 0``) routes
 sampled requests to the engine's exclusive lane, which runs the
 single-flight program (``decode.make_generate_fn``, whose prefill goes
 through the flash-attention kernel when the config sets
-``use_flash_attention``).  ``--slots 0`` turns the engine off and
-restores the one-lock single-flight path.
+``use_flash_attention``); ``K8S_TPU_SERVE_BATCH_SPEC=0`` (or
+``--batch-spec 0``) does the same for speculative requests
+(``decode.make_speculative_generate_fn``), which also ride the exclusive
+lane on sliding-window configs and for one-token prompts.  ``--slots 0``
+turns the engine off and restores the one-lock single-flight path.
 
-Not ported yet, each refused by name: speculative decoding (the
-``speculative`` field answers 400), disaggregated serving
+Not ported yet, each refused by name: disaggregated serving
 (``K8S_TPU_SERVE_ROLE``), mesh serving (``K8S_TPU_SERVE_MESH``) and the
 host spill tier (``K8S_TPU_SERVE_SPILL_MB``).
 """
@@ -90,6 +95,7 @@ class ParsedRequest:
     top_k: Optional[int]
     eos: Optional[int]
     seed: int
+    speculative: int                   # draft_k; 0 = off
 
 
 def parse_request(config, req: dict, default_max_new_tokens: int
@@ -147,13 +153,10 @@ def parse_request(config, req: dict, default_max_new_tokens: int
     if spec != 0 and spec < 2:
         raise RequestError("speculative",
                            "speculative must be >= 2 (0 disables)")
-    if spec:
-        raise RequestError("speculative",
-                           "speculative decoding is not ported yet")
     return ParsedRequest(
         ids=ids, echo_text=req["text"] if has_text else None,
         max_new_tokens=max_new, temperature=temperature, top_k=top_k,
-        eos=eos, seed=seed)
+        eos=eos, seed=seed, speculative=spec)
 
 
 def _emitted(toks, eos) -> int:
@@ -191,7 +194,8 @@ class LmServer:
                  params=None, slots: Optional[int] = None,
                  queue_limit: Optional[int] = None,
                  prefix_blocks: Optional[int] = None,
-                 batch_sampling: Optional[bool] = None, registry=None,
+                 batch_sampling: Optional[bool] = None,
+                 batch_spec: Optional[bool] = None, registry=None,
                  device="cuda"):
         _refuse_later_slices()
         self.device = resolve_device(device)
@@ -213,6 +217,9 @@ class LmServer:
         if batch_sampling is None:
             batch_sampling = engine_lib.env_batch_sampling()
         self.batch_sampling = bool(batch_sampling)
+        if batch_spec is None:
+            batch_spec = engine_lib.env_batch_spec()
+        self.batch_spec = bool(batch_spec)
         if slots > 0:
             self.engine: Optional[engine_lib.Engine] = engine_lib.Engine(
                 config, params, slots=slots, queue_limit=queue_limit,
@@ -255,25 +262,40 @@ class LmServer:
                 "active": s["active"], "queue_depth": s["queue_depth"],
                 "queue_limit": s["queue_limit"],
                 "batch_sampling": self.batch_sampling,
+                "batch_spec": self.batch_spec,
                 "paged": s["paged"], "block_size": s["block_size"],
                 "pool_blocks": s["pool_blocks"],
                 "blocks_in_use": s["blocks_in_use"],
                 "prefix_hits": s["prefix_hits"],
                 "prefix_tokens_saved": s["prefix_tokens_saved"],
+                # speculative drafting efficiency: proposed / accepted
+                # draft tokens and the mean accepted per verify step
+                "spec_proposed": s["spec_proposed"],
+                "spec_accepted": s["spec_accepted"],
+                "spec_mean_accepted": s["spec_mean_accepted"],
                 "request_log": s["request_log"],
                 "device": str(self.device)}
 
     def generate(self, parsed: ParsedRequest) -> dict:
         """One validated generation request.  May raise engine.QueueFull
         under backpressure.  Sampled requests ride the batch unless
-        ``batch_sampling`` routes them to the exclusive lane; either
-        routing emits the same tokens at a fixed seed."""
-        use_batched = parsed.temperature == 0.0 or self.batch_sampling
+        ``batch_sampling`` routes them to the exclusive lane; speculative
+        requests ride it unless ``batch_spec`` routes them there, or the
+        engine has no paged pool to write-mask (windowed configs), or the
+        prompt is too short to draft from (the exclusive lane refuses
+        that: the same 400 from one lane).  Either routing emits the
+        same tokens at a fixed seed."""
+        spec_batched = (parsed.speculative > 0 and self.batch_spec
+                        and self.engine is not None and self.engine.paged
+                        and parsed.ids.size >= 2)
+        use_batched = (parsed.speculative == 0 or spec_batched) and (
+            parsed.temperature == 0.0 or self.batch_sampling)
         if self.engine is not None and use_batched:
             toks = self.engine.submit(parsed.ids, parsed.max_new_tokens,
                                       eos_id=parsed.eos,
                                       temperature=parsed.temperature,
-                                      top_k=parsed.top_k, seed=parsed.seed)
+                                      top_k=parsed.top_k, seed=parsed.seed,
+                                      speculative=parsed.speculative)
         elif self.engine is not None:
             toks = self.engine.submit_exclusive(
                 lambda: self._generate_exclusive(parsed))
@@ -291,11 +313,22 @@ class LmServer:
         return {"tokens": [int(t) for t in toks]}
 
     def _generate_exclusive(self, parsed: ParsedRequest) -> np.ndarray:
-        """Whole generation on the device (the single-flight program);
-        returns the host token row."""
-        fn = decode_lib._cached_generate_fn(
-            self.config, parsed.max_new_tokens, parsed.temperature,
-            parsed.top_k, parsed.eos, 0)
+        """Whole generation on the device (the single-flight program, or
+        the speculative one for a ``speculative`` request); returns the
+        host token row."""
+        if parsed.speculative > 0:
+            # temperature/top_k compose via rejection sampling: the
+            # emitted tokens are distributed exactly as vanilla
+            # temperature/top-k sampling
+            fn = decode_lib.cached_speculative_fn(
+                self.config, parsed.max_new_tokens,
+                draft_k=parsed.speculative, eos_id=parsed.eos,
+                temperature=parsed.temperature,
+                top_k=parsed.top_k if parsed.temperature > 0 else None)
+        else:
+            fn = decode_lib._cached_generate_fn(
+                self.config, parsed.max_new_tokens, parsed.temperature,
+                parsed.top_k, parsed.eos, 0)
         gen = torch.Generator(device=self.device).manual_seed(parsed.seed)
         prompt = torch.as_tensor(parsed.ids, dtype=torch.long,
                                  device=self.device)[None, :]
@@ -482,6 +515,12 @@ def main(argv=None) -> int:
                    help="route temperature>0 requests onto the batched "
                    "slot lanes (default K8S_TPU_SERVE_BATCH_SAMPLING or "
                    "1; 0 = the exclusive lane)")
+    p.add_argument("--batch-spec", type=int, choices=(0, 1),
+                   default=None,
+                   help="route speculative requests onto the batched "
+                   "slot lanes (variable-width verify chunks; default "
+                   "K8S_TPU_SERVE_BATCH_SPEC or 1; 0 = the exclusive "
+                   "lane)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
     args = p.parse_args(argv)
@@ -492,7 +531,9 @@ def main(argv=None) -> int:
                   slots=args.slots, queue_limit=args.queue,
                   prefix_blocks=args.prefix_blocks,
                   batch_sampling=None if args.batch_sampling is None
-                  else bool(args.batch_sampling), device=args.device)
+                  else bool(args.batch_sampling),
+                  batch_spec=None if args.batch_spec is None
+                  else bool(args.batch_spec), device=args.device)
     httpd = serve(lm, args.host, args.port)
     host, port = httpd.server_address[:2]
     log.info("serving %s on http://%s:%d (POST /v1/generate)",

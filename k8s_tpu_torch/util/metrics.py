@@ -1,9 +1,9 @@
 """Prometheus-style metrics: the port's own copy of the parts of
 ``k8s_tpu/util/metrics.py`` the server uses — Counter, Gauge, Histogram,
 ``Registry.expose`` (text exposition format 0.0.4) and the serving
-families of the single-flight lane and the continuous-batching engine
-(the reference's names and help text; its speculative and kv-transfer
-families are left out with those features)."""
+families of the single-flight lane and the continuous-batching engine,
+its batched speculative lane included (the reference's names and help
+text; its kv-transfer families are left out with that feature)."""
 
 from __future__ import annotations
 
@@ -249,7 +249,8 @@ def serving_metrics(registry: Registry) -> dict:
     backpressure rejections, emitted tokens, batch occupancy, admission
     queue depth (a callable gauge its server binds), end-to-end request
     latency, the paged KV cache's prefix-reuse counters and block gauge,
-    and the per-request phase histograms."""
+    the speculative lane's proposed/accepted draft counters, and the
+    per-request phase histograms."""
     r = registry
     return {
         "requests": r.counter(
@@ -302,6 +303,18 @@ def serving_metrics(registry: Registry) -> dict:
             "serve_kv_blocks_in_use",
             "Live KV-cache pool blocks (slot tables + prefix tree), "
             "sampled after each allocation/release.",
+        ),
+        # -- batched speculative decoding -----------------------------------
+        "spec_proposed": r.counter(
+            "serve_spec_proposed_total",
+            "Draft tokens proposed to speculative verify steps (batched "
+            "slot lanes; draft_k - 1 per verify).",
+        ),
+        "spec_accepted": r.counter(
+            "serve_spec_accepted_total",
+            "Draft tokens accepted by speculative verify steps — "
+            "accepted/proposed is the drafting hit rate the fleet plane "
+            "can rate per job.",
         ),
         # -- per-request phase metrics --------------------------------------
         "ttft": r.histogram(

@@ -6,8 +6,10 @@ parameters (carried across by ``bridge.params_from_jax``): mixed prompt
 lengths, a join mid-decode, EOS, a single-token request, more requests
 than slots, a prefix hit, a copy-on-write divergence, the last prompt
 token never shared, a windowed config (dense rows) and an int8 pool.
-Within the port, a fixed-seed sampled request gives the exclusive lane's
-tokens on the batched lane.  Every wait carries a timeout and every
+Grouped-query attention (4 heads over 2 kv heads, as the served model's
+32 over 8) runs the same comparisons under the default, prefix and int8
+setups, the capacity edge included.  Within the port, a fixed-seed
+sampled request gives the exclusive lane's tokens on the batched lane.  Every wait carries a timeout and every
 engine is shut down, so a hung engine thread fails a test instead of
 stalling the run.
 """
@@ -244,6 +246,43 @@ class TestAgainstJaxEngine:
         for p, toks in zip(prompts, got):
             assert toks == ref("int8", p, 6)
         eng.debug_check_blocks()
+
+
+@pytest.fixture(scope="module")
+def gqa_params():
+    cj = JaxConfig(dtype=jnp.float32, **{**SHAPE, "kv_heads": 2})
+    p = JaxTransformer(cj).init(jax.random.PRNGKey(1),
+                                jnp.zeros((1, 5), jnp.int32))["params"]
+    return p, bridge.params_from_jax(jax.device_get(p))
+
+
+@pytest.mark.parametrize("setup", ["default", "prefix", "int8"])
+def test_gqa_matches_the_jax_engine(gqa_params, setup):
+    """kv_heads 2 under heads 4: mixed prompt lengths from threads, a
+    repeated prompt (a prefix hit under "prefix") and the capacity edge
+    (prompt + max_new_tokens - 1 == max_seq_len) give the JAX engine's
+    greedy tokens; refcounts stay exact."""
+    extra = {**SHAPE, **SETUPS[setup][0], "kv_heads": 2}
+    jeng = jax_engine.Engine(JaxConfig(dtype=jnp.float32, **extra),
+                             gqa_params[0], **SETUPS[setup][1])
+    eng = Engine(TransformerConfig(dtype=torch.float32, **extra),
+                 gqa_params[1], **SETUPS[setup][1], device="cpu")
+    try:
+        edge = SHAPE["max_seq_len"] - 7
+        cases = [(prompt_of(n, seed=i), 8)
+                 for i, n in enumerate((3, 7, 13, 21))]
+        cases += [cases[3], (prompt_of(edge, seed=9), 8)]
+        got = concurrently([lambda c=c: eng.submit(c[0], c[1], timeout=WAIT)
+                            for c in cases[:4]])
+        got += [eng.submit(p, n, timeout=WAIT) for p, n in cases[4:]]
+        for (p, n), toks in zip(cases, got):
+            assert toks == jeng.submit(p.astype(np.int32), n), len(p)
+        if setup == "prefix":
+            assert eng.stats()["prefix_hits"] >= 1
+        eng.debug_check_blocks()
+    finally:
+        eng.shutdown()
+        jeng.shutdown()
 
 
 @pytest.mark.parametrize("setup", ["default", "window"])
@@ -521,14 +560,13 @@ class TestLifecycle:
         assert eng.stats()["completed"] == 2
 
     @pytest.mark.parametrize("call", [
-        lambda e: e.submit(prompt_of(3), 2, speculative=4),
         lambda e: e.prefill_export(prompt_of(3), 2),
         lambda e: e.submit_prefilled({}),
         lambda e: e.prefix_index(),
         lambda e: e.dedup_have([]),
         lambda e: e.fetch_prefix(None),
         lambda e: e.import_prefix(None),
-    ], ids=["speculative", "prefill_export", "submit_prefilled",
+    ], ids=["prefill_export", "submit_prefilled",
             "prefix_index", "dedup_have", "fetch_prefix", "import_prefix"])
     def test_later_slices_refused_by_name(self, make, call):
         eng = make()
@@ -639,12 +677,12 @@ class TestEnvKnobs:
 
 def test_stats_keys_are_the_references_for_ported_features(make, params):
     """Every stats() key of the reference's that is not a later slice's
-    (speculative, disaggregated, spill) is here, with the same meaning."""
+    (disaggregated, spill) is here, with the same meaning."""
     eng = make()
     jeng = jax_engine.Engine(configs("default")[0], params[0], slots=2,
                              queue_limit=32)
     try:
-        later = ("spec_", "kv_", "spill_")
+        later = ("kv_", "spill_")
         want = {k for k in jeng.stats() if not k.startswith(later)}
     finally:
         jeng.shutdown()

@@ -117,7 +117,7 @@ def test_sampled_request_repeats_under_one_seed(servers):
     ({"tokens": [1], "temperature": -1}, "temperature"),
     ({"tokens": [1], "top_k": -2}, "top_k"),
     ({"tokens": [1], "speculative": 1}, "speculative"),
-    ({"tokens": [1, 2], "speculative": 4}, "speculative"),
+    ({"tokens": [1, 2], "speculative": "four"}, "speculative"),
 ])
 def test_bad_fields_answer_400(servers, payload, field):
     _, turl, _ = servers

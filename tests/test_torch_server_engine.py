@@ -1,12 +1,14 @@
 """The port's HTTP server in its default mode, the continuous-batching
 engine (``LmServer(slots=2, device="cpu")``), against the JAX server's
 engine on the same parameters, in-process on the CPU over real sockets:
-greedy tokens, 503 with ``Retry-After`` on a full queue, ``/healthz``
+greedy tokens (grouped-query attention included), 503 with
+``Retry-After`` on a full queue, ``/healthz``
 503 after an engine crash, the ``/debug`` endpoints with the reference's
 keys, and the refusals of later slices."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import queue
@@ -158,9 +160,59 @@ def test_sampled_request_same_on_either_lane(own_server):
 
 
 def test_speculative_still_400(servers):
-    _, turl, _ = servers
-    code, body, _ = _post(turl, {"tokens": [1, 2], "speculative": 4})
-    assert code == 400 and body["field"] == "speculative"
+    """Speculative requests are served now (tests/test_torch_engine_spec.py);
+    a bad draft_k still answers 400 naming the field, as the JAX
+    server's does."""
+    jurl, turl, _ = servers
+    for payload in ({"tokens": [1, 2], "speculative": 1,
+                     "max_new_tokens": 4},
+                    {"tokens": [1, 2], "speculative": -3,
+                     "max_new_tokens": 4}):
+        code, body, _ = _post(turl, payload)
+        assert code == 400 and body["field"] == "speculative"
+        assert _post(jurl, payload)[:2] == (code, body)
+    code, body, _ = _post(turl, {"tokens": [1, 2, 1, 2], "speculative": 4,
+                                 "max_new_tokens": 4})
+    assert code == 200 and len(body["tokens"]) == 4
+
+
+def test_gqa_same_greedy_answer_as_jax_engine(model):
+    """kv_heads 2 under heads 4 (the served model has 32 over 8): both
+    packages' engine servers give the same greedy answers, concurrent
+    requests and a prefix hit included."""
+    cj, ct = (dataclasses.replace(c, kv_heads=2) for c in model[:2])
+    params = JaxTransformer(cj).init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 5), jnp.int32))["params"]
+    jlm = JaxLmServer(config=cj, params=params, slots=2,
+                      registry=JaxRegistry())
+    tlm = LmServer(config=ct, params=bridge.params_from_jax(
+        jax.device_get(params)), slots=2, device="cpu")
+    jh, th = jax_serve(jlm), serve(tlm)
+    jurl, turl = ("http://%s:%d" % h.server_address[:2] for h in (jh, th))
+    try:
+        payloads = [{"tokens": [(7 * i + j) % 256 for j in range(5 + 9 * i)],
+                     "max_new_tokens": 6} for i in range(4)]
+        payloads.append({"text": "the cat", "max_new_tokens": 6})
+        got = [None] * len(payloads)
+
+        def run(i):
+            got[i] = _post(turl, payloads[i])[:2]
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(WAIT)
+        for p, g in zip(payloads, got):
+            assert g[0] == 200 and g == _post(jurl, p)[:2]
+        assert _post(turl, payloads[3])[:2] == got[3]
+        assert tlm.engine.stats()["prefix_hits"] >= 1
+        tlm.engine.debug_check_blocks()
+    finally:
+        for h, lm in ((jh, jlm), (th, tlm)):
+            h.shutdown()
+            h.server_close()
+            lm.close()
 
 
 def test_full_queue_answers_503_with_retry_after(own_server):
