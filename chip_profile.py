@@ -401,10 +401,6 @@ def main(argv=None) -> int:
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from k8s_tpu_torch.ops import _build
-
-    os.environ.setdefault(
-        "TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

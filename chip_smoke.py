@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
 
 1. card: the card's name and power limit (nvidia-smi) and the device.
-2. build: every CUDA kernel source, compiled in parallel (one nvcc each),
-   and the Triton kernel's first compile.
+2. build: every CUDA kernel source (flash forward, flash backward,
+   RMSNorm), compiled in parallel (one nvcc each), and a first RMSNorm
+   launch.
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the serving and training paths' shapes and at the edges of
    the wgmma bodies (ragged tails, D 64 and 128, GQA groups 1 and 4, a
@@ -16,8 +17,9 @@ Phases, each fatal on failure:
    back-to-back wall times (CUDA events) beside the bound; each body's
    registers, spills and shared memory; dq and dk/dv bit-identical across
    two runs (dk/dv on both the split and the unsplit path); the delta the
-   dq kernel writes against a torch reduction; RMSNorm timed over rotated
-   buffers larger than the L2.
+   dq kernel writes against a torch reduction; RMSNorm at every body its
+   plan picks (row, stream, scalar; strided rows), timed over rotated
+   buffers larger than the L2, its host time a call beside F.rms_norm's.
 4. parity: the tiny test model (f32, both kernels on) generates the same
    greedy tokens on cuda (kernels) and cpu (plain versions), and its
    logits agree; then it trains 5 Adam steps on each from the same
@@ -109,36 +111,53 @@ def emit(obj: dict) -> None:
 SPIN_CYCLES = 200_000_000
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> dict:
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3, walls: int = 1,
+            wall_iters: int | None = None, wall_gc_off: bool = True) -> dict:
     """One call's times after ``warmup`` calls, from CUDA events around
     ``iters`` calls.  ``ms`` is device time: the stream is first parked on
     a spin kernel, so the host has queued every call before the device
     starts them and the events bracket device work only.  ``wall_ms`` is
-    the same from an idle stream: for small inputs that is the host's
-    launch rate, not the device's time."""
+    the same from an idle stream, over ``wall_iters`` calls (the median of
+    ``walls`` such runs): for small inputs that is the host's launch rate,
+    not the device's time.  The cyclic garbage collector is off while the
+    calls are queued (for ``wall_ms``, unless ``wall_gc_off`` is false)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
-    def bracket(park: bool) -> float:
+    def bracket(park: bool, n: int, gc_off: bool = True) -> float:
+        # no cyclic garbage collection inside a bracket: a full pass over
+        # the process's objects takes tens of ms and lands on whichever
+        # call happens to trigger it
+        if not gc_off:
+            return queue(park, n)
+        gc.collect()
+        gc.disable()
+        try:
+            return queue(park, n)
+        finally:
+            gc.enable()
+
+    def queue(park: bool, n: int) -> float:
         torch.cuda.synchronize()
         if park:
             torch.cuda._sleep(SPIN_CYCLES)
         t0 = time.perf_counter()
         start.record()
-        for _ in range(iters):
+        for _ in range(n):
             fn()
         end.record()
         queued_s = time.perf_counter() - t0
         end.synchronize()
         if park and queued_s > 0.05:
-            fail(f"queueing {iters} calls took {queued_s:.3f} s, longer "
+            fail(f"queueing {n} calls took {queued_s:.3f} s, longer "
                  "than the spin kernel holds the stream")
-        return start.elapsed_time(end) / iters
+        return start.elapsed_time(end) / n
 
-    wall_ms = bracket(park=False)
-    return {"ms": bracket(park=True), "wall_ms": wall_ms}
+    wall_ms = sorted(bracket(False, wall_iters or iters, wall_gc_off)
+                     for _ in range(walls))[walls // 2]
+    return {"ms": bracket(True, iters), "wall_ms": wall_ms}
 
 
 def timed(torch, prefix: str, fn, **kw) -> dict:
@@ -179,27 +198,13 @@ def card_line() -> str:
 _TYPE_TOKENS = {"torch.bfloat16": "13__nv_bfloat16", "torch.float16": "6__half"}
 
 
-def build_report(_build, kernel: str, dtype, D: int, split=False) -> dict:
-    """Registers, spills and shared memory of the body that runs ``kernel``
-    (flash_fwd, flash_bwd_dq or flash_bwd_dkv) for this type and head_dim:
-    the first from nvcc's ptxas report in ``_build.BUILD_LOGS``, the
-    dynamic shared memory from the library's own size query."""
+def ptxas_report(_build, source: str, fn: str) -> dict:
+    """Registers, spills and static shared memory of the kernel whose
+    mangled name holds ``fn``, from nvcc's ptxas report of
+    ``csrc/<source>.cu`` in ``_build.BUILD_LOGS`` (null where nvcc did not
+    run in this process)."""
     import re
-    code = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}[str(dtype)]
-    body = "fma" if code == 0 else ("wgmma" if D >= 64 else "mma")
-    tmpl = f"Li{D}E" if code == 0 else f"{_TYPE_TOKENS[str(dtype)]}Li{D}E"
-    if kernel == "flash_fwd":
-        source, fn = "flash_fwd", f"flash_fwd_{body}I" + ("f" if code == 0 else "") + tmpl
-        smem = _build.load(source).k8s_flash_fwd_smem(code, D)
-    else:
-        source, which = "flash_bwd", kernel[len("flash_bwd_"):]
-        fn = f"flash_bwd_{which}_{body}I" + tmpl
-        if body == "wgmma" and which == "dkv":
-            fn = f"flash_bwd_dkv_wgmmaI{_TYPE_TOKENS[str(dtype)]}" \
-                 f"{'f' if split else 'S1_'}Li{D}E"
-        smem = _build.load(source).k8s_flash_bwd_smem(int(which == "dkv"), code, D)
-    rep = {"body": f"{kernel}:{body}", "entry": fn, "smem_dynamic_bytes": smem,
-           "registers": None, "spill_stores": None, "spill_loads": None,
+    rep = {"registers": None, "spill_stores": None, "spill_loads": None,
            "smem_static_bytes": None}
     lines = _build.BUILD_LOGS.get(source, "").splitlines()
     for i, line in enumerate(lines):
@@ -217,22 +222,69 @@ def build_report(_build, kernel: str, dtype, D: int, split=False) -> dict:
     return rep
 
 
+def build_report(_build, kernel: str, dtype, D: int, split=False) -> dict:
+    """Registers, spills and shared memory of the body that runs ``kernel``
+    (flash_fwd, flash_bwd_dq or flash_bwd_dkv) for this type and head_dim:
+    the first from nvcc's ptxas report in ``_build.BUILD_LOGS``, the
+    dynamic shared memory from the library's own size query."""
+    code = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}[str(dtype)]
+    body = "fma" if code == 0 else ("wgmma" if D >= 64 else "mma")
+    tmpl = f"Li{D}E" if code == 0 else f"{_TYPE_TOKENS[str(dtype)]}Li{D}E"
+    if kernel == "flash_fwd":
+        source, fn = "flash_fwd", f"flash_fwd_{body}I" + ("f" if code == 0 else "") + tmpl
+        smem = _build.load(source).k8s_flash_fwd_smem(code, D)
+    else:
+        source, which = "flash_bwd", kernel[len("flash_bwd_"):]
+        fn = f"flash_bwd_{which}_{body}I" + tmpl
+        if body == "wgmma" and which == "dkv":
+            fn = f"flash_bwd_dkv_wgmmaI{_TYPE_TOKENS[str(dtype)]}" \
+                 f"{'f' if split else 'S1_'}Li{D}E"
+        smem = _build.load(source).k8s_flash_bwd_smem(int(which == "dkv"), code, D)
+    return {"body": f"{kernel}:{body}", "entry": fn, "smem_dynamic_bytes": smem,
+            **ptxas_report(_build, source, fn)}
 
 
-def rms_cases(torch, F, fused_norm):
+def rms_build_report(_build, plan, x_dtype, s_dtype) -> dict:
+    """The RMSNorm body ``plan`` chose (``fused_norm._rms_plan``) for these
+    types: its entry, registers, spills and shared memory."""
+    tok = {"torch.float32": "f", **_TYPE_TOKENS}
+    # a 16-bit type named twice is mangled the second time as S1_
+    s_tok = "S1_" if s_dtype == x_dtype and tok[str(x_dtype)] != "f" \
+        else tok[str(s_dtype)]
+    fn = f"rms_norm_{plan.body}I{tok[str(x_dtype)]}{s_tok}"
+    fn += f"Li{plan.nv}E"
+    return {"body": f"rms_norm:{plan.body}", "entry": fn,
+            "plan": dataclasses.asdict(plan), "smem_dynamic_bytes": plan.smem,
+            **ptxas_report(_build, "rms_norm", fn)}
+
+
+def rms_cases(torch, F, fused_norm, _build=None):
     """RMSNorm: x [N, D] with a scale [D].  Tolerance: f32 inputs 1e-5
     relative (summation order and rsqrt rounding only); 16-bit x one
     rounding step of x.dtype (the normalized row is rounded to x.dtype, and
     an rsqrt one ulp apart can round it the other way), plus one step of a
-    16-bit output.  The timed calls rotate over copies of x and keep their
-    outputs, twice the L2's bytes in all, so every call reads x from HBM
-    and writes an output that is not in the L2; a warm-up call on each
+    16-bit output.  The two ``strided`` cases are [64, 4096] views of
+    [64, 4104] and [64, 4100] tensors: rows 16 and 8 bytes aligned, both
+    in 8-byte accesses of x; ``ragged_d_99_f16`` (D 99) takes the scalar
+    body in one pass, ``wide_d_8195_f32`` its two-pass path.
+    The timed calls rotate over copies of x (strided as x is) and keep
+    their outputs, twice the L2's bytes in all, so every call reads x from
+    HBM and writes an output that is not in the L2; a warm-up call on each
     buffer first leaves every output allocated, so no timed call waits
-    on the allocator.  The library call
+    on the allocator.  ``wall_ms`` (host time a call) is the median of
+    three runs of 100 calls: a run's first call after a sync takes ~0.1
+    ms on its own; ``single_wall_ms`` is one run of 20 calls with the
+    garbage collector on, for both K1 and the library call.  ``copy_ms``
+    is a copy of x into the output's type over the same buffers: the
+    bytes K1 moves less the scale's, at the rate the card reaches without
+    K1.  The library call
     (``F.rms_norm``, scale cast to x.dtype) writes x.dtype: it computes
     K1's function only where the scale is x.dtype too (``bf16x_bf16s``);
-    no PyTorch call writes K1's f32 output from a bf16 x."""
+    no PyTorch call writes K1's f32 output from a bf16 x.  With
+    ``_build``, each record names the body ``fused_norm._rms_plan`` chose
+    and that body's ptxas report."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    # (name, N, D, x dtype, scale dtype[, row stride])
     cases = [("main_prefill", 509, 4096, bf, f32),
              ("main_decode", 1, 4096, bf, f32),
              ("engine_decode_4", 4, 4096, bf, f32),
@@ -244,11 +296,16 @@ def rms_cases(torch, F, fused_norm):
              ("bf16x_bf16s", 2048, 4096, bf, bf),
              ("ragged_rows", 1000, 4096, bf, f32),
              ("small_f32", 7, 64, f32, f32),
-             ("ragged_d_f16", 5, 100, f16, f32)]
+             ("ragged_d_f16", 5, 100, f16, f32),
+             ("strided_4104", 64, 4096, bf, f32, 4104),
+             ("strided_4100", 64, 4096, bf, f32, 4100),
+             ("ragged_d_99_f16", 5, 99, f16, f32),
+             ("wide_d_8195_f32", 2, 8195, f32, f32)]
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for name, N, D, xd, sd in cases:
-        x = torch.randn(N, D, generator=g, device="cuda").to(xd)
+    for name, N, D, xd, sd, *width in cases:
+        W = width[0] if width else D
+        x = torch.randn(N, W, generator=g, device="cuda").to(xd)[:, :D]
         s = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(sd)
         got = fused_norm.rms_norm(x, s)
         torch.cuda.synchronize()
@@ -268,23 +325,39 @@ def rms_cases(torch, F, fused_norm):
         w16 = s.to(xd)
         per_call = N * D * (x.element_size() + got.element_size())
         n_buf = max(2, -(-2 * L2_BYTES // per_call))
-        xs = x.expand(n_buf, N, D).clone()
+        xs = torch.empty(n_buf, N, W, dtype=xd, device="cuda")[..., :D]
+        xs.copy_(x.expand(n_buf, N, D))
         nbytes = per_call + D * s.element_size()
         b_ms, b_by = bound(4 * N * D, nbytes, PEAK_F32)
+        # host time a call: the median of 3 runs of 100 calls
+        walls = {"walls": 3, "wall_iters": 100}
+        k1 = rotating(lambda xi: fused_norm.rms_norm(xi, s), xs, n_buf)
+        lib = rotating(lambda xi: F.rms_norm(xi, (D,), w16, 1e-6), xs, n_buf)
         rec = {"phase": "kernel", "kernel": "rms_norm", "case": name,
-               "shape": [N, D], "x": str(xd), "scale": str(sd),
-               "max_abs_err": err, "rtol": rtol, "rotated_buffers": n_buf,
-               **timed(torch, "", rotating(
-                   lambda xi: fused_norm.rms_norm(xi, s), xs, n_buf),
-                   warmup=n_buf),
+               "shape": [N, D], "row_stride": W, "x": str(xd),
+               "scale": str(sd), "max_abs_err": err, "rtol": rtol,
+               "rotated_buffers": n_buf,
+               **timed(torch, "", k1, warmup=n_buf, **walls),
                **timed(torch, "plain_", rotating(
                    lambda xi: fused_norm.rms_norm_plain(xi, s), xs, n_buf),
-                   warmup=n_buf),
-               **timed(torch, "library_", rotating(
-                   lambda xi: F.rms_norm(xi, (D,), w16, 1e-6), xs, n_buf),
-                   warmup=n_buf),
+                   warmup=n_buf, **walls),
+               **timed(torch, "library_", lib, warmup=n_buf, **walls),
+               "copy_ms": time_ms(torch, rotating(
+                   lambda xi: torch.empty(N, D, dtype=got.dtype,
+                                          device="cuda").copy_(xi),
+                   xs, n_buf), warmup=n_buf)["ms"],
                "library_same_output_type": got.dtype == xd,
                "bound_ms": b_ms, "bound_by": b_by}
+        for key, fn in (("single_wall_ms", k1), ("library_single_wall_ms",
+                                                 lib)):
+            rec[key] = time_ms(torch, fn, warmup=0,
+                               wall_gc_off=False)["wall_ms"]
+        rec["bound_share"] = b_ms / rec["ms"]
+        rec["wall_over_library_wall"] = rec["wall_ms"] / rec["library_wall_ms"]
+        if _build is not None:
+            plan = fused_norm._rms_plan(N, D, xd, sd, x.data_ptr() % 16,
+                                        x.stride(0), s.data_ptr() % 16)
+            rec.update(rms_build_report(_build, plan, xd, sd))
         del xs
         emit(rec)
         REPORT["cases"].append(rec)
@@ -1687,8 +1760,6 @@ def main() -> int:
              "a checkout of the repository")
     import torch.nn.functional as F
 
-    os.environ.setdefault(
-        "TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1715,7 +1786,7 @@ def main() -> int:
         for src, text in _build.BUILD_LOGS.items():
             f.write(f"== {src}\n{text}\n")
 
-    rms = rms_cases(torch, F, fused_norm)
+    rms = rms_cases(torch, F, fused_norm, _build)
     fl = flash_cases(torch, F, flash, _build)
     bw = flash_bwd_cases(torch, F, flash, _build)
     parity(torch, tlib, bridge, decode)
@@ -1747,7 +1818,7 @@ def main() -> int:
     for kname, route, source, replaces, rec in (
             ("flash_fwd", "cuda", "k8s_tpu_torch/csrc/flash_fwd.cu",
              "k8s_tpu/ops/flash_attention.py:99", fl["gpt2_train"]),
-            ("rms_norm", "triton", "k8s_tpu_torch/ops/fused_norm.py",
+            ("rms_norm", "cuda", "k8s_tpu_torch/csrc/rms_norm.cu",
              "k8s_tpu/ops/fused_norm.py:29", rms["bf16x_bf16s"]),
             ("flash_bwd_dq", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cu",
              "k8s_tpu/ops/flash_attention.py:233",
@@ -1778,7 +1849,8 @@ def main() -> int:
                         "library_ms": rec["library_ms"],
                         **{key: rec[key] for key in (
                             "body", "plan", "registers", "spill_stores",
-                            "spill_loads", "smem_dynamic_bytes")
+                            "spill_loads", "smem_static_bytes",
+                            "smem_dynamic_bytes")
                            if key in rec}})
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -83,7 +83,7 @@ class TransformerConfig:
     # reads neither (kept so the reference's config files load)
     flash_block_q: Optional[int] = None
     flash_block_k: Optional[int] = None
-    use_fused_norm: bool = False  # Triton RMSNorm kernel (ops/)
+    use_fused_norm: bool = False  # CUDA RMSNorm kernel (ops/fused_norm.py)
     # sliding-window attention: each query attends the window most recent
     # positions (0 <= q - k < window, causal only); decode keeps an
     # O(window) ring-buffer cache
@@ -132,7 +132,7 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-6, fused: bool = False):
         super().__init__()
         self.eps = eps
-        self.fused = fused  # the Triton kernel instead of the plain chain
+        self.fused = fused  # the CUDA kernel instead of the plain chain
         self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32))
 
     def forward(self, x):

@@ -5,6 +5,9 @@ from __future__ import annotations
 
 import torch
 
+# streaming multiprocessors of one H100 SXM, for the kernels' launch plans
+N_SMS = 132
+
 # The hand-written kernels: the forward ones the serving path runs, then
 # the flash backward's two (dq, then dk/dv).
 KERNELS = ("flash_fwd", "rms_norm", "flash_bwd_dq", "flash_bwd_dkv")

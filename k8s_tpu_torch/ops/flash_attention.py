@@ -39,11 +39,10 @@ import dataclasses
 import torch
 
 from k8s_tpu_torch.ops import _build
-from k8s_tpu_torch.ops._common import count_launch, use_plain
+from k8s_tpu_torch.ops._common import N_SMS, count_launch, use_plain
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
-N_SMS = 132  # streaming multiprocessors of one H100 SXM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns: dict = {}
 # what a launch's nonzero return means (csrc/flash_sm90.cuh)
