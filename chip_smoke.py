@@ -41,7 +41,19 @@ Phases, each fatal on failure:
    model's, and each request's tokens against the exclusive lane's (a
    bf16 difference passes only within twice the logit error at the top-2
    margin, ``token_check``).
-5c. speculative, beam: the batched speculative lane equals the exclusive
+5c. spill, disagg: the host spill tier behind ``LmServer(slots=1,
+   spill_mb=512)`` on the served Llama-3-8B-width weights (a 509-token
+   prompt's 31 prefix blocks demoted by a flood of distinct prompts,
+   promoted back on the next ask, the answer unchanged; demote and
+   promote ms a block, TTFT cold / hit / promoted); then two in-process
+   ``LmServer``s, roles prefill and decode, over loopback kvxfer: 8
+   prompts (17-509 tokens) through ``kv_dest`` one at a time (equal to
+   the colocated answers) and concurrently (``token_check``), a
+   fixed-seed sampled request equal to its local answer, dedup on the
+   repeats, a ``kv_src`` fetch, ``serve_kv_migrate_seconds`` and each
+   stage of a 509-token migration timed on its own.  Both with exact K1
+   launches (65 a model call) and no flash launch.
+5d. speculative, beam: the batched speculative lane equals the exclusive
    lane and vanilla greedy on the tiny model in f32 (greedy at draft_k
    2-4, fixed-seed sampled, two draft_k groups beside a plain row); then
    on the served Llama-3-8B-width weights, ``speculative: 4`` over HTTP
@@ -1235,6 +1247,435 @@ def serve_engine(torch, tlib, bridge, server, common, requestlog):
     return launches, lm.model.state_dict()
 
 
+def _last_request(eng) -> dict:
+    """The engine recorder's most recently finished request."""
+    return eng._reqlog.snapshot(limit=1)[-1]
+
+
+SPILL_PREFIX_BLOCKS = 64   # tree headroom beyond the one slot's row
+SPILL_MB = 512             # host budget: 256 blocks of 2 MiB
+FLOOD_LEN = 1024           # distinct flood prompts: 63 tree blocks each
+
+
+def serve_spill(torch, tlib, server, common, requestlog, sd):
+    """The host spill tier at the served width, on the served weights
+    (``sd``): ``LmServer(slots=1, prefix_blocks=64, spill_mb=512)`` over
+    HTTP, bf16 pool (2 MiB a block, stored raw).  Prompt P (a 496-token
+    shared prefix + a 13-token tail) cold, then prompt A (the same prefix
+    + another 13-token tail): a plain prefix hit.  Distinct 1024-token
+    prompts then flood the pool until A's 31 prefix blocks have all been
+    demoted to the host, and A is asked again: its prefix promotes back
+    (31 blocks), and its tokens must equal A's first answer exactly (the
+    bytes grafted back are the bytes demoted, and the tail's prefill is
+    the same).  Demote and promote are timed a block with a synchronize
+    around each call (a promote's time without the demotions its own
+    block allocations cause, which are reported apart); TTFT cold /
+    plain hit / promoted from the request recorder.  The counters, zeroed just before and read just after,
+    must show RMSNorm at 2·32+1 launches a model call and no flash
+    kernel."""
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    os.environ["K8S_TPU_REQUEST_LOG"] = "1"
+    requestlog.set_active(None)
+    torch.cuda.reset_peak_memory_stats()
+    lm = server.LmServer(config=cfg, params=sd, slots=1,
+                         prefix_blocks=SPILL_PREFIX_BLOCKS,
+                         spill_mb=SPILL_MB, device="cuda")
+    eng = lm.engine
+    demotes, promotes = [], []
+    demote_leaf, promote_spill = eng._demote_leaf, eng._promote_spill
+
+    def demote(node):
+        before = eng._spill.spilled_blocks
+        t0 = time.perf_counter()
+        out = demote_leaf(node)
+        torch.cuda.synchronize()
+        if eng._spill.spilled_blocks > before:  # gathered, not touched
+            demotes.append(time.perf_counter() - t0)
+        return out
+
+    def promote(slot, ids, max_tokens):
+        # the demotions its own block allocations cause are timed apart
+        n0, t0 = len(demotes), time.perf_counter()
+        n = promote_spill(slot, ids, max_tokens)
+        torch.cuda.synchronize()
+        if n:
+            nested = sum(demotes[n0:])
+            promotes.append((time.perf_counter() - t0 - nested, n,
+                             len(demotes) - n0, nested))
+        return n
+    eng._demote_leaf, eng._promote_spill = demote, promote
+    httpd = server.serve(lm, "127.0.0.1", 0)
+    url = "http://%s:%d" % httpd.server_address[:2]
+    rng = torch.Generator().manual_seed(8)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    def post(p, new):
+        code, body, secs = http(url + "/v1/generate", dict(
+            tokens=p, max_new_tokens=new))
+        toks = body.get("tokens")
+        if code != 200 or not isinstance(toks, list) or len(toks) != new \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"spill request ({len(p)} tokens): {code} "
+                 f"{str(body)[:300]}")
+        return toks, secs
+
+    shared = prompt(496)
+    P, A = shared + prompt(13), shared + prompt(13)
+    fps = kvtier_fps(eng, A)
+    try:
+        post(prompt(33), 2)  # warm-up: allocator, cuBLAS handles
+        st0 = eng.stats()
+        common.reset_launches()
+        t_phase = time.perf_counter()
+        post(P, 32)
+        ttft_cold = _last_request(eng)["ttft_s"]
+        first, _ = post(A, 32)
+        hit = _last_request(eng)
+        floods, t_flood = 0, time.perf_counter()
+        while not all(fp in eng._spill for fp in fps) and floods < 40:
+            post(prompt(FLOOD_LEN), 1)
+            floods += 1
+        flood_s = time.perf_counter() - t_flood
+        demoted = all(fp in eng._spill for fp in fps)
+        st1 = eng.stats()
+        again, _ = post(A, 32)
+        promoted = _last_request(eng)
+        torch.cuda.synchronize()
+        phase_s = time.perf_counter() - t_phase
+        launches = common.launches()
+        st2 = eng.stats()
+        eng.debug_check_blocks()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        lm.close()
+        requestlog.set_active(None)
+        os.environ.pop("K8S_TPU_REQUEST_LOG", None)
+    calls = st2["model_calls"] - st0["model_calls"]
+    want = {"flash_fwd": 0, "rms_norm": (2 * cfg.layers + 1) * calls,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want:
+        fail(f"spill launches {launches}, expected {want} ({calls} calls)")
+    if not demoted or st1["spill_demotions"] < len(fps):
+        fail(f"spill: A's chain was not demoted after {floods} floods "
+             f"({st1['spill_demotions']} demotions)")
+    promos = st2["spill_promotions"] - st1["spill_promotions"]
+    if promos != len(fps) or promoted["prefix"]["tokens_saved"] < 496:
+        fail(f"spill: {promos} promotions (want {len(fps)}), prefix "
+             f"{promoted['prefix']}")
+    if again != first:
+        fail(f"spill: the promoted answer {again} differs from the first "
+             f"{first}")
+    block_bytes = 2 * cfg.layers * 16 * cfg.kv_heads * \
+        cfg.dims_per_head * 2
+    promote_s = sum(p[0] for p in promotes)
+    promote_n = sum(p[1] for p in promotes)
+    rec = {"phase": "spill", "card": REPORT["card"],
+           "config": f"llama_8b bf16 flash+fused, LmServer(slots=1, "
+                     f"prefix_blocks={SPILL_PREFIX_BLOCKS}, "
+                     f"spill_mb={SPILL_MB})",
+           "layers": cfg.layers, "pool_blocks": st2["pool_blocks"],
+           "block_bytes": block_bytes, "flood_prompts": floods,
+           "flood_len": FLOOD_LEN, "flood_s": flood_s, "phase_s": phase_s,
+           "spill_demotions": st2["spill_demotions"],
+           "spill_promotions": st2["spill_promotions"],
+           "spill_evictions": st2["spill_evictions"],
+           "spill_blocks": st2["spill_blocks"],
+           "spill_bytes": st2["spill_bytes"],
+           "tree_evictions": st2["tree_evictions"],
+           "demote_ms_per_block": 1e3 * sum(demotes) / max(len(demotes), 1),
+           "demote_ms_max": 1e3 * max(demotes, default=0.0),
+           "demotes_timed": len(demotes),
+           "promote_ms_per_block": 1e3 * promote_s / max(promote_n, 1),
+           "promote_calls": len(promotes), "promoted_blocks": promote_n,
+           "demotes_inside_promote": sum(p[2] for p in promotes),
+           "demote_s_inside_promote": sum(p[3] for p in promotes),
+           "ttft_s": {"cold_509": ttft_cold, "prefix_hit_509": hit["ttft_s"],
+                      "promoted_509": promoted["ttft_s"]},
+           "promoted_prefix": promoted["prefix"],
+           "promoted_phase_s": promoted["phase_s"],
+           "answer_identical": True,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "model_calls": calls, "launches": launches,
+           "expected_launches": want}
+    emit(rec)
+    REPORT["spill"] = rec
+    return launches
+
+
+def kvtier_fps(eng, ids):
+    """The chain fingerprints of ``ids``' full blocks but the last prompt
+    token's (the blocks a prompt can share)."""
+    from k8s_tpu_torch.models import kvtier
+
+    bs = eng.block_size
+    return kvtier.chain_fingerprints(ids, bs, max_blocks=(len(ids) - 1) // bs)
+
+
+DISAGG_LENS = (17, 33, 64, 100, 128, 256, 400, 509)
+
+
+def migration_stages(torch, kvxfer, placement, eng, ids, reps=3):
+    """The wall time of each stage of one migration of ``ids``' chain (the
+    engine holds it in its tree), on the same functions the servers run:
+    the gather and its device-to-host copy (on the engine thread),
+    ``encode_frame`` (``tobytes`` and the join), the frame over loopback
+    TCP into ``read_frame`` (``frombuffer``), and the host-to-device copy
+    and graft into a scratch pool.  Best of ``reps``."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    bs = eng.block_size
+    nodes = eng._tree.match(ids, len(ids) - 1)[0]
+    blocks = [n.block for n in nodes] + [0]  # + the partial block's size
+    out = {"blocks": len(blocks)}
+
+    def gather():
+        t0 = time.perf_counter()
+        flat = eng._gather_fn(eng._pool, blocks)
+        return flat, time.perf_counter() - t0
+    best = {}
+    for _ in range(reps):
+        flat, g = eng.submit_exclusive(gather, timeout=600)
+        wire = {f"blk/{p}": a for p, a in flat.items()}
+        wire["ids"] = np.asarray(ids, np.int32)
+        wire["key"] = np.zeros(16, np.uint8)
+        t0 = time.perf_counter()
+        frame = kvxfer.encode_frame("migrate", {"v": 1}, wire)
+        enc = time.perf_counter() - t0
+        lst = socket.create_server(("127.0.0.1", 0))
+        got = {}
+
+        def rx():
+            conn, _ = lst.accept()
+            got["frame"] = kvxfer.read_frame(conn)
+            got["t"] = time.perf_counter()
+            conn.close()
+        th = threading.Thread(target=rx)
+        th.start()
+        snd = socket.create_connection(lst.getsockname())
+        t0 = time.perf_counter()
+        snd.sendall(frame)
+        th.join(120)
+        loop = got["t"] - t0
+        snd.close()
+        lst.close()
+        arrays = {k[4:]: v for k, v in got["frame"][2].items()
+                  if k.startswith("blk/")}
+        with torch.inference_mode():
+            pool = eng._compute.build_pool(len(blocks) + 1, bs, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._compute.graft_blocks(pool, arrays,
+                                      list(range(1, len(blocks) + 1)))
+            torch.cuda.synchronize()
+            graft = time.perf_counter() - t0
+            same = all(torch.equal(
+                placement.host_tensor(flat[p]).cuda(),
+                leaf[1:]) for p, leaf in
+                eng._compute.pool_leaves(pool))
+        del pool
+        if not same:
+            fail("migration stages: the grafted blocks differ from the "
+                 "gathered ones")
+        for k, v in (("gather_d2h_s", g), ("encode_s", enc),
+                     ("loopback_read_s", loop), ("h2d_graft_s", graft)):
+            best[k] = min(best.get(k, v), v)
+        out["frame_bytes"] = len(frame)
+    out.update(best)
+    out["total_s"] = sum(best.values())
+    return out
+
+
+def serve_disagg(torch, tlib, server, common, requestlog, sd):
+    """Disaggregated serving at the served width, on the served weights:
+    two ``LmServer(slots=4)`` in this process, ``role="prefill"`` and
+    ``role="decode"``, each with its own engine and pool (weights shared
+    from ``sd``), over HTTP and loopback kvxfer.  Eight prompts (17-509
+    tokens) are prefilled once on the prefill server (1 token: its tree
+    now holds them) and answered there locally (32 tokens, the colocated
+    answers); then each goes through ``kv_dest`` one at a time (its tokens
+    must equal the colocated answer: the same prefill, the bytes of its
+    blocks, the same decode) and all eight concurrently (held by
+    ``token_check``: batched decode rounds otherwise in bf16, and these
+    repeats are deduplicated on the wire).  A fixed-seed sampled request
+    (temperature 1.0) must equal its local answer.  Last, a prompt cached
+    on the decode server only is fetched through ``kv_src`` by the
+    prefill server: a hit, and a tail-only prefill.  Counters zeroed
+    just before the kv_dest requests and read after the fetch: RMSNorm
+    at 2·32+1 launches per model call of both engines, no flash kernel.
+    Then each stage of a 509-token migration is timed on its own."""
+    import threading
+
+    from k8s_tpu_torch.models import kvxfer, placement
+
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    os.environ["K8S_TPU_REQUEST_LOG"] = "1"
+    requestlog.set_active(None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pre = server.LmServer(config=cfg, params=sd, slots=4, role="prefill",
+                          device="cuda")
+    dec = server.LmServer(config=cfg, params=sd, slots=4, role="decode",
+                          device="cuda")
+    shared_weights = all(
+        a.data_ptr() == b.data_ptr() for (n, a), (_, b) in zip(
+            pre.model.state_dict().items(), dec.model.state_dict().items())
+        if n != "embedding")
+    httpds = [server.serve(lm, "127.0.0.1", 0) for lm in (pre, dec)]
+    purl, durl = ("http://%s:%d" % h.server_address[:2] for h in httpds)
+    kv_dest = f"127.0.0.1:{dec.serving_info()['kvxfer_port']}"
+    rng = torch.Generator().manual_seed(9)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    def post(url, p, new, **extra):
+        code, body, secs = http(url + "/v1/generate", dict(
+            tokens=p, max_new_tokens=new, **extra))
+        toks = body.get("tokens")
+        if code != 200 or not isinstance(toks, list) or len(toks) != new \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"disagg request ({len(p)} tokens, {extra}): {code} "
+                 f"{str(body)[:300]}")
+        return toks, secs
+
+    prompts = [prompt(n) for n in DISAGG_LENS]
+    new = 32
+    try:
+        for url in (purl, durl):
+            post(url, prompt(33), 2)  # warm-up
+        cold = {}
+        for p in prompts:
+            post(purl, p, 1)  # the prefill tier's tree now holds p
+            cold[len(p)] = _last_request(pre.engine)["ttft_s"]
+        local = [post(purl, p, new)[0] for p in prompts]
+        samp = {"temperature": 1.0, "seed": 11}
+        samp_local = post(purl, prompts[4], new, **samp)[0]
+        s0 = {k: lm.engine.stats() for k, lm in (("pre", pre), ("dec", dec))}
+        mig0 = pre.metrics["kv_migrate"]._default_child().total
+        common.reset_launches()
+        t0 = time.perf_counter()
+        one = [post(purl, p, new, kv_dest=kv_dest) for p in prompts]
+        one_s = time.perf_counter() - t0
+        m = pre.metrics["kv_migrate"]._default_child()
+        migrate_s_one = (m.total - mig0) / len(prompts)
+        conc: dict = {}
+
+        def client(i):
+            conc[i] = post(purl, prompts[i], new, kv_dest=kv_dest)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        conc_s = time.perf_counter() - t0
+        if len(conc) != len(prompts):
+            fail(f"disagg concurrent: {len(conc)} of {len(prompts)} answered")
+        samp_mig = post(purl, prompts[4], new, kv_dest=kv_dest, **samp)[0]
+        # the fetch: F cached on the decode server only
+        F = prompt(300)
+        post(durl, F, 2)
+        F2 = F[:288] + prompt(20)
+        f0 = pre.engine.stats()
+        fetched = post(purl, F2, 8, kv_src=kv_dest)[0]
+        f1 = pre.engine.stats()
+        torch.cuda.synchronize()
+        launches = common.launches()
+        s1 = {k: lm.engine.stats() for k, lm in (("pre", pre), ("dec", dec))}
+        text = http(purl + "/healthz")[1]["serving"]
+        dedup = pre.metrics["kvxfer_dedup_skipped"].value
+        mig = pre.metrics["kv_migrate"]._default_child()
+        rx_stats = dec._kv_receiver.stats()
+        tx_stats = pre._kv_sender.stats()
+        stages = migration_stages(torch, kvxfer, placement, pre.engine,
+                                  prompts[-1])
+        for lm in (pre, dec):
+            lm.engine.debug_check_blocks()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for h in httpds:
+            h.shutdown()
+            h.server_close()
+        for lm in (pre, dec):
+            lm.close()
+        requestlog.set_active(None)
+        os.environ.pop("K8S_TPU_REQUEST_LOG", None)
+    calls = {k: s1[k]["model_calls"] - s0[k]["model_calls"] for k in s1}
+    want = {"flash_fwd": 0,
+            "rms_norm": (2 * cfg.layers + 1) * sum(calls.values()),
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want or not all(calls.values()):
+        fail(f"disagg launches {launches}, expected {want} ({calls})")
+    for i, (toks, _) in enumerate(one):
+        if toks != local[i]:
+            fail(f"disagg: prompt {len(prompts[i])} migrated gave {toks}, "
+                 f"the colocated engine {local[i]}")
+    vs_local = {str(len(prompts[i])): token_check(
+        torch, pre.model, prompts[i], conc[i][0], local[i],
+        f"disagg concurrent {len(prompts[i])} vs colocated",
+        pre.engine.buckets) for i in range(len(prompts))}
+    if samp_mig != samp_local:
+        fail(f"disagg: the sampled request migrated gave {samp_mig}, "
+             f"locally {samp_local}")
+    if dedup <= 0:
+        fail("disagg: no block deduplicated on the repeated prompts")
+    got_f = f1["kv_prefix_fetched"] - f0["kv_prefix_fetched"]
+    saved_f = f1["prefix_tokens_saved"] - f0["prefix_tokens_saved"]
+    if got_f != 18 or saved_f != 288 or \
+            f1["prefix_hits"] - f0["prefix_hits"] != 1:
+        fail(f"disagg kv_src fetch: {got_f} blocks fetched, {saved_f} "
+             "tokens saved (want 18 and 288)")
+    block_bytes = 2 * cfg.layers * 16 * cfg.kv_heads * \
+        cfg.dims_per_head * 2
+    rec = {"phase": "disagg", "card": REPORT["card"],
+           "config": "llama_8b bf16 flash+fused, two LmServer(slots=4) "
+                     "roles prefill and decode, loopback kvxfer",
+           "layers": cfg.layers, "prompt_lens": list(DISAGG_LENS),
+           "new_tokens": new, "weights_shared_but_embedding": shared_weights,
+           "one_at_a_time": {"wall_s": one_s, "identical_to_colocated":
+                             len(prompts),
+                             "client_s": {str(len(p)): s for p, (_, s)
+                                          in zip(prompts, one)}},
+           "concurrent": {"wall_s": conc_s, "vs_colocated": vs_local,
+                          "equal": sum(r["equal"] for r in vs_local.values())},
+           "sampled_identical": True,
+           "serve_kv_migrate_seconds": {"count": mig.count, "sum": mig.total,
+                                        "mean_one_at_a_time":
+                                            migrate_s_one},
+           "cold_prefill_ttft_s": {str(k): v for k, v in cold.items()},
+           "migration_stages_509": stages,
+           "block_bytes": block_bytes,
+           "wire_blocks_out": tx_stats["blocks_out"],
+           "wire_block_bytes_out": tx_stats["blocks_out"] * block_bytes,
+           "dedup_blocks_skipped": dedup,
+           "dedup_bytes_saved": tx_stats["dedup_bytes_saved"],
+           "receiver": rx_stats, "sender": tx_stats,
+           "kv_src_fetch": {"blocks": got_f, "tokens_saved": saved_f,
+                            "tokens": fetched},
+           "prefill_serving": {k: text[k] for k in (
+               "role", "kv_exports", "kv_blocks_out", "kv_prefix_fetched")},
+           "model_calls": calls,
+           "rms_launches_by_server": {k: (2 * cfg.layers + 1) * v
+                                      for k, v in calls.items()},
+           "launches": launches, "expected_launches": want,
+           "memory_allocated_before_gib": base / 2 ** 30,
+           "max_memory_allocated_gib": peak / 2 ** 30}
+    emit(rec)
+    REPORT["disagg"] = rec
+    return launches
+
+
 def serve_spec(torch, tlib, server, common, sd):
     """Speculative decoding at the served width, on the served weights
     (``sd``): ``speculative: 4`` requests over HTTP on the engine's
@@ -1800,6 +2241,12 @@ def main() -> int:
                                     requestlog)
     gc.collect()
     torch.cuda.empty_cache()
+    spilled = serve_spill(torch, tlib, server, _common, requestlog, weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg = serve_disagg(torch, tlib, server, _common, requestlog, weights)
+    gc.collect()
+    torch.cuda.empty_cache()
     spec = serve_spec(torch, tlib, server, _common, weights)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1830,6 +2277,8 @@ def main() -> int:
                    "train_llama_width_2_layers": llama[kname],
                    "serve_llama_8b": served[kname],
                    "serve_engine_llama_8b": batched[kname],
+                   "serve_spill_llama_8b": spilled[kname],
+                   "serve_disagg_llama_8b": disagg[kname],
                    "serve_spec_batched_llama_8b": spec["batched"][kname],
                    "serve_spec_single_flight_llama_8b":
                        spec["single_flight"][kname],

@@ -73,11 +73,35 @@ What the reference has and this port does not:
   lengths drawn from the bucket set, decode widths from powers of two —
   holds here too and is reported by ``stats()`` (``prefill_programs``
   lists the chunk lengths used, ``decode_step_ks`` the widths);
-- later slices, each refused by name: disaggregated export/import
-  (``prefill_export``, ``submit_prefilled``), the fleet prefix index
-  (``prefix_index``, ``dedup_have``, ``fetch_prefix``,
-  ``import_prefix``), the host spill tier (``K8S_TPU_SERVE_SPILL_MB``;
-  eviction drops the tree's reference) and mesh placements.
+- mesh placements, which come with a later slice of the port
+  (models/placement.py refuses them by name);
+- span tracing: the reference parents its prefill and exclusive-lane
+  spans under the ingress's trace context; the port records the same
+  phases in the request recorder only.
+
+Tiered KV memory and disaggregation, as in the reference:
+
+- **the host spill tier** (``spill_mb`` / ``K8S_TPU_SERVE_SPILL_MB``,
+  models/kvtier.py): an evicted prefix-tree leaf demotes its block to
+  host memory before its pool reference drops, and a later prompt whose
+  chain fingerprint is resident promotes it back through one graft
+  instead of re-prefilling it;
+- **disaggregated serving**: :meth:`Engine.prefill_export` prefills a
+  request on the ordinary slot path, emits its first token and exports
+  its block chain to the host in one gather, holding no decode seat;
+  :meth:`Engine.submit_prefilled` seats a request straight from an
+  imported chain (one graft into fresh blocks, a tree graft so the
+  prefix is shareable at once) and decodes on.  The wire between the two
+  is models/kvxfer.py; :meth:`Engine.dedup_have`,
+  :meth:`Engine.prefix_index`, :meth:`Engine.fetch_prefix` and
+  :meth:`Engine.import_prefix` serve its dedup handshake and the fleet
+  prefix fetch.  Where the reference carries a threefry key, the
+  manifest carries the slot generator's state (``get_state()`` as a
+  ``uint8`` array named ``key``), which the receiving engine restores
+  into a generator on its own device: a fixed-seed sampled request that
+  migrates emits what it emits locally.  A state from another device
+  type is refused; a greedy request, which never draws, also seats with
+  the reference's ``uint32[2]`` key.
 """
 
 from __future__ import annotations
@@ -94,7 +118,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from k8s_tpu_torch.models import requestlog
+from k8s_tpu_torch.models import kvtier, requestlog
 from k8s_tpu_torch.models import placement as placement_lib
 from k8s_tpu_torch.models.decode import (
     _check_cache_capacity,
@@ -104,7 +128,8 @@ from k8s_tpu_torch.models.decode import (
     sample_logits,
     split_prefill,
 )
-from k8s_tpu_torch.models.kvblocks import BlockPool, PrefixTree
+from k8s_tpu_torch.models.kvblocks import BlockPool, PrefixTree, chain_tokens
+from k8s_tpu_torch.models.paged import quantize_kv
 from k8s_tpu_torch.models.transformer import Transformer
 from k8s_tpu_torch.ops._common import resolve_device
 
@@ -187,10 +212,36 @@ class EngineClosed(RuntimeError):
     pass
 
 
-def _later_slice(feature: str):
-    raise NotImplementedError(
-        f"{feature} is not ported yet; it comes with a later slice of "
-        "the port")
+class PoolExhausted(RuntimeError):
+    """The KV block pool cannot take an imported block chain right now
+    (receive-side backpressure of disaggregated serving): with every
+    free and tree-evictable block counted, the chain still does not fit.
+    The sender maps it to a 503-class refusal, so the router re-places
+    the request instead of wedging the decode pod."""
+
+    def __init__(self, needed: int, available: int,
+                 retry_after_s: float = 1.0):
+        super().__init__(
+            f"KV pool cannot seat {needed} migrated blocks "
+            f"({available} free+evictable)")
+        self.needed = needed
+        self.available = available
+        self.retry_after_s = retry_after_s
+
+
+class DedupStale(RuntimeError):
+    """A deduplicated migration promised prefix blocks this engine no
+    longer holds (evicted between the dedup answer and the seat).  The
+    ``kind`` travels back as a typed kvxfer error frame and the sender
+    re-sends the full chain once."""
+
+    kind = "dedup_stale"
+
+
+def _quantize_host(arr):
+    """``paged.quantize_kv`` over one host array (the spill tier's
+    quantizer)."""
+    return quantize_kv(placement_lib.host_tensor(arr))
 
 
 @dataclasses.dataclass
@@ -207,6 +258,12 @@ class _Request:
     seed: int = 0
     speculative: int = 0  # draft_k (>= 2) for batched spec; 0 = off
     fn: Optional[Callable[[], Any]] = None
+    # disaggregated serving: a prefill-only request emits its first token
+    # and block manifest and retires without a decode slot; a
+    # manifest-carrying request seats straight from imported blocks
+    export: bool = False
+    manifest: Optional[dict] = None
+    seated_cb: Optional[Callable[[], None]] = None
     done: threading.Event = dataclasses.field(
         default_factory=threading.Event)
     result: Any = None
@@ -275,15 +332,16 @@ class Engine:
                  block_size: Optional[int] = None,
                  prefix_blocks: Optional[int] = None,
                  metrics: Optional[dict] = None,
-                 placement=None, device="cuda"):
+                 placement=None, spill_mb: Optional[int] = None,
+                 device="cuda"):
         if slots is None:
             slots = env_slots() or DEFAULT_SLOTS
         if slots < 1:
             raise ValueError(f"engine needs slots >= 1, got {slots}")
         if queue_limit is None:
             queue_limit = env_queue()
-        if _env_int("K8S_TPU_SERVE_SPILL_MB", 0) > 0:
-            _later_slice("the host spill tier (K8S_TPU_SERVE_SPILL_MB)")
+        if spill_mb is None:
+            spill_mb = kvtier.env_spill_mb()
         self.config = config
         self.device = resolve_device(device)
         self._placement = placement_lib.check_placement(
@@ -348,9 +406,25 @@ class Engine:
             self._prefill_body = wrap(self._compute.prefill_paged)
             self._pool = self._placement.build_pool(
                 self._compute, self.pool_blocks, self.block_size)
+            # disaggregated block export/import and the spill tier's
+            # demote/promote: gather a chain to the host, graft one into
+            # fresh local blocks
+            self._gather_fn = wrap(self._compute.gather_blocks)
+            self._graft_fn = wrap(self._compute.graft_blocks)
+            # {leaf path: (per-block tail shape, host dtype)}: what
+            # submit_prefilled validates an imported chain against
+            # before any device work
+            self._pool_leaf_meta = {
+                path: (tuple(leaf.shape[2:]),
+                       placement_lib.host_dtype(leaf.dtype))
+                for path, leaf in self._compute.pool_leaves(self._pool)}
             self._pool_alloc = BlockPool(self.pool_blocks)
             self._tree = PrefixTree(block_size) \
                 if self.prefix_blocks > 0 else None
+            # host-RAM spill tier: evicted tree leaves demote to bounded
+            # host buffers instead of being dropped (0 MB = off)
+            self._spill = kvtier.SpillTier(int(spill_mb) * (1 << 20)) \
+                if self._tree is not None and int(spill_mb) > 0 else None
             self._cache = None
             # device-side table stack, refreshed only when a slot's
             # table changes (join/retire/growth) — not every step
@@ -365,6 +439,10 @@ class Engine:
             self._pool = None
             self._pool_alloc = None
             self._tree = None
+            self._gather_fn = None
+            self._graft_fn = None
+            self._pool_leaf_meta = {}
+            self._spill = None
 
         # request lifecycle recorder (K8S_TPU_REQUEST_LOG=1): zero
         # overhead when off, every call site guards on the None binding
@@ -374,6 +452,20 @@ class Engine:
         self._steps = 0
         self._prefill_chunks = 0
         self._completed = 0
+        # disaggregated migration counters
+        self._kv_exports = 0
+        self._kv_imports = 0
+        self._kv_blocks_out = 0
+        self._kv_blocks_in = 0
+        # blocks a deduplicated migration attached locally instead of
+        # receiving, and prefix blocks grafted in by fleet fetch-on-miss
+        self._kv_blocks_deduped = 0
+        self._kv_prefix_fetched = 0
+        # chain-fingerprint index over the tree's resident chains (spill
+        # entries carry their own): mutated only on the engine thread;
+        # readers on other threads take GIL-atomic snapshots, and every
+        # consumer re-verifies at use time
+        self._tree_fps: dict[str, bool] = {}
         self._peak_active = 0
         self._prefix_hits = 0
         self._prefix_tokens_saved = 0
@@ -449,23 +541,366 @@ class Engine:
         _check_cache_capacity(self.config, int(ids.size),
                               int(max_new_tokens))
 
-    def prefill_export(self, *args, **kwargs):
-        _later_slice("disaggregated prefill export (prefill_export)")
+    def _check_disagg_ready(self) -> None:
+        if not self.paged:
+            raise ValueError(
+                "disaggregated serving needs the paged block pool; "
+                "windowed configs keep dense per-slot rows")
 
-    def submit_prefilled(self, *args, **kwargs):
-        _later_slice("disaggregated seating (submit_prefilled)")
+    def prefill_export(self, ids, max_new_tokens: int,
+                       eos_id: Optional[int] = None,
+                       temperature: float = 0.0,
+                       top_k: Optional[int] = None, seed: int = 0,
+                       speculative: int = 0,
+                       timeout: Optional[float] = None,
+                       trace_id: Optional[str] = None) -> dict:
+        """Prefill-only mode: prefill the prompt through the normal slot
+        path (prefix reuse, tree insert), emit the first token, then
+        export the request's block chain to the host and retire: no
+        decode slot is held past the prefill.
 
-    def prefix_index(self, *args, **kwargs):
-        _later_slice("the fleet prefix index (prefix_index)")
+        Returns the migration manifest: ``ids``, ``first``, ``key`` (the
+        slot generator's state, ``uint8``: the decode pod continues the
+        exact draw schedule), ``blocks`` (flat ``{leaf path: [n_blocks,
+        block_size, ...]}`` host arrays), ``n_blocks``, ``block_size``,
+        ``done`` and ``tokens`` (``done`` when the generation finished at
+        the first token: first-token EOS or ``max_new_tokens == 1``, and
+        nothing migrates), and ``rid`` so the HTTP layer can bill the
+        hop to the request's timeline.  Raises QueueFull under
+        backpressure like :meth:`submit`."""
+        self._check_disagg_ready()
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        self._validate_gen_args(ids, int(max_new_tokens),
+                                float(temperature), top_k,
+                                int(speculative))
+        req = _Request(ids=ids, max_new_tokens=int(max_new_tokens),
+                       eos_id=eos_id, temperature=float(temperature),
+                       top_k=top_k, seed=int(seed),
+                       speculative=int(speculative), export=True)
+        req.t_submit = time.monotonic()
+        if self._reqlog is not None:
+            req.rid = self._reqlog.begin(
+                int(ids.size), int(max_new_tokens),
+                temperature=float(temperature), top_k=top_k,
+                speculative=int(speculative), kind="prefill_export",
+                trace_id=trace_id)
+        return self._enqueue_and_wait(req, timeout)
 
-    def dedup_have(self, *args, **kwargs):
-        _later_slice("migration dedup (dedup_have)")
+    def _check_key(self, key, temperature: float) -> np.ndarray:
+        """The migrated draw-schedule carry, checked before any device
+        work: a ``uint8`` generator state must be one of this engine's
+        device type (a CPU generator's state does not fit a CUDA
+        generator, nor the reverse); any other key (the reference's
+        threefry ``uint32[2]``) seats only a greedy request, which never
+        draws."""
+        key = np.asarray(key).reshape(-1)
+        if key.dtype == np.uint8:
+            want = torch.Generator(device=self.device).get_state().numel()
+            if key.size != want:
+                raise ValueError(
+                    f"migrated generator state has {key.size} bytes; a "
+                    f"{self.device.type} generator's has {want}: the "
+                    "tiers must run on the same device type")
+        elif temperature > 0:
+            raise ValueError(
+                f"a sampled request needs a generator state (uint8) to "
+                f"continue its draws, got a {key.dtype} key")
+        return key
 
-    def fetch_prefix(self, *args, **kwargs):
-        _later_slice("fleet prefix fetch-on-miss (fetch_prefix)")
+    def submit_prefilled(self, ids, blocks: dict, *, first_token: int,
+                         key, max_new_tokens: int,
+                         eos_id: Optional[int] = None,
+                         temperature: float = 0.0,
+                         top_k: Optional[int] = None,
+                         speculative: int = 0,
+                         block_size: Optional[int] = None,
+                         skip: int = 0,
+                         timeout: Optional[float] = None,
+                         trace_id: Optional[str] = None,
+                         seated: Optional[Callable[[], None]] = None
+                         ) -> list[int]:
+        """Seat a request straight from an imported block chain (the
+        decode half of disaggregated serving): graft the received blocks
+        into fresh local pool blocks, insert the prompt's full-block runs
+        into the local prefix tree, and join the batched decode lanes at
+        position ``len(ids)`` with ``first_token`` as the last emitted
+        token and the generator restored from ``key``: fixed-seed output
+        is the local output (same pool bytes, same draws).
 
-    def import_prefix(self, *args, **kwargs):
-        _later_slice("fleet prefix fetch-on-miss (import_prefix)")
+        ``blocks`` is the sender's flat ``{leaf path: [n_blocks,
+        block_size, ...]}`` manifest; a structural mismatch (paths,
+        shapes, an int8 pool fed other content, a generator state of
+        another device type) refuses with ValueError before any device
+        work, and a chain that cannot fit even after evicting every
+        unpinned tree leaf refuses with :class:`PoolExhausted`.
+        ``seated()`` fires on the engine thread the moment the request
+        holds its slot.  Returns the emitted tokens, ``first_token``
+        included.
+
+        ``skip``: the sender omitted the chain's first ``skip`` full
+        blocks after this engine's dedup answer promised it holds them
+        (in the tree or the spill tier); ``blocks`` then carries only the
+        shipped tail and the seat attaches the prefix by reference
+        (promoting from the spill tier where needed).  A promise the tree
+        can no longer keep refuses with :class:`DedupStale`."""
+        self._check_disagg_ready()
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        self._validate_gen_args(ids, int(max_new_tokens),
+                                float(temperature), top_k,
+                                int(speculative))
+        key = self._check_key(key, float(temperature))
+        bs = self.block_size if block_size is None else int(block_size)
+        if bs != self.block_size:
+            raise ValueError(
+                f"imported block_size {bs} != engine block_size "
+                f"{self.block_size}: disaggregated tiers must serve the "
+                "same artifact with the same bucket set")
+        n = math.ceil(int(ids.size) / self.block_size)
+        skip = int(skip)
+        if not 0 <= skip < n:
+            raise ValueError(
+                f"dedup skip {skip} out of range for a {n}-block chain")
+        if skip > max(0, (int(ids.size) - 1) // self.block_size):
+            raise ValueError(
+                f"dedup skip {skip} covers the last prompt token's "
+                "block — that block is never tree-shareable and must "
+                "always ship")
+        shipped = n - skip
+        missing = set(self._pool_leaf_meta) - set(blocks)
+        extra = set(blocks) - set(self._pool_leaf_meta)
+        if missing or extra:
+            raise ValueError(
+                f"imported chain does not match the pool manifest "
+                f"(missing {sorted(missing)[:4]}, extra "
+                f"{sorted(extra)[:4]})")
+        for path, arr in blocks.items():
+            tail, dtype = self._pool_leaf_meta[path]
+            want = (shipped, self.block_size) + tail
+            if tuple(arr.shape) != want:
+                raise ValueError(
+                    f"imported leaf {path} has shape {tuple(arr.shape)}"
+                    f", expected {want}")
+            if dtype == np.int8 and arr.dtype != np.int8:
+                raise ValueError(
+                    f"imported leaf {path} is "
+                    f"{kvtier.dtype_name(arr.dtype)} but the pool stores "
+                    "int8: quantized pools migrate their native leaves "
+                    "bit-exact (no wire re-quantization)")
+        # receive-side backpressure: refuse BEFORE queuing when the chain
+        # cannot fit even after evicting every unpinned tree leaf (a
+        # best-effort read: the seat-time allocation re-checks for real).
+        # A deduplicated chain needs fresh blocks for its shipped tail
+        # only.
+        with self._cond:
+            try:
+                available = self._pool_alloc.free_blocks \
+                    + self._evictable_blocks()
+            # the tree mutates on the engine thread without this lock; a
+            # torn walk must not refuse a seatable chain
+            except RuntimeError:
+                available = shipped
+        if available < shipped:
+            raise PoolExhausted(shipped, available)
+        req = _Request(ids=ids, max_new_tokens=int(max_new_tokens),
+                       eos_id=eos_id, temperature=float(temperature),
+                       top_k=top_k, speculative=int(speculative),
+                       manifest={"first": int(first_token), "key": key,
+                                 "n_blocks": n, "skip": skip,
+                                 "blocks": blocks},
+                       seated_cb=seated)
+        req.t_submit = time.monotonic()
+        if self._reqlog is not None:
+            req.rid = self._reqlog.begin(
+                int(ids.size), int(max_new_tokens),
+                temperature=float(temperature), top_k=top_k,
+                speculative=int(speculative), kind="migrated",
+                trace_id=trace_id)
+        return self._enqueue_and_wait(req, timeout)
+
+    def prefix_index(self, limit: int = 128) -> list[str]:
+        """Chain fingerprints this engine can serve by reference (tree
+        chains) or re-promote (spill entries), most recent first, at most
+        ``limit``: what the fleet prefix index advertises.  Advisory: the
+        dedup seat and the fetch re-verify at use time."""
+        # read off the engine thread: single C-level snapshots of maps
+        # mutated only on the engine thread
+        fps: list[str] = []
+        if self.paged and self._tree is not None:
+            fps.extend(reversed(list(self._tree_fps)))
+        if self._spill is not None:
+            fps.extend(reversed(self._spill.fingerprints()))
+        seen: set[str] = set()
+        out: list[str] = []
+        for fp in fps:
+            if fp not in seen:
+                seen.add(fp)
+                out.append(fp)
+                if len(out) >= limit:
+                    break
+        return out
+
+    def dedup_have(self, fps: list) -> int:
+        """Longest leading run of offered chain fingerprints held in the
+        tree or the spill tier: the receiver's half of the kvxfer dedup
+        handshake.  Advisory: the seat re-verifies and refuses with
+        :class:`DedupStale` if eviction broke the promise."""
+        spill = self._spill
+        have = 0
+        for fp in fps:
+            if fp in self._tree_fps or (spill is not None and fp in spill):
+                have += 1
+            else:
+                break
+        return have
+
+    def fetch_prefix(self, ids, timeout: Optional[float] = None
+                     ) -> Optional[dict]:
+        """Holder side of fleet fetch-on-miss: the longest cached
+        full-block prefix of ``ids`` (the tree's chain, extended straight
+        from spill payloads without touching the pool) as a wire-ready
+        manifest ``{"n_blocks", "block_size", "blocks": {leaf path: [n,
+        block_size, ...]}}``, or None when nothing is cached.  Runs on
+        the engine thread (:meth:`submit_exclusive`), where the pool is
+        written.  The last prompt token's block is never served: it is
+        never tree-shareable on the importer either."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if not self.paged or self._tree is None:
+            return None
+        cap = (int(ids.size) - 1) // self.block_size
+        if cap < 1:
+            return None
+
+        def _do() -> Optional[dict]:
+            bs = self.block_size
+            full, _ = self._tree.match(ids, cap * bs)
+            n = len(full)
+            gathered: dict = {}
+            if n:
+                gathered = self._gather_fn(self._pool,
+                                           [nd.block for nd in full])
+            extra: list[dict] = []
+            if self._spill is not None and n < cap:
+                fps = kvtier.chain_fingerprints(ids, bs, max_blocks=cap)
+                for k in range(n, cap):
+                    e = self._spill.peek(fps[k])
+                    if e is None:
+                        break
+                    extra.append(kvtier.decode_payload(e.payload))
+            total = n + len(extra)
+            if total == 0:
+                return None
+            out: dict[str, np.ndarray] = {}
+            for path, (_tail, dtype) in self._pool_leaf_meta.items():
+                parts = [gathered[path]] if n else []
+                parts += [np.asarray(dec[path])[None] for dec in extra]
+                arr = np.concatenate(parts, 0) if len(parts) > 1 \
+                    else parts[0]
+                # fp pools' spill payloads decode to f32; int8 and bf16
+                # stay as stored: cast so the manifest matches the pool
+                out[path] = np.ascontiguousarray(
+                    arr.astype(dtype, copy=False))
+            return {"n_blocks": total, "block_size": bs, "blocks": out}
+
+        return self.submit_exclusive(_do, timeout=timeout)
+
+    def import_prefix(self, ids, blocks: dict, n_blocks: int,
+                      timeout: Optional[float] = None) -> int:
+        """Requester side of fleet fetch-on-miss: graft a fetched chain
+        prefix into fresh pool blocks and insert its runs into the tree,
+        so the generation submitted right after attaches it like any
+        local prefix hit.  Best-effort: any shortfall (local coverage
+        grew, pool pressure) imports less or nothing and the request
+        re-prefills; a structural mismatch raises ValueError.  Returns
+        the blocks adopted."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        n_blocks = int(n_blocks)
+        if not self.paged or self._tree is None or n_blocks < 1:
+            return 0
+        for path, arr in blocks.items():
+            meta = self._pool_leaf_meta.get(path)
+            if meta is None:
+                raise ValueError(f"fetched leaf {path} not in pool")
+            tail, _dtype = meta
+            want = (n_blocks, self.block_size) + tail
+            if tuple(arr.shape) != want:
+                raise ValueError(
+                    f"fetched leaf {path} has shape {tuple(arr.shape)}"
+                    f", expected {want}")
+        if set(blocks) != set(self._pool_leaf_meta):
+            raise ValueError("fetched chain does not match the pool "
+                             "manifest")
+
+        def _do() -> int:
+            bs = self.block_size
+            cap = min(n_blocks, (int(ids.size) - 1) // bs)
+            if cap < 1:
+                return 0
+            full, _ = self._tree.match(ids, cap * bs)
+            start = len(full)
+            if start >= cap:
+                return 0  # already covered locally
+            dsts: list[int] = []
+            try:
+                for _ in range(cap - start):
+                    dsts.append(self._alloc_block(None))
+            # pool pressure during an opportunistic import falls back to
+            # re-prefilling, never fails anything
+            except RuntimeError:
+                for b in dsts:
+                    self._pool_alloc.release(b)
+                return 0
+            # the allocations may have evicted part of the matched path;
+            # re-match so the insert path is attached
+            full2, _ = self._tree.match(ids, cap * bs)
+            if len(full2) != start:
+                for b in dsts:
+                    self._pool_alloc.release(b)
+                return 0
+            self._graft_fn(self._pool,
+                           {p: a[start:cap] for p, a in blocks.items()},
+                           dsts)
+            created = self._tree.insert(
+                full2, [int(t) for t in ids[:cap * bs]],
+                [0] * start + dsts)
+            # a fresh block's refcount 1 becomes the tree's reference;
+            # release any block the insert did not adopt
+            adopted = {node.block for node in created}
+            for b in dsts:
+                if b not in adopted:
+                    self._pool_alloc.release(b)
+            self._index_add(created)
+            self._update_block_gauge()
+            with self._cond:
+                self._kv_prefix_fetched += len(created)
+            return len(created)
+
+        return self.submit_exclusive(_do, timeout=timeout)
+
+    def _evictable_blocks(self) -> int:
+        """Tree blocks eviction could eventually free for an import
+        (caller holds ``_cond`` or accepts a best-effort read).  Freeing
+        a leaf exposes its parent, so a whole unpinned chain is evictable
+        bottom-up: a node counts iff nothing else pins it and its whole
+        subtree is unpinned."""
+        if self._tree is None:
+            return 0
+        count = 0
+
+        def walk(node) -> bool:
+            nonlocal count
+            subtree_ok = True
+            for child in node.children.values():
+                if not walk(child):
+                    subtree_ok = False
+            if not subtree_ok \
+                    or self._pool_alloc.refcount(node.block) != 1:
+                return False
+            count += 1
+            return True
+
+        for child in self._tree.root.children.values():
+            walk(child)
+        return count
 
     def submit_exclusive(self, fn: Callable[[], Any],
                          timeout: Optional[float] = None):
@@ -518,6 +953,13 @@ class Engine:
         if req.error is not None:
             raise req.error
         return req.result
+
+    @property
+    def disagg_capable(self) -> bool:
+        """True when this engine can export and import KV block chains
+        (the paged pool): what the server gates the kv-transfer plane
+        on."""
+        return self.paged and self._gather_fn is not None
 
     @property
     def healthy(self) -> bool:
@@ -583,6 +1025,27 @@ class Engine:
                 "cow_copies": self._cow_copies,
                 "tree_evictions": self._tree.evictions
                 if self._tree else 0,
+                # disaggregated migration: chains exported to decode
+                # pods, imported chains seated
+                "kv_exports": self._kv_exports,
+                "kv_imports": self._kv_imports,
+                "kv_blocks_out": self._kv_blocks_out,
+                "kv_blocks_in": self._kv_blocks_in,
+                # tiered KV memory: the host spill tier's occupancy and
+                # demote/promote lifetimes, dedup attaches and fleet
+                # fetch-on-miss imports
+                "spill_enabled": self._spill is not None,
+                "spill_blocks": len(self._spill) if self._spill else 0,
+                "spill_bytes": self._spill.bytes_used
+                if self._spill else 0,
+                "spill_demotions": self._spill.spilled_blocks
+                if self._spill else 0,
+                "spill_promotions": self._spill.promoted_blocks
+                if self._spill else 0,
+                "spill_evictions": self._spill.spill_evictions
+                if self._spill else 0,
+                "kv_blocks_deduped": self._kv_blocks_deduped,
+                "kv_prefix_fetched": self._kv_prefix_fetched,
                 "request_log": self._reqlog is not None,
             }
 
@@ -627,12 +1090,16 @@ class Engine:
         Recycled blocks need no scrubbing: stale content sits above the
         new owner's written length and is masked by the synthesized
         validity.  ``slot`` names the request the allocation serves so
-        evictions land on ITS timeline (the ``evict`` phase)."""
+        evictions land on ITS timeline (the ``evict`` phase).  With the
+        spill tier on, each victim's content demotes to host memory
+        BEFORE its pool reference drops: its bytes survive for
+        re-promotion."""
         idx = self._pool_alloc.alloc()
         if idx is not None:
             return idx
         t0 = time.monotonic()
         evicted = 0
+        spilled = 0
         while idx is None:
             # only leaves whose block nothing else pins: evicting a
             # slot-referenced block frees nothing and throws away a hot
@@ -644,6 +1111,7 @@ class Engine:
                 raise RuntimeError(
                     "KV block pool exhausted (no evictable prefix "
                     "blocks) — pool sizing invariant violated")
+            spilled += self._demote_leaf(victim)
             released = self._pool_alloc.release(victim.block)
             if not released:
                 raise RuntimeError("unpinned tree leaf must free its block")
@@ -651,9 +1119,138 @@ class Engine:
             idx = self._pool_alloc.alloc()
         if self._reqlog is not None and slot is not None \
                 and slot.req is not None:
-            self._reqlog.evicted(slot.req.rid, evicted,
-                                 time.monotonic() - t0)
+            dur = time.monotonic() - t0
+            self._reqlog.evicted(slot.req.rid, evicted, dur)
+            if spilled:
+                # the demote cost rides inside the evict window; the
+                # spill event carries the same wall span
+                self._reqlog.spilled(slot.req.rid, spilled, dur)
         return idx
+
+    def _demote_leaf(self, node) -> int:
+        """Demote one evicted tree leaf to the host spill tier: gather its
+        block through the export seam (a copy on the host: the payload
+        never aliases a pool block), quantize float K/V leaves through
+        the one ``quantize_kv``, and park it under the leaf's cumulative
+        chain fingerprint.  Returns 1 when a payload is resident
+        afterwards.  Runs BEFORE the tree's pool reference is released:
+        the gather reads the victim block.  The device-to-host copy
+        synchronizes the stream: every slot waits on it, as on the
+        reference's engine thread."""
+        fp = self._node_fp_of(node)
+        self._tree_fps.pop(fp, None)
+        spill = self._spill
+        if spill is None:
+            return 0
+        if spill.touch(fp):
+            # a chain's content is immutable once inserted: the resident
+            # host copy is already exact
+            return 1
+        flat = self._gather_fn(self._pool, [node.block])
+        flat = {p: a[0] for p, a in flat.items()}
+        payload, nbytes = kvtier.encode_payload(flat, _quantize_host)
+        ok = spill.put(fp, node.tokens, payload, nbytes)
+        self._update_spill_gauges()
+        return 1 if ok else 0
+
+    def _promote_spill(self, slot: Optional[_Slot], ids,
+                       max_tokens: int) -> int:
+        """Re-promote consecutive spilled chain blocks extending the
+        tree's coverage of ``ids`` (at most ``max_tokens`` tokens) into
+        the pool: fresh blocks, one graft (the seam migration seats
+        ride), tree re-insert, so the caller's tree walk sees an ordinary
+        prefix hit.  Returns the blocks promoted; 0 whenever the tier is
+        off or cold, or pool pressure says re-prefilling is the better
+        deal."""
+        spill = self._spill
+        if spill is None or len(spill) == 0 or self._tree is None:
+            return 0
+        bs = self.block_size
+        cap = max(0, int(max_tokens)) // bs
+        if cap < 1:
+            return 0
+        fps = kvtier.chain_fingerprints(ids, bs, max_blocks=cap)
+        full, _ = self._tree.match(ids, cap * bs)
+        entries: list[tuple[str, kvtier.SpillEntry]] = []
+        for k in range(len(full), len(fps)):
+            e = spill.peek(fps[k])
+            if e is None:
+                break
+            entries.append((fps[k], e))
+        if not entries:
+            return 0
+        t0 = time.monotonic()
+        dsts: list[int] = []
+        try:
+            for _ in entries:
+                # may demote OTHER leaves to make room; the entries held
+                # above stay valid even if the spill LRU drops them
+                dsts.append(self._alloc_block(slot))
+        # allocation pressure during a promote (nothing left to evict)
+        # falls back to re-prefilling the tail, never fails the request
+        except RuntimeError:
+            for b in dsts:
+                self._pool_alloc.release(b)
+            return 0
+        # the allocations may have evicted part of the matched path;
+        # re-match so the insert path is attached
+        full2, _ = self._tree.match(ids, cap * bs)
+        if len(full2) != len(full):
+            for b in dsts:
+                self._pool_alloc.release(b)
+            return 0
+        flat: dict[str, list] = {}
+        for fp, e in entries:
+            dec = kvtier.decode_payload(e.payload)
+            spill.get(fp)  # LRU refresh and promote accounting
+            for p, a in dec.items():
+                flat.setdefault(p, []).append(a)
+        self._graft_fn(self._pool,
+                       {p: np.stack(parts) for p, parts in flat.items()},
+                       dsts)
+        n_tok = (len(full2) + len(entries)) * bs
+        created = self._tree.insert(
+            full2, [int(t) for t in ids[:n_tok]],
+            [0] * len(full2) + dsts)
+        # a fresh block's refcount 1 becomes the tree's reference;
+        # release any block the insert did not adopt
+        adopted = {node.block for node in created}
+        for b in dsts:
+            if b not in adopted:
+                self._pool_alloc.release(b)
+        self._index_add(created)
+        self._update_block_gauge()
+        self._update_spill_gauges()
+        promos = self.metrics.get("kv_promotions")
+        if promos is not None:
+            promos.inc(len(created))
+        if self._reqlog is not None and slot is not None \
+                and slot.req is not None:
+            self._reqlog.promoted(slot.req.rid, len(created),
+                                  time.monotonic() - t0)
+        return len(created)
+
+    def _node_fp_of(self, node) -> str:
+        """A tree node's cumulative chain fingerprint (its whole
+        root-to-node token chain, hashed with the router's scheme)."""
+        return kvtier.chain_fingerprints(
+            chain_tokens(node), self.block_size)[-1]
+
+    def _index_add(self, created) -> None:
+        """Register freshly inserted tree nodes in the chain-fingerprint
+        index (engine thread only)."""
+        for node in created:
+            self._tree_fps[self._node_fp_of(node)] = True
+
+    def _update_spill_gauges(self) -> None:
+        if self._spill is None:
+            return
+        g = self.metrics.get("kv_spilled_blocks")
+        if g is not None:
+            g.set(len(self._spill))
+        g = self.metrics.get("kv_spill_bytes")
+        if g is not None:
+            g.set(self._spill.bytes_used)
 
     def _release_table(self, slot: _Slot) -> None:
         for b in slot.table[:slot.nblocks]:
@@ -707,6 +1304,11 @@ class Engine:
                 for req, slot in actions:
                     if req.fn is not None:
                         self._run_exclusive(req)
+                        continue
+                    if req.manifest is not None:
+                        # a migrated seat: a graft, no model call, so it
+                        # does not convoy the decode-ready slots
+                        self._seat_prefilled(slot, req)
                         continue
                     # prefill convoy: decode-ready slots stalled behind
                     # this admission's prefill — the stall bills to each
@@ -808,6 +1410,10 @@ class Engine:
         and whether the divergence block was copy-on-written."""
         if self._tree is None:
             return 0, 0, False
+        # spilled chains re-promote BEFORE the walk: a demoted prefix
+        # grafts back into fresh blocks and the match below sees an
+        # ordinary tree hit
+        self._promote_spill(slot, ids, len(ids) - 1)
         full, partial = self._tree.match(ids, len(ids) - 1)
         shared = 0
         for node in full:
@@ -900,6 +1506,7 @@ class Engine:
                         [int(b) for b in slot.table[:slot.nblocks]])
                     for node in created:
                         self._pool_alloc.retain(node.block)
+                    self._index_add(created)
             else:
                 row = self._init_cache_fn(1, self.device)
                 last = self._run_chunks(
@@ -927,6 +1534,9 @@ class Engine:
             rlog.prefill_done(req.rid, now - t_adm,
                               req.ttft_s if req.ttft_s is not None
                               else now - t_adm)
+        if req.export:
+            self._finish_export(slot, req, first)
+            return
         tokens = [first]
         if (req.eos_id is not None and first == req.eos_id) \
                 or req.max_new_tokens <= 1:
@@ -973,6 +1583,167 @@ class Engine:
             if self.paged:
                 self._release_table(slot)
             slot.clear()
+
+    def _finish_export(self, slot: _Slot, req: _Request,
+                       first: int) -> None:
+        """Close a prefill-export request: gather the block chain to the
+        host, release the slot (no decode seat is held) and hand the
+        migration manifest back to the HTTP layer.  A generation that
+        finished at the first token skips the gather: nothing
+        migrates."""
+        hit_eos = req.eos_id is not None and first == req.eos_id
+        done = hit_eos or req.max_new_tokens <= 1
+        export = {
+            "ids": req.ids,
+            "first": int(first),
+            # the draw-schedule carry: the slot generator's state
+            "key": slot.gen.get_state().numpy(),
+            "block_size": self.block_size,
+            "done": done,
+            "tokens": [int(first)],
+            "rid": req.rid,
+            "blocks": {},
+            "n_blocks": 0,
+        }
+        if not done:
+            export["blocks"] = self._export_blocks(slot)
+            export["n_blocks"] = int(slot.nblocks)
+        with self._cond:
+            self._completed += 1
+            self._kv_exports += 1
+            self._kv_blocks_out += export["n_blocks"]
+            self._release_table(slot)
+            slot.clear()
+        if done:
+            tok_counter = self.metrics.get("tokens")
+            if tok_counter is not None:
+                tok_counter.inc(1)
+            # nothing migrates: the timeline closes here like any local
+            # retirement; otherwise it stays live so the HTTP layer can
+            # bill the hop to the migrate phase before closing it
+            if self._reqlog is not None:
+                self._reqlog.retire(req.rid,
+                                    "eos" if hit_eos else "max_tokens",
+                                    tokens=1, ttft_s=req.ttft_s)
+        req.finish(result=export)
+
+    def _export_blocks(self, slot: _Slot) -> dict:
+        """The slot's block chain as flat host arrays ``{leaf path:
+        [n_blocks, block_size, ...]}`` in table order: one gather and
+        one device-to-host copy per export."""
+        return self._gather_fn(self._pool, slot.table[:slot.nblocks])
+
+    def _seat_prefilled(self, slot: _Slot, req: _Request) -> None:
+        """Seat a migrated request: graft the received blocks into
+        freshly allocated local blocks (refcount 1: a graft never touches
+        a block another slot or the tree shares), insert the prompt's
+        runs into the local tree, and join the decode lanes at the
+        migrated position with the generator restored from the carried
+        state."""
+        m = req.manifest
+        rlog = self._reqlog
+        t_adm = time.monotonic()
+        qw = t_adm - req.t_submit if req.t_submit else 0.0
+        qw_h = self.metrics.get("queue_wait")
+        if qw_h is not None:
+            qw_h.observe(qw)
+        if rlog is not None:
+            rlog.admitted(req.rid, slot.idx, qw)
+        ids = req.ids
+        n = int(m["n_blocks"])
+        skip = int(m["skip"])
+        try:
+            if skip:
+                # a deduplicated migration: the sender omitted the first
+                # ``skip`` full blocks after our dedup answer promised
+                # them; attach them by reference now, promoting from the
+                # spill tier where they live.  A promise eviction broke
+                # refuses with the typed ``dedup_stale``, and the sender
+                # re-sends the full chain.
+                if self._tree is None:
+                    raise DedupStale(
+                        "deduped migration on an engine without a "
+                        "prefix tree")
+                self._promote_spill(slot, ids, skip * self.block_size)
+                full, _ = self._tree.match(ids, skip * self.block_size)
+                if len(full) < skip:
+                    raise DedupStale(
+                        f"receiver holds {len(full)}/{skip} promised "
+                        "prefix blocks (evicted since the offer)")
+                for node in full:
+                    self._pool_alloc.retain(node.block)
+                    slot.table[slot.nblocks] = node.block
+                    slot.nblocks += 1
+            dsts = []
+            for _ in range(n - skip):
+                dsts.append(self._alloc_block(slot))
+                slot.table[slot.nblocks] = dsts[-1]
+                slot.nblocks += 1
+            # one graft for the whole chain
+            self._graft_fn(self._pool, m["blocks"], dsts)
+            self._tables_dirty = True
+            self._update_block_gauge()
+            if self._tree is not None:
+                # migrated prefixes are shareable at once: local requests
+                # with the same template attach by reference
+                created = self._tree.graft(
+                    ids, [int(b) for b in slot.table[:slot.nblocks]])
+                for node in created:
+                    self._pool_alloc.retain(node.block)
+                self._index_add(created)
+            gen = torch.Generator(device=self.device)
+            if m["key"].dtype == np.uint8:
+                gen.set_state(torch.from_numpy(m["key"].copy()))
+        except BaseException as e:  # noqa: BLE001 - bad import must not kill the loop
+            req.finish(error=e)
+            if rlog is not None:
+                rlog.retire(req.rid, "error")
+            with self._cond:
+                self._release_table(slot)
+                slot.clear()
+            return
+        graft_s = time.monotonic() - t_adm
+        mig_c = self.metrics.get("kv_migrated")
+        if mig_c is not None:
+            mig_c.inc(n - skip)
+        with self._cond:
+            self._kv_imports += 1
+            self._kv_blocks_in += n - skip
+            self._kv_blocks_deduped += skip
+        if rlog is not None:
+            rlog.migrated(req.rid, n - skip, graft_s)
+        if req.seated_cb is not None:
+            try:
+                req.seated_cb()
+            # the seated ack is a transport seam (a dead kvxfer socket);
+            # the seated request still decodes
+            except Exception:
+                log.exception("kvxfer seated callback failed")
+        first = int(m["first"])
+        slot.tokens = [first]
+        slot.last = first
+        slot.pos = int(ids.size)
+        slot.gen = gen
+        # the first token came from the prefill pod: stamp the seat time
+        # so TPOT still computes, but do NOT observe the TTFT histogram
+        req.ttft_s = time.monotonic() - req.t_submit \
+            if req.t_submit else None
+        if (req.eos_id is not None and first == req.eos_id) \
+                or req.max_new_tokens <= 1:
+            # the sender never migrates a finished generation, but a
+            # direct caller must not seat one the decode loop would
+            # over-emit for
+            self._retire(slot, req, slot.tokens,
+                         "eos" if req.eos_id is not None
+                         and first == req.eos_id else "max_tokens")
+            return
+        if req.speculative:
+            slot.ctx = [int(t) for t in ids] + [first]
+        slot.ready = True
+        with self._cond:
+            self._peak_active = max(
+                self._peak_active,
+                sum(1 for s in self._slots if not s.free))
 
     def _decode_step_all(self) -> None:
         """One batched step over every ready slot: ``k`` iterations (a

@@ -4,7 +4,8 @@
 The engine (models/engine.py) is a host-side scheduler (slot admission,
 block-pool bookkeeping, batch-plan construction over numpy) above a set
 of device bodies (batched decode step, speculative verify step, chunked
-prefill, copy-on-write).
+prefill, copy-on-write, and the block-chain gather and graft that
+migration and the spill tier ride).
 This module holds the bodies and the placement that runs them:
 
 - :class:`PagedCompute` — functions on tensors over the port's
@@ -33,7 +34,30 @@ import numpy as np
 import torch
 
 from k8s_tpu_torch.models.decode import sample_logits_rows, spec_verify_rows
+from k8s_tpu_torch.models.kvtier import BF16
 from k8s_tpu_torch.models.transformer import Transformer
+
+# the host dtype of each pool leaf dtype (a bf16 leaf travels as its bits)
+_HOST_DTYPES = {torch.float32: np.dtype(np.float32),
+                torch.float16: np.dtype(np.float16),
+                torch.bfloat16: BF16, torch.int8: np.dtype(np.int8)}
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The host (numpy) dtype a pool leaf of ``dtype`` exports as."""
+    return _HOST_DTYPES[dtype]
+
+
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a host array of the :meth:`PagedCompute.
+    gather_blocks` layout (:data:`kvtier.BF16` bits become bfloat16).
+    Read-only or strided arrays are copied first."""
+    arr = np.asarray(arr)
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = arr.copy()
+    if arr.dtype == BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class PagedCompute:
@@ -182,6 +206,53 @@ class PagedCompute:
                             mode="decode", cache=cache)
         nxt = sample_logits_rows(logits[:, -1], gens, temps, topks)
         return nxt[None, :].cpu().numpy()
+
+    @staticmethod
+    def pool_leaves(pool):
+        """``(path, leaf)`` for every pool leaf, named as the reference
+        names its pool pytree's leaves (``layer_<i>/attn/<k|v|k_scale|
+        v_scale>``): the keys of an exported chain on the wire."""
+        for i, node in enumerate(pool):
+            for name, leaf in node.items():
+                yield f"layer_{i}/attn/{name}", leaf
+
+    def gather_blocks(self, pool, idxs) -> dict:
+        """Export seam: the K/V(/scale) content of a block chain —
+        ``idxs`` is ``[n]`` pool block ids in table order — as flat host
+        arrays ``{path: [n, block_size, ...]}`` (the arrays the
+        kv-transfer plane ships and the spill tier stores).  Each leaf is
+        one ``index_select`` into a fresh tensor (a copy, never a view of
+        the pool); their bytes go to the host in one copy.  bf16 leaves
+        come back as :data:`kvtier.BF16` bit patterns."""
+        leaves = list(self.pool_leaves(pool))
+        dev = leaves[0][1].device
+        idx = torch.as_tensor(np.asarray(idxs), dtype=torch.long).to(dev)
+        parts = [leaf.index_select(0, idx) for _, leaf in leaves]
+        host = torch.cat([p.reshape(-1).view(torch.uint8)
+                          for p in parts]).cpu().numpy()
+        out, off = {}, 0
+        for (path, leaf), part in zip(leaves, parts):
+            n = part.numel() * part.element_size()
+            out[path] = host[off:off + n].view(
+                _HOST_DTYPES[leaf.dtype]).reshape(tuple(part.shape))
+            off += n
+        return out
+
+    @staticmethod
+    def graft_blocks(pool, values: dict, dsts):
+        """Import seam: write a chain's flat host arrays ``values`` (the
+        :meth:`gather_blocks` layout, off the wire or out of the spill
+        tier) into the freshly allocated local blocks ``dsts``: per leaf
+        one host-to-device copy, a cast to the leaf's dtype and one
+        ``index_copy_``.  Every ``dsts`` entry came off the free list at
+        refcount 1, so a graft never touches a block a live slot or the
+        tree shares."""
+        leaves = list(PagedCompute.pool_leaves(pool))
+        dev = leaves[0][1].device
+        idx = torch.as_tensor(np.asarray(dsts), dtype=torch.long).to(dev)
+        for path, leaf in leaves:
+            src = host_tensor(values[path]).to(dev)
+            leaf.index_copy_(0, idx, src.to(leaf.dtype))
 
     @staticmethod
     def cow(pool, src: int, dst: int):

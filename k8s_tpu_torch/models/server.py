@@ -21,10 +21,10 @@ Endpoints (JSON over HTTP/1.1, stdlib only):
 - ``POST /v1/generate`` with ``{"text": str | "tokens": [int], ...}`` ->
   ``{"text": str | "tokens": [int]}``.  Optional fields:
   ``max_new_tokens``, ``temperature``, ``top_k``, ``eos``, ``seed``,
-  ``speculative`` (draft_k: prompt-lookup speculative decoding).  Bad
-  input answers 400 with ``{"error": ..., "field": ...}`` naming the
-  field; a full admission queue answers 503 with a ``Retry-After``
-  header.
+  ``speculative`` (draft_k: prompt-lookup speculative decoding),
+  ``kv_dest`` and ``kv_src`` (below).  Bad input answers 400 with
+  ``{"error": ..., "field": ...}`` naming the field; a full admission
+  queue answers 503 with a ``Retry-After`` header.
 
 Device work goes through the continuous-batching engine
 (models/engine.py): greedy, sampled and speculative requests share one
@@ -43,9 +43,31 @@ through the flash-attention kernel when the config sets
 lane on sliding-window configs and for one-token prompts.  ``--slots 0``
 turns the engine off and restores the one-lock single-flight path.
 
-Not ported yet, each refused by name: disaggregated serving
-(``K8S_TPU_SERVE_ROLE``), mesh serving (``K8S_TPU_SERVE_MESH``) and the
-host spill tier (``K8S_TPU_SERVE_SPILL_MB``).
+Tiered KV memory and disaggregated serving, as in the reference:
+
+- ``--spill-mb`` / ``K8S_TPU_SERVE_SPILL_MB`` (``LmServer(spill_mb=)``)
+  gives the engine a host-RAM spill tier: evicted prefix blocks demote to
+  host memory and promote back on the next hit (models/kvtier.py).
+- ``--role prefill|decode`` / ``K8S_TPU_SERVE_ROLE`` makes the pod one
+  tier of a disaggregated deployment.  A decode-capable pod runs a
+  kv-transfer receiver (models/kvxfer.py; its port is
+  ``serving.kvxfer_port`` in ``/healthz``); a request carrying
+  ``kv_dest: "host:port"`` is prefilled here, its block chain shipped to
+  that receiver (deduplicated against the blocks the receiver already
+  holds unless ``--kvxfer-dedup 0``; int8 on the wire for fp pools with
+  ``--kvxfer-int8 1``) and decoded there, and the tokens come back
+  through this pod.  A bad ``kv_dest`` is a 400, a dead one a 502, and a
+  receiver out of pool blocks or queue room a 503 with ``Retry-After``.
+  A request carrying ``kv_src: "host:port"`` first fetches the prompt's
+  cached prefix chain from that pod's receiver (best-effort) and then
+  prefills only the rest.  ``serve_kv_prefix_cached{fp}`` advertises the
+  chain fingerprints this pod holds.
+
+What differs from the reference: the manifest carries the sampler
+generator's state instead of a threefry key (models/engine.py), and the
+hop is recorded in the request recorder's ``migrate`` phase only, with
+``trace_id`` null on the wire: span tracing is not ported.  Mesh serving
+(``K8S_TPU_SERVE_MESH``) is not ported yet and is refused by name.
 """
 
 from __future__ import annotations
@@ -54,7 +76,6 @@ import argparse
 import dataclasses
 import json
 import logging
-import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -65,7 +86,11 @@ import torch
 
 from k8s_tpu_torch.models import decode as decode_lib
 from k8s_tpu_torch.models import engine as engine_lib
+from k8s_tpu_torch.models import kvtier
+from k8s_tpu_torch.models import kvxfer as kvxfer_lib
 from k8s_tpu_torch.models import requestlog, serving
+from k8s_tpu_torch.models.paged import quantize_kv
+from k8s_tpu_torch.models.placement import host_tensor
 from k8s_tpu_torch.models.dataset import decode_bytes, encode_bytes
 from k8s_tpu_torch.models.transformer import Transformer
 from k8s_tpu_torch.ops._common import resolve_device
@@ -96,6 +121,12 @@ class ParsedRequest:
     eos: Optional[int]
     seed: int
     speculative: int                   # draft_k; 0 = off
+    # disaggregated serving: the decode pod's kv-transfer address
+    # (host:port) for a phase-split request; None = serve here
+    kv_dest: Optional[str] = None
+    # fleet prefix fetch-on-miss: the kv-transfer address of a pod that
+    # caches this prompt's prefix chain; best-effort, None = no holder
+    kv_src: Optional[str] = None
 
 
 def parse_request(config, req: dict, default_max_new_tokens: int
@@ -153,10 +184,24 @@ def parse_request(config, req: dict, default_max_new_tokens: int
     if spec != 0 and spec < 2:
         raise RequestError("speculative",
                            "speculative must be >= 2 (0 disables)")
+
+    def kv_addr(key):
+        val = req.get(key)
+        if val is None:
+            return None
+        if not isinstance(val, str):
+            raise RequestError(key, f'"{key}" must be a string')
+        try:
+            kvxfer_lib.parse_dest(val)
+        except ValueError as e:
+            raise RequestError(key, str(e))
+        return val
+
     return ParsedRequest(
         ids=ids, echo_text=req["text"] if has_text else None,
         max_new_tokens=max_new, temperature=temperature, top_k=top_k,
-        eos=eos, seed=seed, speculative=spec)
+        eos=eos, seed=seed, speculative=spec, kv_dest=kv_addr("kv_dest"),
+        kv_src=kv_addr("kv_src"))
 
 
 def _emitted(toks, eos) -> int:
@@ -171,11 +216,6 @@ def _emitted(toks, eos) -> int:
 def _refuse_later_slices() -> None:
     """The serving features of later slices, refused by name when their
     knobs are set."""
-    role = os.environ.get("K8S_TPU_SERVE_ROLE", "").strip().lower()
-    if role in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"K8S_TPU_SERVE_ROLE={role}: disaggregated serving (kvxfer) "
-            "is not ported yet; unset it to serve both phases")
     if engine_lib._env_int("K8S_TPU_SERVE_MESH", 0) > 0:
         raise NotImplementedError(
             "K8S_TPU_SERVE_MESH: mesh serving comes with the parallel/ "
@@ -196,7 +236,11 @@ class LmServer:
                  prefix_blocks: Optional[int] = None,
                  batch_sampling: Optional[bool] = None,
                  batch_spec: Optional[bool] = None, registry=None,
-                 device="cuda"):
+                 role: Optional[str] = None,
+                 kvxfer_port: Optional[int] = None,
+                 kvxfer_int8: Optional[bool] = None,
+                 spill_mb: Optional[int] = None,
+                 kvxfer_dedup: Optional[bool] = None, device="cuda"):
         _refuse_later_slices()
         self.device = resolve_device(device)
         if train_dir is not None:
@@ -224,7 +268,7 @@ class LmServer:
             self.engine: Optional[engine_lib.Engine] = engine_lib.Engine(
                 config, params, slots=slots, queue_limit=queue_limit,
                 prefix_blocks=prefix_blocks, metrics=self.metrics,
-                device=self.device)
+                spill_mb=spill_mb, device=self.device)
             # the exclusive lane runs on the engine's model
             self.model = self.engine.model
         else:
@@ -232,10 +276,66 @@ class LmServer:
             self.engine = None
             self.model = Transformer(config, params, device=self.device)
         self._lock = threading.Lock()
+        # disaggregated tier membership: a prefill pod never seats
+        # migrated requests; a decode pod always runs a kv-transfer
+        # receiver (an ephemeral port unless one is given: read it back
+        # from serving_info)
+        self.role = kvxfer_lib.env_role() if role is None else role
+        if self.role not in ("", kvxfer_lib.ROLE_PREFILL,
+                             kvxfer_lib.ROLE_DECODE):
+            raise ValueError(f"role must be prefill/decode/'' "
+                             f"(got {self.role!r})")
+        self.kvxfer_int8 = kvxfer_lib.env_kvxfer_int8() \
+            if kvxfer_int8 is None else bool(kvxfer_int8)
+        # migration dedup, on by default: a peer without it interoperates
+        # through the legacy fallback either way
+        self.kvxfer_dedup = kvxfer_lib.env_kvxfer_dedup() \
+            if kvxfer_dedup is None else bool(kvxfer_dedup)
+        if kvxfer_port is None:
+            kvxfer_port = kvxfer_lib.env_kvxfer_port()
+        self._kv_receiver = None
+        self._kv_sender = None
+        if self.engine is not None and self.engine.disagg_capable:
+            if self.role != kvxfer_lib.ROLE_PREFILL and (
+                    kvxfer_port is not None
+                    or self.role == kvxfer_lib.ROLE_DECODE):
+                self._kv_receiver = kvxfer_lib.KvReceiver(
+                    self._seat_migrated, host="0.0.0.0",
+                    port=kvxfer_port or 0,
+                    index_fn=(self.engine.dedup_have
+                              if self.kvxfer_dedup else None),
+                    fetch_fn=self._serve_fetch)
+            if self.role != kvxfer_lib.ROLE_DECODE:
+                self._kv_sender = kvxfer_lib.KvSender()
+        # fleet prefix index: the chain fingerprints this pod holds (tree
+        # and spill tier), one labeled gauge sample each; rebound to this
+        # server like queue_depth (the registry dedupes by name)
+        proxy = self.registry.register(metrics_mod.ProxyMetric(
+            "serve_kv_prefix_cached",
+            "Chain fingerprints this pod can serve by reference or "
+            "re-promote (radix tree + host spill tier), one labeled "
+            "sample per fingerprint.", "gauge", None))
+        proxy._sample_fn = self._sample_prefix_index
+        self._prefix_index_proxy = proxy
+
+    def _sample_prefix_index(self, name: str):
+        """Exposition lines of the fleet prefix index family: one
+        ``{fp="..."} 1`` sample per advertised chain fingerprint, none
+        without a paged engine."""
+        if self.engine is None or not self.engine.paged:
+            return
+        for fp in self.engine.prefix_index():
+            yield f'{name}{{fp="{fp}"}} 1'
 
     def close(self) -> None:
         if self.metrics["queue_depth"]._fn == self.queue_depth:
             self.metrics["queue_depth"]._fn = None
+        if self._prefix_index_proxy._sample_fn == self._sample_prefix_index:
+            self._prefix_index_proxy._sample_fn = None
+        if self._kv_receiver is not None:
+            self._kv_receiver.stop()
+        if self._kv_sender is not None:
+            self._kv_sender.close()
         if self.engine is not None:
             self.engine.shutdown()
 
@@ -252,7 +352,7 @@ class LmServer:
         """Engine occupancy for /healthz (shedding is NOT unreadiness)."""
         if self.engine is None:
             return {"engine": "single-flight", "slots": 0, "queue_depth": 0,
-                    "device": str(self.device)}
+                    "role": self.role, "device": str(self.device)}
         s = self.engine.stats()
         return {"engine": "continuous-batching", "slots": s["slots"],
                 "placement": s["placement"],
@@ -274,7 +374,199 @@ class LmServer:
                 "spec_accepted": s["spec_accepted"],
                 "spec_mean_accepted": s["spec_mean_accepted"],
                 "request_log": s["request_log"],
+                # disaggregated tier: role, the kv-transfer listener
+                # (decode-capable pods) and the migration counters
+                "role": self.role,
+                "kvxfer_port": self._kv_receiver.port
+                if self._kv_receiver is not None else None,
+                "kvxfer_int8": self.kvxfer_int8,
+                "kv_exports": s["kv_exports"],
+                "kv_imports": s["kv_imports"],
+                "kv_blocks_out": s["kv_blocks_out"],
+                "kv_blocks_in": s["kv_blocks_in"],
+                # tiered KV memory: spill tier occupancy, dedup savings
+                # and fleet fetch imports
+                "kvxfer_dedup": self.kvxfer_dedup,
+                "spill_enabled": s["spill_enabled"],
+                "spill_blocks": s["spill_blocks"],
+                "spill_bytes": s["spill_bytes"],
+                "spill_demotions": s["spill_demotions"],
+                "spill_promotions": s["spill_promotions"],
+                "spill_evictions": s["spill_evictions"],
+                "kv_blocks_deduped": s["kv_blocks_deduped"],
+                "kv_prefix_fetched": s["kv_prefix_fetched"],
                 "device": str(self.device)}
+
+    # -- disaggregated prefill/decode ----------------------------------
+
+    def _wire_blocks(self, export: dict) -> tuple[dict, bool]:
+        """The export manifest's block arrays as wire arrays: int8 and
+        bf16 pools ship their native leaves bit-exact; fp pools optionally
+        quantize k/v content for transit through the one ``quantize_kv``
+        (``kvxfer_int8``: lossy, less wire).  Which leaves quantize is
+        the spill tier's rule (``kvtier._is_kv_leaf``), the reference's
+        test."""
+        blocks = export["blocks"]
+        if not self.kvxfer_int8:
+            return ({f"blk/{p}": a for p, a in blocks.items()}, False)
+        out: dict = {}
+        quantized = False
+        for path, arr in blocks.items():
+            if kvtier._is_kv_leaf(path, arr.dtype):
+                q, scale = quantize_kv(host_tensor(arr))
+                out[f"blk/{path}"] = q.numpy()
+                out[f"blkscale/{path}"] = scale.numpy()
+                quantized = True
+            else:
+                out[f"blk/{path}"] = arr
+        return out, quantized
+
+    @staticmethod
+    def _unwire_blocks(arrays: dict, wire_int8: bool) -> dict:
+        """Receiver-side inverse of :meth:`_wire_blocks`: dequantize
+        wire-int8 content to f32 (the graft casts to the pool dtype);
+        bit-exact passthrough otherwise."""
+        out: dict = {}
+        for name, arr in arrays.items():
+            if not name.startswith("blk/"):
+                continue
+            path = name[len("blk/"):]
+            scale = arrays.get(f"blkscale/{path}")
+            if wire_int8 and scale is not None:
+                out[path] = (arr.astype(np.float32)
+                             * scale[..., None].astype(np.float32))
+            else:
+                out[path] = arr
+        return out
+
+    def _serve_fetch(self, statics: dict, arrays: dict
+                     ) -> Optional[tuple[dict, dict]]:
+        """The receiver's fetch seam: serve a peer's fetch-on-miss from
+        this pod's cached prefix chain (tree blocks + spill payloads),
+        wire-encoded like a migration export; None = nothing cached (the
+        peer re-prefills)."""
+        if self.engine is None or not self.engine.paged:
+            return None
+        manifest = self.engine.fetch_prefix(
+            np.asarray(arrays["ids"], np.int32))
+        if manifest is None or not manifest["n_blocks"]:
+            return None
+        wire, quantized = self._wire_blocks(manifest)
+        return ({"v": kvxfer_lib.PROTOCOL_VERSION,
+                 "wire_int8": quantized,
+                 "n_blocks": manifest["n_blocks"],
+                 "block_size": manifest["block_size"]}, wire)
+
+    def _fetch_on_miss(self, parsed: ParsedRequest) -> int:
+        """Requester side of fleet fetch-on-miss: pull the prompt's
+        cached prefix chain from ``parsed.kv_src`` and graft it here, so
+        the submit right after attaches it as a tree hit.  Best-effort:
+        any shortfall or transport failure returns 0 and the request
+        re-prefills."""
+        engine = self.engine
+        bs = engine.block_size
+        fps = kvtier.chain_fingerprints(
+            parsed.ids, bs, max_blocks=(int(parsed.ids.size) - 1) // bs)
+        if not fps or engine.dedup_have(fps) >= len(fps):
+            return 0  # nothing fetchable, or already cached here
+        try:
+            statics, arrays = self._kv_sender.fetch(
+                parsed.kv_src, {"v": kvxfer_lib.PROTOCOL_VERSION},
+                {"ids": np.asarray(parsed.ids, np.int32)})
+            n = int(statics.get("n_blocks") or 0)
+            if n <= 0:
+                return 0
+            blocks = self._unwire_blocks(arrays,
+                                         bool(statics.get("wire_int8")))
+            return engine.import_prefix(parsed.ids, blocks, n)
+        except Exception as e:  # noqa: BLE001 - fetch is an optimization, never an error
+            log.debug("kv fetch-on-miss from %s failed: %s",
+                      parsed.kv_src, e)
+            return 0
+
+    def _seat_migrated(self, statics: dict, arrays: dict,
+                       on_seated) -> list[int]:
+        """The receiver's seam onto the engine: rebuild the flat block
+        manifest from the wire and seat the request; typed refusals
+        (PoolExhausted, QueueFull, ValueError, DedupStale) travel back to
+        the sender as error frames."""
+        req = statics.get("req") or {}
+        blocks = self._unwire_blocks(arrays,
+                                     bool(statics.get("wire_int8")))
+        return self.engine.submit_prefilled(
+            np.asarray(arrays["ids"], np.int32), blocks,
+            skip=int(statics.get("skip") or 0),
+            first_token=int(req["first"]),
+            key=arrays["key"],
+            max_new_tokens=int(req["max_new_tokens"]),
+            eos_id=req.get("eos"),
+            temperature=float(req.get("temperature") or 0.0),
+            top_k=req.get("top_k"),
+            speculative=int(req.get("speculative") or 0),
+            block_size=req.get("block_size"),
+            trace_id=statics.get("trace_id"),
+            seated=on_seated)
+
+    def _generate_disagg(self, parsed: ParsedRequest) -> list[int]:
+        """The phase-split path: prefill-only here (no decode slot held),
+        stream the block chain to ``parsed.kv_dest``, and return the
+        decode pod's tokens.  The request's timeline closes with the hop
+        billed to its ``migrate`` phase."""
+        export = self.engine.prefill_export(
+            parsed.ids, parsed.max_new_tokens, eos_id=parsed.eos,
+            temperature=parsed.temperature, top_k=parsed.top_k,
+            seed=parsed.seed, speculative=parsed.speculative)
+        if export["done"]:
+            return export["tokens"]
+        rid = export.get("rid")
+        rlog = self.engine._reqlog
+        try:
+            wire, quantized = self._wire_blocks(export)
+            wire["ids"] = np.asarray(export["ids"], np.int32)
+            wire["key"] = export["key"]
+            statics = {
+                "v": kvxfer_lib.PROTOCOL_VERSION,
+                "wire_int8": quantized,
+                "trace_id": None,
+                "req": {
+                    "first": export["first"],
+                    "max_new_tokens": parsed.max_new_tokens,
+                    "eos": parsed.eos,
+                    "temperature": parsed.temperature,
+                    "top_k": parsed.top_k,
+                    "speculative": parsed.speculative,
+                    "block_size": export["block_size"],
+                },
+            }
+            # migration dedup: offer the chain's cumulative block
+            # fingerprints, so the receiver claims the blocks it already
+            # holds and the wire ships only the rest
+            fps = None
+            info: dict = {}
+            if self.kvxfer_dedup:
+                ids = export["ids"]
+                # offer only blocks the receiver may skip: the last
+                # prompt token's block is never tree-shareable
+                fps = kvtier.chain_fingerprints(
+                    ids, export["block_size"],
+                    max_blocks=(len(ids) - 1) // export["block_size"])
+            tokens, seated_s = self._kv_sender.migrate(
+                parsed.kv_dest, statics, wire, fingerprints=fps,
+                info=info)
+            skipped = int(info.get("skipped_blocks") or 0)
+            if skipped:
+                self.metrics["kvxfer_dedup_skipped"].inc(skipped)
+            self.metrics["kv_migrate"].observe(seated_s)
+            if rlog is not None:
+                rlog.migrate_send(rid, export["n_blocks"] - skipped,
+                                  seated_s, dest=parsed.kv_dest)
+                rlog.retire(rid, "migrated", tokens=len(tokens))
+            return tokens
+        except BaseException:
+            # the export timeline must not stay live on a failed hop
+            if rlog is not None:
+                rlog.retire(rid, "error")
+            raise
 
     def generate(self, parsed: ParsedRequest) -> dict:
         """One validated generation request.  May raise engine.QueueFull
@@ -290,7 +582,22 @@ class LmServer:
                         and parsed.ids.size >= 2)
         use_batched = (parsed.speculative == 0 or spec_batched) and (
             parsed.temperature == 0.0 or self.batch_sampling)
-        if self.engine is not None and use_batched:
+        if parsed.kv_src and not parsed.kv_dest \
+                and self._kv_sender is not None \
+                and self.engine is not None and self.engine.paged:
+            # fleet fetch-on-miss: a peer caches this prompt's prefix
+            # chain; graft it here first so the prefill attaches it
+            self._fetch_on_miss(parsed)
+        if parsed.kv_dest and self._kv_sender is not None \
+                and self.engine is not None and self.engine.paged \
+                and use_batched:
+            # disaggregated phase split: prefill here, decode on the
+            # kv_dest peer.  A kv_dest on a pod that cannot send (decode
+            # role, windowed engine), or a request the lane-routing knobs
+            # send to the exclusive lane (migration seats batched lanes
+            # only), serves here instead
+            toks = self._generate_disagg(parsed)
+        elif self.engine is not None and use_batched:
             toks = self.engine.submit(parsed.ids, parsed.max_new_tokens,
                                       eos_id=parsed.eos,
                                       temperature=parsed.temperature,
@@ -463,6 +770,18 @@ class _Handler(BaseHTTPRequestHandler):
                 503, {"error": str(e)},
                 headers={"Retry-After":
                          str(max(1, int(round(e.retry_after_s))))})
+        except kvxfer_lib.KvTransferError as e:
+            # receive-side backpressure (pool exhausted / queue full on
+            # the decode peer) is a shed, not an error: the router's retry
+            # walk re-places the request; anything else (dead peer,
+            # protocol) is a 502-class failure the router walks past too
+            if e.kind in ("pool_exhausted", "queue_full"):
+                m["requests"].labels("rejected").inc()
+                return self._send(503, {"error": str(e)},
+                                  headers={"Retry-After": "1"})
+            log.warning("kv migration failed: %s", e)
+            m["requests"].labels("error").inc()
+            return self._send(502, {"error": f"kv migration: {e}"})
         except ValueError as e:
             m["requests"].labels("bad_request").inc()
             return self._send(400, {"error": str(e)})
@@ -521,6 +840,31 @@ def main(argv=None) -> int:
                    "slot lanes (variable-width verify chunks; default "
                    "K8S_TPU_SERVE_BATCH_SPEC or 1; 0 = the exclusive "
                    "lane)")
+    p.add_argument("--role", choices=("prefill", "decode"), default=None,
+                   help="disaggregated tier membership (default "
+                   "K8S_TPU_SERVE_ROLE; unset = collapsed single-role "
+                   "pod serving both phases)")
+    p.add_argument("--kvxfer-port", type=int, default=None,
+                   help="KV block-transfer listener port on decode-"
+                   "capable pods (default K8S_TPU_KVXFER_PORT; 0 = "
+                   "ephemeral; decode-role pods always listen)")
+    p.add_argument("--kvxfer-int8", type=int, choices=(0, 1),
+                   default=None,
+                   help="quantize fp-pool KV content to int8 for "
+                   "transit (default K8S_TPU_KVXFER_INT8 or 0; lossy "
+                   "on fp pools, no-op on int8 pools)")
+    p.add_argument("--spill-mb", type=int, default=None,
+                   help="host-RAM KV spill tier budget in MiB: evicted "
+                   "prefix-tree leaves demote to quantized host buffers "
+                   "and re-promote on the next hit instead of "
+                   "re-prefilling (default K8S_TPU_SERVE_SPILL_MB or 0 "
+                   "= off)")
+    p.add_argument("--kvxfer-dedup", type=int, choices=(0, 1),
+                   default=None,
+                   help="fingerprint-dedup the kv migration wire: skip "
+                   "blocks the receiver already holds in-tree or "
+                   "in-spill (default K8S_TPU_KVXFER_DEDUP or 1; "
+                   "legacy peers interoperate either way)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
     args = p.parse_args(argv)
@@ -533,7 +877,13 @@ def main(argv=None) -> int:
                   batch_sampling=None if args.batch_sampling is None
                   else bool(args.batch_sampling),
                   batch_spec=None if args.batch_spec is None
-                  else bool(args.batch_spec), device=args.device)
+                  else bool(args.batch_spec),
+                  role=args.role, kvxfer_port=args.kvxfer_port,
+                  kvxfer_int8=None if args.kvxfer_int8 is None
+                  else bool(args.kvxfer_int8),
+                  spill_mb=args.spill_mb,
+                  kvxfer_dedup=None if args.kvxfer_dedup is None
+                  else bool(args.kvxfer_dedup), device=args.device)
     httpd = serve(lm, args.host, args.port)
     host, port = httpd.server_address[:2]
     log.info("serving %s on http://%s:%d (POST /v1/generate)",

@@ -1,9 +1,10 @@
 """Prometheus-style metrics: the port's own copy of the parts of
 ``k8s_tpu/util/metrics.py`` the server uses — Counter, Gauge, Histogram,
-``Registry.expose`` (text exposition format 0.0.4) and the serving
-families of the single-flight lane and the continuous-batching engine,
-its batched speculative lane included (the reference's names and help
-text; its kv-transfer families are left out with that feature)."""
+ProxyMetric, ``Registry.expose`` (text exposition format 0.0.4) and the
+serving families of the single-flight lane, the continuous-batching
+engine with its batched speculative lane, disaggregated migration and
+the tiered KV memory (the reference's names and help text, so a fleet
+scraper reads a port pod as it reads a JAX pod)."""
 
 from __future__ import annotations
 
@@ -209,6 +210,25 @@ class Histogram(_Metric):
         yield f"{self.name}_count{plain} {count}"
 
 
+class ProxyMetric(_Metric):
+    """A metric whose samples are computed at collect time:
+    ``sample_fn(name)`` yields fully formatted exposition lines (labeled
+    families such as the fleet prefix index)."""
+
+    def __init__(self, name, help_text, kind, sample_fn):
+        super().__init__(name, help_text)
+        self.kind = kind
+        self._sample_fn = sample_fn
+
+    def collect(self):
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} {self.kind}"
+        # sample_fn may be rebound (latest registrant wins) and released
+        # to None on close: an unbound proxy exposes an empty family
+        if self._sample_fn is not None:
+            yield from self._sample_fn(self.name)
+
+
 class Registry:
     def __init__(self):
         self._lock = threading.Lock()
@@ -249,8 +269,9 @@ def serving_metrics(registry: Registry) -> dict:
     backpressure rejections, emitted tokens, batch occupancy, admission
     queue depth (a callable gauge its server binds), end-to-end request
     latency, the paged KV cache's prefix-reuse counters and block gauge,
-    the speculative lane's proposed/accepted draft counters, and the
-    per-request phase histograms."""
+    the speculative lane's proposed/accepted draft counters, the
+    per-request phase histograms, and the migration and spill-tier
+    families."""
     r = registry
     return {
         "requests": r.counter(
@@ -347,5 +368,42 @@ def serving_metrics(registry: Registry) -> dict:
             "Admissions whose prefill ran while >= 1 decode-ready slot "
             "waited (the prefill convoy: decode stalled behind another "
             "request's prefill).",
+        ),
+        # -- disaggregated prefill/decode migration -------------------------
+        "kv_migrated": r.counter(
+            "serve_kv_blocks_migrated_total",
+            "KV blocks grafted into this pod's pool from a prefill-tier "
+            "peer (counted on the RECEIVING decode pod).",
+        ),
+        "kv_migrate": r.histogram(
+            "serve_kv_migrate_seconds",
+            "Cross-pod KV migration latency on the SENDING prefill pod: "
+            "block-chain send to the decode pod's seated ack (transfer "
+            "+ graft, decode excluded).",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 1.0, 2.5),
+        ),
+        # -- tiered KV memory hierarchy -------------------------------------
+        "kv_spilled_blocks": r.gauge(
+            "serve_kv_spilled_blocks",
+            "KV blocks resident in the host-RAM spill tier (evicted "
+            "prefix-tree leaves demoted instead of dropped), sampled "
+            "after each demote/promote.",
+        ),
+        "kv_spill_bytes": r.gauge(
+            "serve_kv_spill_bytes",
+            "Host bytes held by the spill tier (quantized payloads), "
+            "bounded by K8S_TPU_SERVE_SPILL_MB.",
+        ),
+        "kv_promotions": r.counter(
+            "serve_kv_promotions_total",
+            "Spilled KV blocks promoted back into the device pool on a "
+            "prefix hit (each one a block-sized re-prefill avoided).",
+        ),
+        "kvxfer_dedup_skipped": r.counter(
+            "serve_kvxfer_dedup_blocks_skipped_total",
+            "KV blocks the migration wire skipped because the receiver "
+            "already held them in-tree or in-spill (counted on the "
+            "SENDING pod after the offer/need handshake).",
         ),
     }

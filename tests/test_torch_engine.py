@@ -559,24 +559,48 @@ class TestLifecycle:
         assert eng.submit(prompt_of(3), 2, timeout=WAIT)
         assert eng.stats()["completed"] == 2
 
-    @pytest.mark.parametrize("call", [
-        lambda e: e.prefill_export(prompt_of(3), 2),
-        lambda e: e.submit_prefilled({}),
-        lambda e: e.prefix_index(),
-        lambda e: e.dedup_have([]),
-        lambda e: e.fetch_prefix(None),
-        lambda e: e.import_prefix(None),
+    @pytest.mark.parametrize("call,paged,windowed", [
+        # each seam runs on a paged engine; on a windowed one it does
+        # what the reference's does: refuse, or report nothing cached
+        (lambda e: e.prefill_export(prompt_of(20), 2, timeout=WAIT),
+         lambda r: r["n_blocks"] == 3 and not r["done"], "paged"),
+        (lambda e: e.submit_prefilled(
+            prompt_of(20), e._gather_fn(e._pool, [1, 2, 3])
+            if e.paged else {}, first_token=5,
+            key=np.zeros(2, np.uint32), max_new_tokens=3, timeout=WAIT),
+         lambda r: len(r) == 3 and r[0] == 5, "paged"),
+        (lambda e: e.prefix_index(), lambda r: r == [], []),
+        (lambda e: e.dedup_have(["a"]), lambda r: r == 0, 0),
+        (lambda e: e.fetch_prefix(prompt_of(20), timeout=WAIT),
+         lambda r: r is None, None),
+        (lambda e: e.import_prefix(prompt_of(20), {}, 0),
+         lambda r: r == 0, 0),
     ], ids=["prefill_export", "submit_prefilled",
             "prefix_index", "dedup_have", "fetch_prefix", "import_prefix"])
-    def test_later_slices_refused_by_name(self, make, call):
-        eng = make()
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call(eng)
+    def test_later_slices_refused_by_name(self, make, call, paged, windowed):
+        """The disaggregation seams, ported: each runs on a paged engine,
+        and a windowed one (dense rows, nothing to export) refuses with
+        the reference's ValueError or answers nothing cached."""
+        assert paged(call(make("prefix")))
+        eng = make("window")
+        if windowed == "paged":
+            with pytest.raises(ValueError, match="paged"):
+                call(eng)
+        else:
+            assert call(eng) == windowed
 
     def test_spill_tier_and_mesh_refused(self, params, monkeypatch):
+        """The spill tier is ported (``K8S_TPU_SERVE_SPILL_MB`` turns it
+        on and stats() reports it); mesh placements stay refused."""
         monkeypatch.setenv("K8S_TPU_SERVE_SPILL_MB", "16")
-        with pytest.raises(NotImplementedError, match="spill"):
-            Engine(configs("default")[1], params[1], slots=1, device="cpu")
+        eng = Engine(configs("default")[1], params[1], slots=1,
+                     device="cpu")
+        try:
+            st = eng.stats()
+            assert st["spill_enabled"] and st["spill_blocks"] == 0
+            assert eng._spill.budget_bytes == 16 << 20
+        finally:
+            eng.shutdown()
         monkeypatch.delenv("K8S_TPU_SERVE_SPILL_MB")
         with pytest.raises(NotImplementedError, match="parallel/"):
             Engine(configs("default")[1], params[1], slots=1, device="cpu",
@@ -676,14 +700,13 @@ class TestEnvKnobs:
 
 
 def test_stats_keys_are_the_references_for_ported_features(make, params):
-    """Every stats() key of the reference's that is not a later slice's
-    (disaggregated, spill) is here, with the same meaning."""
+    """Every stats() key of the reference's is here, with the same
+    meaning, the disaggregation and spill-tier keys included."""
     eng = make()
     jeng = jax_engine.Engine(configs("default")[0], params[0], slots=2,
                              queue_limit=32)
     try:
-        later = ("kv_", "spill_")
-        want = {k for k in jeng.stats() if not k.startswith(later)}
+        want = set(jeng.stats())
     finally:
         jeng.shutdown()
     assert want <= set(eng.stats())

@@ -325,11 +325,10 @@ def test_env_batch_spec(monkeypatch):
 
 def test_spec_metric_families_are_the_references():
     """Every serving family of the reference's is the port's, name and
-    help text, but those of the unported kv-transfer and spill tiers."""
+    help text, the kv-transfer and spill tiers' included."""
     ref = jax_metrics.serving_metrics(jax_metrics.Registry())
     got = metrics_mod.serving_metrics(metrics_mod.Registry())
-    later = {k for k in ref if k.startswith(("kv_", "kvxfer_"))}
-    assert set(got) == set(ref) - later
+    assert set(got) == set(ref)
     for key in got:
         assert (got[key].name, got[key].help) == \
             (ref[key].name, ref[key].help), key

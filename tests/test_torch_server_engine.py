@@ -337,16 +337,30 @@ def test_metrics_carry_the_engine_families(servers):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"K8S_TPU_SERVE_ROLE": "prefill"}, "disaggregated"),
+    ({"K8S_TPU_SERVE_ROLE": "prefill"}, ("role", "prefill")),
     ({"K8S_TPU_SERVE_MESH": "2"}, "parallel/"),
-    ({"K8S_TPU_SERVE_SPILL_MB": "64"}, "spill"),
+    ({"K8S_TPU_SERVE_SPILL_MB": "64"}, ("spill_enabled", True)),
 ], ids=["role", "mesh", "spill"])
 def test_later_slices_refused_by_name(model, monkeypatch, env, match):
+    """Mesh serving is still refused by name; the role and spill knobs
+    are ported: the server constructs and reports them in /healthz."""
     _, ct, _, sd = model
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        LmServer(config=ct, params=sd, device="cpu")
+    if isinstance(match, str):
+        with pytest.raises(NotImplementedError, match=match):
+            LmServer(config=ct, params=sd, device="cpu")
+        return
+    lm = LmServer(config=ct, params=sd, device="cpu")
+    httpd = serve(lm)
+    try:
+        url = "http://%s:%d" % httpd.server_address[:2]
+        info = json.loads(_get(url, "/healthz")[1])["serving"]
+        assert info[match[0]] == match[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        lm.close()
 
 
 def test_slots_default_from_env(model, monkeypatch):
