@@ -74,6 +74,25 @@ Phases, each fatal on failure:
    RMSNorm kernel with exact launch counts.  ``python -m
    k8s_tpu_torch.serve_lm`` runs ``--beam``, ``--chunked_prefill`` and
    ``--speculative`` on the exported artifact with exact launch counts.
+7. MoE, tracing, data: ``moe_parity`` (the tiny model with 4 experts,
+   top-2, f32: greedy tokens, logits, 3 steps of ``make_moe_apply_fn``
+   training, aux losses and per-expert kept pairs on cuda against cpu);
+   ``moe_serve``, last (after the Llama-width weights are freed, and
+   its profiler session after every host clock): Llama-3-8B's
+   attention and vocabulary with Mixtral-8x7B's expert layout (8 experts
+   of 4096 -> 14336, top-2), cut to 20 layers, behind ``LmServer(slots=4)``
+   with span tracing on: 8 concurrent requests, prefix-hit repeats, a
+   single-flight sampled request (K2 in its prefill), a W3C traceparent
+   whose trace ``/debug/traces`` shows (serve_request, prefill under it,
+   decode_step spans), the drop share at decode, step time with tracing
+   at 0 and 1 in turns, a decode call's device time against its host
+   wall, exact K1 (2·20+1 a model call) and K2 launches; ``moe_train``:
+   the same layout cut to 2 layers trains 3 steps (B1 L2048) on batches
+   ``TokenDataset`` reads from a corpus ``write_text_corpus`` wrote, exact
+   K1-K4 launches; ``data``: ``train_lm.main --data_dir`` at gpt2-small, 6
+   steps with checkpoints and a held-out eval every 3, exact launches,
+   then a run resumed from step 3 whose losses equal the uninterrupted
+   run's.
 
 Prints the card line first, one JSON object per phase and case, then a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -661,10 +680,12 @@ def parity(torch, tlib, bridge, decode):
 # -- phase 5: the served main path ------------------------------------------
 
 
-def http(url: str, payload=None, timeout: float = 600.0):
+def http(url: str, payload=None, timeout: float = 600.0,
+         headers: dict | None = None):
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(
-        url, data=data, headers={"Content-Type": "application/json"},
+        url, data=data,
+        headers={"Content-Type": "application/json", **(headers or {})},
         method="GET" if payload is None else "POST")
     t0 = time.perf_counter()
     try:
@@ -1493,7 +1514,7 @@ def migration_stages(torch, kvxfer, placement, eng, ids, reps=3):
     return out
 
 
-def serve_disagg(torch, tlib, server, common, requestlog, sd):
+def serve_disagg(torch, tlib, server, common, requestlog, sd, trace):
     """Disaggregated serving at the served width, on the served weights:
     two ``LmServer(slots=4)`` in this process, ``role="prefill"`` and
     ``role="decode"``, each with its own engine and pool (weights shared
@@ -1510,7 +1531,9 @@ def serve_disagg(torch, tlib, server, common, requestlog, sd):
     prefill server: a hit, and a tail-only prefill.  Counters zeroed
     just before the kv_dest requests and read after the fetch: RMSNorm
     at 2·32+1 launches per model call of both engines, no flash kernel.
-    Then each stage of a 509-token migration is timed on its own."""
+    Then one more migration under a caller's W3C traceparent, tracing on
+    (``traced_migration``: its ``kv_migrate`` span and the frame's trace
+    id), and each stage of a 509-token migration timed on its own."""
     import threading
 
     from k8s_tpu_torch.models import kvxfer, placement
@@ -1598,6 +1621,8 @@ def serve_disagg(torch, tlib, server, common, requestlog, sd):
         mig = pre.metrics["kv_migrate"]._default_child()
         rx_stats = dec._kv_receiver.stats()
         tx_stats = pre._kv_sender.stats()
+        traced = traced_migration(trace, purl, dec, prompts[2], kv_dest, new,
+                                  local[2])
         stages = migration_stages(torch, kvxfer, placement, pre.engine,
                                   prompts[-1])
         for lm in (pre, dec):
@@ -1663,6 +1688,7 @@ def serve_disagg(torch, tlib, server, common, requestlog, sd):
            "receiver": rx_stats, "sender": tx_stats,
            "kv_src_fetch": {"blocks": got_f, "tokens_saved": saved_f,
                             "tokens": fetched},
+           "traced_migration": traced,
            "prefill_serving": {k: text[k] for k in (
                "role", "kv_exports", "kv_blocks_out", "kv_prefix_fetched")},
            "model_calls": calls,
@@ -2179,6 +2205,743 @@ def llama_width_training(torch, tlib, bridge, train_lib, common):
     return launches
 
 
+# -- phase 7: tracing, the MoE Transformer and the token-shard dataset --------
+
+
+TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+TRACE_PARENT = "00f067aa0ba902b7"
+TRACEPARENT = f"00-{TRACE_ID}-{TRACE_PARENT}-01"
+
+
+def trace_spans(url: str, trace_id: str = TRACE_ID) -> list[dict]:
+    """Every span of ``trace_id`` in the server's ``/debug/traces``, as
+    ``{"name", "parent", "attributes", "duration_ms"}`` with the parent's
+    name (``<inbound>`` for the caller's span)."""
+    code, body, _ = http(url + "/debug/traces?n=1000000")
+    if code != 200:
+        fail(f"/debug/traces answered {code}")
+
+    def walk(node):
+        yield node
+        for c in node["children"]:
+            yield from walk(c)
+    spans = [s for t in body["traces"] for s in walk(t)]
+    names = {s["span_id"]: s["name"] for s in spans}
+    names[TRACE_PARENT] = "<inbound>"
+    return [{"name": s["name"], "parent": names.get(s["parent_id"]),
+             "attributes": s["attributes"], "duration_ms": s["duration_ms"]}
+            for s in spans if s["trace_id"] == trace_id]
+
+
+def need_spans(spans: list, pairs, what: str) -> None:
+    have = {(s["name"], s["parent"]) for s in spans}
+    missing = [p for p in pairs if p not in have]
+    if missing:
+        fail(f"{what}: trace {TRACE_ID} lacks {missing}; it holds "
+             f"{sorted(have, key=str)}")
+
+
+def traced_migration(trace, purl, dec, prompt, kv_dest, new, want):
+    """One request through ``kv_dest`` under a caller's W3C traceparent,
+    with tracing on for it alone: the prefill server's ``/debug/traces``
+    must show ``serve_request`` under the caller's span and ``prefill`` and
+    ``kv_migrate`` under it, the migrate frame must carry the trace id to
+    the decode server's request recorder, and the tokens must equal the
+    colocated answer ``want``.  Both servers trace through this process's
+    one tracer."""
+    trace.configure(sample_rate=1.0, exporter=trace.RingBufferExporter(4096))
+    try:
+        code, body, secs = http(
+            purl + "/v1/generate",
+            dict(tokens=prompt, max_new_tokens=new, kv_dest=kv_dest),
+            headers={"traceparent": TRACEPARENT})
+        spans = trace_spans(purl)
+    finally:
+        trace.configure(sample_rate=0.0, exporter=trace.RingBufferExporter())
+    if code != 200 or body.get("tokens") != want:
+        fail(f"traced migration answered {code} {str(body)[:200]}, the "
+             f"colocated engine {want}")
+    need_spans(spans, [("serve_request", "<inbound>"),
+                       ("prefill", "serve_request"),
+                       ("kv_migrate", "serve_request")], "disagg")
+    seated = [r for r in dec.engine._reqlog.snapshot()
+              if r.get("trace_id") == TRACE_ID and r["kind"] == "migrated"]
+    if not seated:
+        fail("disagg: the decode server's recorder has no request under "
+             f"trace {TRACE_ID} (the migrate frame's trace_id)")
+    return {"seconds": secs, "spans": spans,
+            "decode_recorder_kinds": [r["kind"] for r in seated]}
+
+
+def moe_config(tlib, torch, **kw):
+    """Llama-3-8B's attention and vocabulary with Mixtral-8x7B's expert
+    layout: 8 SwiGLU experts of 4096 -> 14336, top-2, capacity 1.25."""
+    return dataclasses.replace(
+        tlib.llama_8b(), num_experts=8, expert_top_k=2,
+        expert_capacity_factor=1.25, use_flash_attention=True,
+        use_fused_norm=True, dtype=torch.bfloat16, **kw)
+
+
+class RouteStats:
+    """While active, each MoE layer's routing of every call (with
+    ``decode_rows``: of every decode call of that many rows, input
+    ``[rows, 1, d]``) is recomputed from the layer's input (``moe.route``,
+    the forward's own routing) and summed on the device: per-expert kept
+    pairs and all pairs.  Off the timed paths: the hooks add device work
+    and host launches."""
+
+    def __init__(self, torch, moe, model, decode_rows=None):
+        self.torch, self.moe, self.rows = torch, moe, decode_rows
+        self.layers = [b.moe_mlp for b in model.layers]
+        E = self.layers[0].num_experts
+        dev = self.layers[0].router.device
+        self.kept = torch.zeros(E, dtype=torch.long, device=dev)
+        self.pairs = torch.zeros((), dtype=torch.long, device=dev)
+        self.calls = 0
+
+    def hook(self, layer, args):
+        x = args[0]
+        T = x.shape[0] * x.shape[1]
+        if self.rows is not None and tuple(x.shape[:2]) != (self.rows, 1):
+            return
+        with self.torch.no_grad():
+            _, _, idx, _, keep, _ = self.moe.route(
+                x.reshape(T, -1), layer.router, layer.top_k,
+                layer.capacity_factor)
+            E = layer.num_experts
+            self.kept += self.torch.bincount(idx[keep], minlength=E)
+            self.pairs += keep.numel()
+        self.calls += 1
+
+    def __enter__(self):
+        self.handles = [m.register_forward_pre_hook(self.hook)
+                        for m in self.layers]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def result(self) -> dict:
+        kept = self.kept.tolist()
+        pairs = int(self.pairs)
+        return {"layer_calls": self.calls, "pairs": pairs,
+                "kept_by_expert": kept,
+                "dropped_share": (pairs - sum(kept)) / pairs if pairs
+                else None}
+
+
+def moe_parity(torch, tlib, bridge, decode, train_lib, moe):
+    """The tiny MoE model (tiny_test with 4 experts, top-2, 2 layers, f32,
+    both kernels on) on cuda (kernels) against cpu (plain versions) from
+    the same parameters: greedy tokens equal, logits within 1e-4 in
+    prefill and decode; the first batch's gradients (loss plus weighted
+    aux, through ``make_moe_apply_fn``) agree per tensor within 1e-4 of
+    its largest magnitude, and its per-expert kept pairs are equal; 3
+    Adam steps give losses and aux losses within 1e-4 (train_parity's
+    tolerance).  The parameters after them are held within 3 x lr: Adam's
+    update g / (|g| + eps) is at most lr a step whatever g is, so a
+    last-bit difference on a near-zero gradient moves a parameter by up
+    to that (the gradient check is where a wrong kernel shows)."""
+    cfg = dataclasses.replace(tlib.tiny_test(), num_experts=4,
+                              expert_top_k=2, use_flash_attention=True,
+                              use_fused_norm=True)
+    params = bridge.init_params(cfg, seed=13, device="cpu")
+    # the reference's router init, N(0, 0.02), routes near-uniformly:
+    # widen it so the routing and its capacity drops vary by token
+    params = {n: t * 50 if n.endswith(".router") else t
+              for n, t in params.items()}
+    prompt = torch.randint(0, cfg.vocab_size, (1, 37),
+                           generator=torch.Generator().manual_seed(14))
+    toks = {dev: decode.generate(cfg, params, prompt, 24, device=dev).cpu()
+            for dev in ("cuda", "cpu")}
+    if not torch.equal(toks["cuda"], toks["cpu"]):
+        fail(f"tiny MoE greedy tokens differ: cuda {toks['cuda'].tolist()} "
+             f"cpu {toks['cpu'].tolist()}")
+    errs = []
+    with torch.inference_mode():
+        models = {d: tlib.Transformer(cfg, params, device=d)
+                  for d in ("cuda", "cpu")}
+        caches = {d: models[d].new_cache() for d in models}
+        logits = {d: models[d](prompt.to(d), mode="prefill",
+                               cache=caches[d]).cpu() for d in models}
+        errs.append((logits["cuda"] - logits["cpu"]).abs().max().item())
+        for step in range(4):
+            tok = toks["cpu"][:, step:step + 1]
+            pos = torch.full((1, 1), 37 + step)
+            logits = {d: models[d](tok.to(d), positions=pos.to(d),
+                                   mode="decode", cache=caches[d]).cpu()
+                      for d in models}
+            errs.append((logits["cuda"] - logits["cpu"]).abs().max().item())
+    if max(errs) > 1e-4:
+        fail(f"tiny MoE logits cuda vs cpu differ by {max(errs)} (> 1e-4)")
+    gen = torch.Generator().manual_seed(15)
+    batches = [torch.randint(0, cfg.vocab_size, (4, 96), generator=gen)
+               for _ in range(3)]
+    losses, auxes, finals, kept, grads = {}, {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        model = tlib.Transformer(cfg, params, device=dev, trainable=True)
+        opt = train_lib.default_optimizer(1e-3, clip_norm=1.0)
+        state = train_lib.init_state(model, opt)
+        apply = train_lib.make_moe_apply_fn(model)
+        aux_log = []
+
+        def apply_fn(m, x, apply=apply, aux_log=aux_log):
+            logits, aux = apply(m, x)
+            aux_log.append(aux.detach())
+            return logits, aux
+        step = train_lib.make_train_step(apply_fn, train_lib.lm_loss, opt)
+        with RouteStats(torch, moe, model) as rs:
+            b = batches[0].to(dev)
+            train_lib._combined_loss(apply, train_lib.lm_loss, model,
+                                     (b, b)).backward()
+        kept[dev] = rs.result()
+        grads[dev] = {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        aux_log.clear()
+        out = []
+        for b in batches:
+            b = b.to(dev)
+            state, loss = step(state, (b, b))
+            out.append(loss)
+        losses[dev] = torch.stack(out).tolist()
+        auxes[dev] = torch.stack(aux_log).tolist()
+        finals[dev] = {n: p.detach().cpu()
+                       for n, p in model.named_parameters()}
+    loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    aux_err = max(abs(a - b) for a, b in zip(auxes["cuda"], auxes["cpu"]))
+    param_errs = {n: (finals["cuda"][n] - finals["cpu"][n]).abs().max().item()
+                  for n in finals["cpu"]}
+    param_name = max(param_errs, key=param_errs.get)
+    param_err = param_errs[param_name]
+    grad_errs = {n: ((grads["cuda"][n] - g).abs().max()
+                     / g.abs().max().clamp_min(1e-30)).item()
+                 for n, g in grads["cpu"].items()}
+    grad_name = max(grad_errs, key=grad_errs.get)
+    if not (loss_err <= 1e-4 and aux_err <= 1e-4
+            and grad_errs[grad_name] <= 1e-4 and param_err <= 3e-3) \
+            or kept["cuda"]["kept_by_expert"] != \
+            kept["cpu"]["kept_by_expert"]:
+        fail(f"tiny MoE training cuda vs cpu: loss err {loss_err}, aux err "
+             f"{aux_err} (tol 1e-4), grad rel err {grad_errs[grad_name]} "
+             f"at {grad_name} (tol 1e-4), param err {param_err} at "
+             f"{param_name} (tol 3e-3), kept {kept}")
+    rec = {"phase": "moe_parity",
+           "config": "tiny_test f32 flash+fused, 4 experts top-2",
+           "prompt_len": 37, "new_tokens": 24, "tokens_equal": True,
+           "logits_max_abs_err": max(errs), "steps": len(batches),
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+           "aux_cuda": auxes["cuda"], "aux_cpu": auxes["cpu"],
+           "loss_max_abs_err": loss_err, "aux_max_abs_err": aux_err,
+           "grad_max_rel_err": grad_errs[grad_name],
+           "grad_max_rel_err_at": grad_name,
+           "param_max_abs_err": param_err, "param_max_abs_err_at": param_name,
+           "tol": 1e-4, "tol_params": 3e-3,
+           "routing_first_batch": kept["cuda"]}
+    emit(rec)
+    REPORT["moe_parity"] = rec
+
+
+MOE_SERVE_LAYERS = 20  # llama_8b's 32 cut to fit 8 bf16 experts a layer
+
+
+def host_and_device_ms(torch, fn, n: int = 4) -> dict:
+    """One call's host wall (``n`` calls from an idle stream, synchronized:
+    issue and wait) and, from ``torch.profiler`` over ``n`` more, its
+    device busy time (the sum of its kernels' device intervals) and
+    kernel count, with the kernels that took the most device time.  A
+    many-kernel call cannot be timed behind a spin kernel: the launch
+    queue fills and the host blocks.  The profiler session comes last in
+    the script: after one, host clocks in the process read slower
+    (PERF.md §6)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_name: dict = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name[:80], [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.time_range.elapsed_us() / 1e3 / n
+    busy = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"host_wall_ms": host_ms,
+            "device_busy_ms": busy if kernels else None,
+            "kernels_a_call": len(kernels) / n,
+            "top": [{"name": k, "count": c // n, "ms": ms}
+                    for k, (c, ms) in top]}
+
+
+def moe_serve(torch, tlib, bridge, server, common, requestlog, moe, trace):
+    """The MoE Transformer served at Llama-3-8B width with 8 experts, 20
+    layers (``reduced``: 32 -> 20; 32 bf16 layers of experts are 92 GB),
+    random bf16 weights drawn on the card, behind ``LmServer(slots=4,
+    batch_sampling=False)`` with span tracing on: eight concurrent greedy
+    requests (prompts 17-509, 32 new tokens), a repeat of the longest
+    (a prefix hit: its first token equals the batch's, and a second
+    repeat gives the same 32 tokens), then a fixed-seed sampled request
+    twice (the exclusive lane: the single-flight program, K2 in its
+    prefill; both answers equal).  Counters zeroed just before and read
+    just after: K1 at 2·20+1 launches a model call (``ModelCalls``), K2
+    20 a single-flight prefill.  Then a POST with a W3C traceparent whose
+    trace ``/debug/traces`` shows (``serve_request`` under the caller,
+    ``prefill`` under it) beside the ``decode_step`` spans; the share of
+    (token, choice) pairs dropped at decode with 4 rows (C = 2 a call);
+    the engine's step time with tracing at 0 and 1 in turns (off, on,
+    on, off); a 4-row decode call's host wall against its device time
+    (``host_and_device_ms``, a profiler session: this phase runs last);
+    the single-flight prefill logits against the plain attention and
+    norm on the same weights."""
+    import threading
+
+    cfg = moe_config(tlib, torch, layers=MOE_SERVE_LAYERS)
+    os.environ["K8S_TPU_REQUEST_LOG"] = "1"
+    requestlog.set_active(None)
+    trace.configure(sample_rate=1.0,
+                    exporter=trace.RingBufferExporter(1 << 16))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bridge.init_params(cfg, seed=21, device="cuda")
+    lm = server.LmServer(config=cfg, params=params, slots=4, device="cuda",
+                         batch_sampling=False, default_max_new_tokens=32)
+    del params
+    eng = lm.engine
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_gib = sum(t.numel() * t.element_size()
+                      for t in lm.model.state_dict().values()) / 2 ** 30
+    pool_gib = sum(t.numel() * t.element_size() for node in eng._pool
+                   for t in node.values()) / 2 ** 30
+    httpd = server.serve(lm, "127.0.0.1", 0)
+    url = "http://%s:%d" % httpd.server_address[:2]
+    rng = torch.Generator().manual_seed(22)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    def post(p, new, headers=None, **extra):
+        code, body, secs = http(url + "/v1/generate", dict(
+            tokens=p, max_new_tokens=new, **extra), headers=headers)
+        toks = body.get("tokens")
+        if code != 200 or not isinstance(toks, list) or len(toks) != new \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"moe request ({len(p)} tokens): {code} {str(body)[:300]}")
+        return toks, secs
+
+    def step_mean_s(st0, st1, h0, h1):
+        """Mean host wall of an engine decode iteration between two
+        stats/histogram readings (a fused step of k counts k)."""
+        iters = st1["steps"] - st0["steps"]
+        return (h1[0] - h0[0]) / iters if iters else None
+
+    def hist():
+        h = lm.metrics["step_duration"]._default_child()
+        return h.total, h.count
+
+    try:
+        post(prompt(33), 4)  # warm-up: allocator, cuBLAS handles
+        prompts = {n: prompt(n) for n in (17, 64, 128, 509)}
+        batch = [n for n in (17, 64, 128, 509) for _ in range(2)]
+        sampled = {"temperature": 0.8, "top_k": 50, "seed": 7}
+        st0 = eng.stats()
+        # the main path's run: counters zeroed just before, read just after
+        common.reset_launches()
+        results: dict = {}
+        with ModelCalls(tlib) as mc:
+            def client(i, n):
+                results[i] = post(prompts[n], 32)
+            threads = [threading.Thread(target=client, args=(i, n))
+                       for i, n in enumerate(batch)]
+            t_batch = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            batch_s = time.perf_counter() - t_batch
+            if len(results) != len(batch):
+                fail(f"moe batch: {len(results)} of {len(batch)} answered")
+            st1 = eng.stats()
+            code_r, reqs, _ = http(url + "/debug/requests?n=64")
+            again = [post(prompts[509], 32) for _ in range(2)]
+            st2 = eng.stats()
+            single = [post(prompts[64], 32, **sampled) for _ in range(2)]
+            torch.cuda.synchronize()
+            launches = common.launches()
+        calls = dict(mc.by_mode)
+        want = {"flash_fwd": cfg.layers * calls["prefill"],
+                "rms_norm": (2 * cfg.layers + 1) * mc.total,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        engine_calls = st2["model_calls"] - st0["model_calls"]
+        if launches != want or calls["prefill"] != 2 or calls["train"] or \
+                calls["decode"] < engine_calls:
+            fail(f"moe_serve launches {launches}, expected {want} (model "
+                 f"calls {calls}, engine {engine_calls})")
+        hits = st2["prefix_hits"] - st1["prefix_hits"]
+        saved = st2["prefix_tokens_saved"] - st1["prefix_tokens_saved"]
+        firsts = {results[i][0][0] for i, n in enumerate(batch) if n == 509}
+        if hits != 2 or saved < 2 * 496 or again[0][0] != again[1][0] or \
+                firsts != {again[0][0][0]}:
+            fail(f"moe 509-token repeats: prefix hits +{hits}, tokens "
+                 f"saved +{saved}, first tokens {firsts} / "
+                 f"{[a[0][0] for a in again]}, answers equal "
+                 f"{again[0][0] == again[1][0]}")
+        if single[0][0] != single[1][0]:
+            fail("moe: the repeated sampled single-flight request (seed 7) "
+                 f"gave {single[0][0]} and {single[1][0]}")
+
+        # the trace join: caller -> ingress -> engine
+        traced, traced_s = post(prompts[128], 8,
+                                headers={"traceparent": TRACEPARENT})
+        spans = trace_spans(url)
+        need_spans(spans, [("serve_request", "<inbound>"),
+                           ("prefill", "serve_request")], "moe_serve")
+        code_t, tbody, _ = http(url + "/debug/traces?n=1000000")
+        steps = [t for t in tbody["traces"] if t["name"] == "decode_step"]
+        if not steps:
+            fail("moe_serve: /debug/traces holds no decode_step span")
+        step_spans_ms = sorted(t["duration_ms"] for t in steps)
+
+        # routing at decode, 4 rows a call: C = ceil(2·4/8·1.25) = 2
+        with RouteStats(torch, moe, lm.model, decode_rows=4) as rs:
+            got: dict = {}
+            threads = [threading.Thread(
+                target=lambda i=i: got.__setitem__(
+                    i, post(prompt(64), 32))) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        routing = rs.result()
+
+        # step time with tracing at 0 and 1, in turns
+        turns = []
+        for rate in (0.0, 1.0, 1.0, 0.0):
+            trace.configure(sample_rate=rate)
+            s0, h0 = eng.stats(), hist()
+            done: dict = {}
+            threads = [threading.Thread(
+                target=lambda i=i: done.__setitem__(
+                    i, post(prompt(64), 24))) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            turns.append({"sample_rate": rate,
+                          "step_s": step_mean_s(s0, eng.stats(), h0, hist()),
+                          "iterations": eng.stats()["steps"]
+                          - s0["steps"]})
+        trace.configure(sample_rate=1.0)
+        code, health, _ = http(url + "/healthz")
+        st3 = eng.stats()
+        eng.debug_check_blocks()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        lm.close()
+        trace.configure(sample_rate=0.0, exporter=trace.RingBufferExporter())
+    peak = torch.cuda.max_memory_allocated()
+
+    # one 4-row decode call at a 509-token context (dense cache), device
+    # time against host wall
+    with torch.inference_mode():
+        cache = lm.model.new_cache()
+        ctx = torch.tensor([prompts[509]] * 4, device="cuda")
+        lm.model(ctx, mode="prefill", cache=cache)
+        tok = torch.zeros(4, 1, dtype=torch.long, device="cuda")
+        pos = torch.full((4, 1), 509, device="cuda")
+        step_call = host_and_device_ms(torch, lambda: lm.model(
+            tok, positions=pos, mode="decode", cache=cache))
+        del cache
+    torch.cuda.empty_cache()
+    expert_bytes = 3 * cfg.num_experts * cfg.hidden * cfg.ffn_hidden * 2 \
+        * cfg.layers
+    step_call["bound_ms_expert_bytes"] = expert_bytes / PEAK_BYTES * 1e3
+    moe_against_plain(torch, tlib, lm, prompts)
+    emitted = sum(len(toks) - 1 for toks, _ in results.values())
+    ttft = {}
+    for r in reqs["requests"]:
+        if r.get("ttft_s") is not None and r["prompt_len"] in prompts:
+            ttft.setdefault(str(r["prompt_len"]), []).append(r["ttft_s"])
+    rec = {"phase": "moe_serve", "card": REPORT["card"],
+           "config": "llama_8b width + 8 experts top-2 cf 1.25 (Mixtral "
+                     "8x7B layout), bf16 flash+fused, LmServer(slots=4, "
+                     "batch_sampling=False), tracing on",
+           "layers": cfg.layers, "reduced": {"layers": [32, cfg.layers]},
+           "setup_s": setup_s, "weights_gib": weights_gib,
+           "pool_gib": pool_gib, "pool_blocks": st3["pool_blocks"],
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "batch": {"prompt_lens": batch, "new_tokens": 32,
+                     "wall_s": batch_s, "decode_tokens": emitted,
+                     "decode_tokens_per_s": emitted / batch_s,
+                     "client_s": {str(i): results[i][1]
+                                  for i in range(len(batch))}},
+           "ttft_s_by_prompt_len": ttft,
+           "peak_active": st1["peak_active"],
+           "repeat_509": {"prefix_hits_delta": hits,
+                          "prefix_tokens_saved_delta": saved,
+                          "seconds": [a[1] for a in again],
+                          "first_token_equal_batch": True,
+                          "answers_equal": True},
+           "single_flight_sampled": {"seconds": [x[1] for x in single],
+                                     "identical": True},
+           "trace": {"trace_id": TRACE_ID, "spans": spans,
+                     "request_s": traced_s, "tokens": traced,
+                     "decode_step_spans": len(steps),
+                     "decode_step_ms_median":
+                         step_spans_ms[len(step_spans_ms) // 2]},
+           "decode_routing_4_rows": routing,
+           "step_time_tracing_turns": turns,
+           "decode_call_4_rows_509": step_call,
+           "model_calls": calls, "engine_model_calls": engine_calls,
+           "launches": launches, "expected_launches": want,
+           "healthz": code,
+           "stats": {k: v for k, v in st3.items()
+                     if k != "occupancy_timeline"}}
+    emit(rec)
+    REPORT["moe_serve"] = rec
+    requestlog.set_active(None)
+    os.environ.pop("K8S_TPU_REQUEST_LOG", None)
+    return launches
+
+
+def moe_against_plain(torch, tlib, lm, prompts):
+    """The served MoE model's single-flight prefill against the same
+    weights through the plain attention and norm.  Routing is discrete:
+    a bf16 difference that moves a near-tie across the top-k or capacity
+    line sends a token to another expert, and the last layers' logits
+    then differ by order one for that token, so the final logits are
+    reported, not held.  Held (5e-2 of its largest value, as
+    ``check_against_plain``): the first MoE layer's input, which the
+    flash and RMSNorm kernels produce before any routing."""
+    ref_cfg = dataclasses.replace(lm.config, use_flash_attention=False,
+                                  use_fused_norm=False)
+    ref = tlib.Transformer(ref_cfg, lm.model.state_dict(), device="cuda")
+    seen: dict = {}
+
+    def grab(key):
+        def hook(layer, args):
+            seen[key] = args[0].float()
+        return hook
+    handles = [m.layers[0].moe_mlp.register_forward_pre_hook(grab(k))
+               for k, m in (("kernels", lm.model), ("plain", ref))]
+    out = {}
+    try:
+        with torch.inference_mode():
+            for n in (17, 509):
+                toks = torch.tensor([prompts[n]], device="cuda")
+                a = lm.model(toks, mode="prefill", cache=lm.model.new_cache())
+                b = ref(toks, mode="prefill", cache=ref.new_cache())
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"MoE prefill logits non-finite at length {n}")
+                x, y = seen["kernels"], seen["plain"]
+                rel_in = ((x - y).abs().max() / y.abs().max()).item()
+                if rel_in > 5e-2:
+                    fail(f"MoE layer-0 input vs plain path at length {n}: "
+                         f"rel err {rel_in} (> 5e-2)")
+                out[n] = {
+                    "moe_input_rel_err": rel_in,
+                    "logits_rel_err": ((a - b).abs().max()
+                                       / b.abs().max()).item(),
+                    "argmax_agreement": (a.argmax(-1) == b.argmax(-1))
+                    .float().mean().item()}
+    finally:
+        for h in handles:
+            h.remove()
+    rec = {"phase": "moe_serve_vs_plain", "prompt_lens": out,
+           "tol_rel_moe_input": 5e-2}
+    emit(rec)
+    REPORT["moe_serve_vs_plain"] = rec
+
+
+def corpus_text(n_bytes: int, seed: int) -> list[str]:
+    """Byte-tokenizable text from a seed: sentences over a fixed word
+    list, about ``n_bytes`` long (no download)."""
+    import random
+
+    words = ("the operator schedules a gang of pods across slices and "
+             "restarts every replica when one exits with a retryable code "
+             "while the trainer resumes from its latest checkpoint").split()
+    r = random.Random(seed)
+    out, size = [], 0
+    while size < n_bytes:
+        line = " ".join(r.choice(words) for _ in range(r.randint(6, 18)))
+        line = line.capitalize() + ".\n"
+        out.append(line)
+        size += len(line)
+    return out
+
+
+def moe_train(torch, tlib, bridge, train_lib, common, dataset, moe):
+    """The MoE Transformer at Llama-3-8B width with 8 experts cut to 2
+    layers (``reduced``: 32 -> 2: f32 masters, gradients and two Adam
+    moments are 16 B a parameter, 23 GB a layer), B1 L2048, bf16, flash
+    and RMSNorm kernels on, no remat, 3 Adam steps through
+    ``make_moe_apply_fn``, its batches read by ``TokenDataset`` from a
+    corpus ``write_text_corpus`` wrote into a temporary directory.  Exact
+    launch counts: K1 2·2+1, K2-K4 2 a step."""
+    steps, L = 3, 2048
+    cfg = moe_config(tlib, torch, layers=2, remat=False)
+    with tempfile.TemporaryDirectory() as d:
+        dataset.write_text_corpus(d, corpus_text(steps * L + 4096, 31),
+                                  shard_tokens=1 << 16)
+        ds = dataset.TokenDataset(d)
+        stream = ds.batches(1, L, seed=0)
+        batches = [torch.from_numpy(next(stream)[0]).cuda()
+                   for _ in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = tlib.Transformer(
+        cfg, bridge.init_params(cfg, 23, "cuda", dtype=torch.float32),
+        device="cuda", trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = train_lib.default_optimizer(1e-4)
+    state = train_lib.init_state(model, opt)
+    apply = train_lib.make_moe_apply_fn(model)
+    aux_log = []
+
+    def apply_fn(m, x):
+        logits, aux = apply(m, x)
+        aux_log.append(aux.detach())
+        return logits, aux
+    step = train_lib.make_train_step(apply_fn, train_lib.lm_loss, opt)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    times, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(step(state, (b, b))[1])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = common.launches()
+    losses = torch.stack(losses).tolist()
+    auxes = torch.stack(aux_log).tolist()
+    want = {"flash_fwd": cfg.layers * steps,
+            "flash_bwd_dq": cfg.layers * steps,
+            "flash_bwd_dkv": cfg.layers * steps,
+            "rms_norm": (2 * cfg.layers + 1) * steps}
+    if launches != want or not all(map(math.isfinite, losses + auxes)):
+        fail(f"moe training: launches {launches} (expected {want}), "
+             f"losses {losses}, aux {auxes}")
+    with RouteStats(torch, moe, model) as rs, torch.no_grad():
+        model(batches[0])
+    rec = {"phase": "moe_train", "card": REPORT["card"],
+           "config": "llama_8b width + 8 experts top-2 cf 1.25, layers "
+                     "32 -> 2, bf16 over f32 masters, flash+fused, "
+                     "make_moe_apply_fn, TokenDataset batches",
+           "reduced": {"layers": [32, 2]}, "batch": [1, L],
+           "params": n_params, "steps": steps, "losses": losses,
+           "aux_weighted": auxes, "step_s": times,
+           "tokens_per_s_last": L / times[-1],
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "routing_first_batch": rs.result(),
+           "launches": launches, "expected_launches": want}
+    emit(rec)
+    REPORT["moe_train"] = rec
+    del model, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+DATA_ARGS = ["--preset", "gpt2-small", "--batch_size", "8", "--seq_len",
+             "1024", "--eval_every", "3", "--eval_batches", "2",
+             "--log_every", "1", "--device", "cuda"]
+
+
+def data_path(torch, train_lm, common, dataset):
+    """``train_lm.main`` at gpt2-small (full width and depth) reading a
+    token-shard corpus through ``--data_dir`` (``write_text_corpus`` into
+    a temporary directory, ~600 KB of byte-tokenized text): 6 steps,
+    checkpoints every 3, a held-out eval every 3.  Exact launch counts
+    (K2 a layer per forward, training and eval; K3, K4 a layer per step).
+    Then a second run stops at step 3 and a third resumes it to 6: the
+    resumed run's step 4-6 losses equal the uninterrupted run's (within
+    1e-4: the same windows through the same deterministic kernels; a
+    resume at the wrong window moves the loss by ~1e-2)."""
+    steps = 6
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        man = dataset.write_text_corpus(data, corpus_text(600_000, 41),
+                                        shard_tokens=1 << 17)
+        runs = {}
+        for name, plan in (("full", [steps]), ("resumed", [3, steps])):
+            train_dir = os.path.join(root, name)
+            for n in plan:
+                args = DATA_ARGS + ["--data_dir", data, "--train_dir",
+                                    train_dir, "--train_steps", str(n),
+                                    "--checkpoint_every", "3"]
+                if name == "full":
+                    torch.cuda.reset_peak_memory_stats()
+                    common.reset_launches()
+                t0 = time.perf_counter()
+                rc = train_lm.main(args)
+                torch.cuda.synchronize()
+                if name == "full":
+                    launches = common.launches()
+                    wall_s = time.perf_counter() - t0
+                    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+                if rc != 0:
+                    fail(f"train_lm --data_dir ({name}, {n} steps) exited "
+                         f"{rc}")
+            with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            wall = [r["wall_time"] for r in recs if "loss" in r]
+            runs[name] = {
+                "loss": {r["step"]: r["loss"] for r in recs if "loss" in r},
+                "eval": [(r["step"], r["eval_loss"]) for r in recs
+                         if "eval_loss" in r],
+                # between consecutive step records, in step order: one
+                # holds the warm-up, one the eval, one the checkpoint save
+                "step_s": [b - a for a, b in zip(wall, wall[1:])]}
+    full, res = runs["full"], runs["resumed"]
+    evals = len(full["eval"])
+    layers = 12
+    want = {"flash_fwd": layers * (steps + 2 * evals),
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "rms_norm": 0}
+    if launches != want or sorted(full["loss"]) != list(range(1, steps + 1)):
+        fail(f"data path launches {launches} (expected {want}, {evals} "
+             f"evals), steps {sorted(full['loss'])}")
+    diffs = {s: abs(res["loss"][s] - full["loss"][s])
+             for s in range(4, steps + 1)}
+    if sorted(res["loss"]) != list(range(1, steps + 1)) or \
+            max(diffs.values()) > 1e-4:
+        fail(f"data resume: losses {res['loss']} against the uninterrupted "
+             f"{full['loss']} (tol 1e-4)")
+    rec = {"phase": "data", "card": REPORT["card"],
+           "config": "gpt2-small bf16 flash, train_lm.main --data_dir",
+           "args": DATA_ARGS, "corpus_tokens": man["total_tokens"],
+           "shards": len(man["shards"]), "steps": steps, "wall_s": wall_s,
+           "step_s": full["step_s"],
+           # the two shortest intervals: the ones holding neither the
+           # warm-up, the eval nor the checkpoint save
+           "tokens_per_s_shortest_2": 2 * 8 * 1024
+           / sum(sorted(full["step_s"])[:2]),
+           "losses": full["loss"], "eval_losses": full["eval"],
+           "resumed_losses": res["loss"], "resume_abs_diff": diffs,
+           "resume_tol": 1e-4, "max_memory_allocated_gib": peak_gib,
+           "launches": launches, "expected_launches": want}
+    emit(rec)
+    REPORT["data"] = rec
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2187,8 +2950,9 @@ def main() -> int:
              "card")
     sys.path.insert(0, REPO)
     try:
-        from k8s_tpu_torch import train_lm
-        from k8s_tpu_torch.models import bridge, decode, server, serving
+        from k8s_tpu_torch import trace, train_lm
+        from k8s_tpu_torch.models import bridge, dataset, decode, moe
+        from k8s_tpu_torch.models import server, serving
         from k8s_tpu_torch.models import engine as engine_lib
         from k8s_tpu_torch.models import requestlog
         from k8s_tpu_torch.models import train as train_lib
@@ -2234,6 +2998,7 @@ def main() -> int:
     engine_parity(torch, tlib, bridge, decode, engine_lib)
     spec_parity(torch, tlib, bridge, decode, engine_lib)
     train_parity(torch, tlib, bridge, train_lib, _common)
+    moe_parity(torch, tlib, bridge, decode, train_lib, moe)
     served = serve_main_path(torch, tlib, bridge, server, _common)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2244,7 +3009,8 @@ def main() -> int:
     spilled = serve_spill(torch, tlib, server, _common, requestlog, weights)
     gc.collect()
     torch.cuda.empty_cache()
-    disagg = serve_disagg(torch, tlib, server, _common, requestlog, weights)
+    disagg = serve_disagg(torch, tlib, server, _common, requestlog, weights,
+                          trace)
     gc.collect()
     torch.cuda.empty_cache()
     spec = serve_spec(torch, tlib, server, _common, weights)
@@ -2258,6 +3024,16 @@ def main() -> int:
                                        _common, tlib)
     grads_at_width(torch, tlib, bridge, train_lib, train_lm)
     llama = llama_width_training(torch, tlib, bridge, train_lib, _common)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_trained = moe_train(torch, tlib, bridge, train_lib, _common, dataset,
+                            moe)
+    data = data_path(torch, train_lm, _common, dataset)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # last: its profiler session slows every later host clock
+    moe_served = moe_serve(torch, tlib, bridge, server, _common, requestlog,
+                           moe, trace)
 
     # launches: every main path's count (each zeroed just before it is
     # driven and read just after), summed, and each path's beside it
@@ -2283,6 +3059,9 @@ def main() -> int:
                    "serve_spec_single_flight_llama_8b":
                        spec["single_flight"][kname],
                    "beam_llama_8b": beam[kname],
+                   "serve_moe_llama_8b_e8_20_layers": moe_served[kname],
+                   "train_moe_llama_width_e8_2_layers": moe_trained[kname],
+                   "train_lm_data_dir_gpt2_small": data[kname],
                    **{f"serve_lm_{mode}_gpt2_small": r[kname]
                       for mode, r in lm_runs.items()}}
         kernels.append({"name": kname, "route": route, "source": source,

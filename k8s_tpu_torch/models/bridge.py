@@ -12,9 +12,17 @@ The flax tree (``k8s_tpu/models/transformer.py``), as numpy arrays::
     layer_{i}/mlp/down_proj/kernel     [ffn, hidden]
     final_norm/scale                   [hidden]
 
+and for MoE configs (``num_experts > 0``) ``layer_{i}/moe_mlp`` in place
+of ``layer_{i}/mlp``::
+
+    layer_{i}/moe_mlp/router           [hidden, E]
+    layer_{i}/moe_mlp/{w_gate,w_up}    [E, hidden, ffn]
+    layer_{i}/moe_mlp/w_down           [E, ffn, hidden]
+
 The state dict is :class:`~k8s_tpu_torch.models.transformer.Transformer`'s:
 ``torch.nn.Linear`` weights are ``[out, in]``, so each kernel is flattened
-over its head axes and transposed.
+over its head axes and transposed.  The MoE tensors keep the reference's
+layout (``layers.{i}.moe_mlp.{router,w_gate,w_up,w_down}``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from k8s_tpu_torch.ops._common import resolve_device
 
 _ATTN = ("q_proj", "k_proj", "v_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
+_MOE = ("router", "w_gate", "w_up", "w_down")
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -59,9 +68,13 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
         kern = np.asarray(lt["attn"]["o_proj"]["kernel"])
         sd[p + "attn.o_proj.weight"] = _to_torch(
             kern.reshape(-1, kern.shape[-1]).T)
-        for name in _MLP:
-            sd[p + f"mlp.{name}.weight"] = _to_torch(
-                np.asarray(lt["mlp"][name]["kernel"]).T)
+        if "moe_mlp" in lt:
+            for name in _MOE:
+                sd[p + f"moe_mlp.{name}"] = _to_torch(lt["moe_mlp"][name])
+        else:
+            for name in _MLP:
+                sd[p + f"mlp.{name}.weight"] = _to_torch(
+                    np.asarray(lt["mlp"][name]["kernel"]).T)
     sd["final_norm.scale"] = _to_torch(tree["final_norm"]["scale"])
     return sd
 
@@ -81,14 +94,18 @@ def params_to_jax(state_dict: dict, config: TransformerConfig) -> dict:
             for name in _ATTN}
         attn["o_proj"] = {"kernel": np.ascontiguousarray(
             sd[p + "attn.o_proj.weight"].T.reshape(H, D, -1))}
-        mlp = {name: {"kernel": np.ascontiguousarray(
-            sd[p + f"mlp.{name}.weight"].T)} for name in _MLP}
         tree[f"layer_{i}"] = {
             "attn_norm": {"scale": sd[p + "attn_norm.scale"]},
             "attn": attn,
             "mlp_norm": {"scale": sd[p + "mlp_norm.scale"]},
-            "mlp": mlp,
         }
+        if p + "moe_mlp.router" in sd:
+            tree[f"layer_{i}"]["moe_mlp"] = {
+                name: sd[p + f"moe_mlp.{name}"] for name in _MOE}
+        else:
+            tree[f"layer_{i}"]["mlp"] = {
+                name: {"kernel": np.ascontiguousarray(
+                    sd[p + f"mlp.{name}.weight"].T)} for name in _MLP}
     return tree
 
 
@@ -96,18 +113,18 @@ def init_params(config: TransformerConfig, seed: int, device="cuda",
                 dtype=None) -> dict[str, torch.Tensor]:
     """Random parameters from ``seed``, each drawn directly on ``device`` in
     ``dtype`` (default ``config.dtype``), so a large model never has an f32
-    copy on the host.  Embedding ~ N(0, 0.02); each projection ~ N(0,
-    1/fan_in); norm scales are f32 ones, as the reference initializes
-    them."""
+    copy on the host.  Embedding ~ N(0, 0.02); each projection and expert
+    stack ~ N(0, 1/fan_in); an MoE router ~ N(0, 0.02), always f32; norm
+    scales are f32 ones, as the reference initializes them."""
     dev = resolve_device(device)
     dtype = dtype or config.dtype
     g = torch.Generator(device=dev).manual_seed(seed)
     H, Hkv, D = config.heads, config.kv_heads, config.dims_per_head
-    hid, ffn = config.hidden, config.ffn_hidden
+    hid, ffn, E = config.hidden, config.ffn_hidden, config.num_experts
 
-    def normal(shape, std):
+    def normal(shape, std, dt=None):
         return torch.randn(shape, generator=g, device=dev,
-                           dtype=dtype).mul_(std)
+                           dtype=dt or dtype).mul_(std)
 
     def ones():
         return torch.ones(hid, dtype=torch.float32, device=dev)
@@ -121,6 +138,12 @@ def init_params(config: TransformerConfig, seed: int, device="cuda",
         sd[p + "attn.v_proj.weight"] = normal((Hkv * D, hid), hid ** -0.5)
         sd[p + "attn.o_proj.weight"] = normal((hid, H * D), (H * D) ** -0.5)
         sd[p + "mlp_norm.scale"] = ones()
+        if E > 0:
+            sd[p + "moe_mlp.router"] = normal((hid, E), 0.02, torch.float32)
+            sd[p + "moe_mlp.w_gate"] = normal((E, hid, ffn), hid ** -0.5)
+            sd[p + "moe_mlp.w_up"] = normal((E, hid, ffn), hid ** -0.5)
+            sd[p + "moe_mlp.w_down"] = normal((E, ffn, hid), ffn ** -0.5)
+            continue
         sd[p + "mlp.gate_proj.weight"] = normal((ffn, hid), hid ** -0.5)
         sd[p + "mlp.up_proj.weight"] = normal((ffn, hid), hid ** -0.5)
         sd[p + "mlp.down_proj.weight"] = normal((hid, ffn), ffn ** -0.5)

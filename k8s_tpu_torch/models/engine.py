@@ -62,7 +62,12 @@ full-length rows).  ``K8S_TPU_SERVE_BATCH_SAMPLING`` and
 A single engine thread owns all device work.  With
 ``K8S_TPU_REQUEST_LOG=1`` every request gets a bounded timeline
 (models/requestlog.py) served at ``/debug/requests``, and every decode
-step a ledger record served at ``/debug/engine``.
+step a ledger record served at ``/debug/engine``.  With span tracing on
+(``K8S_TPU_TRACE_SAMPLE``, ``k8s_tpu_torch.trace``) a request's
+``prefill`` and ``exclusive_generate`` spans parent under the trace
+context the ingress hands to ``submit`` / ``submit_exclusive`` /
+``prefill_export`` (``trace_ctx``), and every batched step records a
+``decode_step`` span of its own, as the reference's engine does.
 
 What the reference has and this port does not:
 
@@ -75,9 +80,6 @@ What the reference has and this port does not:
   lists the chunk lengths used, ``decode_step_ks`` the widths);
 - mesh placements, which come with a later slice of the port
   (models/placement.py refuses them by name);
-- span tracing: the reference parents its prefill and exclusive-lane
-  spans under the ingress's trace context; the port records the same
-  phases in the request recorder only.
 
 Tiered KV memory and disaggregation, as in the reference:
 
@@ -118,6 +120,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from k8s_tpu_torch import trace
 from k8s_tpu_torch.models import kvtier, requestlog
 from k8s_tpu_torch.models import placement as placement_lib
 from k8s_tpu_torch.models.decode import (
@@ -268,9 +271,11 @@ class _Request:
         default_factory=threading.Event)
     result: Any = None
     error: Optional[BaseException] = None
-    # observability: request-recorder timeline id, submit stamp and
-    # first-token latency (TTFT)
+    # observability: request-recorder timeline id, the remote trace
+    # context the ingress extracted from the inbound W3C traceparent,
+    # submit stamp and first-token latency (TTFT)
     rid: Optional[int] = None
+    trace_ctx: Optional[tuple] = None
     t_submit: float = 0.0
     ttft_s: Optional[float] = None
 
@@ -485,7 +490,8 @@ class Engine:
     def submit(self, ids, max_new_tokens: int, eos_id: Optional[int] = None,
                temperature: float = 0.0, top_k: Optional[int] = None,
                seed: int = 0, speculative: int = 0,
-               timeout: Optional[float] = None) -> list[int]:
+               timeout: Optional[float] = None,
+               trace_ctx: Optional[tuple] = None) -> list[int]:
         """Batched generation (greedy at ``temperature == 0``, otherwise
         temperature/top-k sampling with the exclusive lane's exact draw
         schedule for ``seed``); ``speculative=draft_k`` (>= 2) verifies
@@ -503,13 +509,14 @@ class Engine:
         req = _Request(ids=ids, max_new_tokens=int(max_new_tokens),
                        eos_id=eos_id, temperature=float(temperature),
                        top_k=top_k, seed=int(seed),
-                       speculative=int(speculative))
+                       speculative=int(speculative), trace_ctx=trace_ctx)
         req.t_submit = time.monotonic()
         if self._reqlog is not None:
             req.rid = self._reqlog.begin(
                 int(ids.size), int(max_new_tokens),
                 temperature=float(temperature), top_k=top_k,
-                speculative=int(speculative))
+                speculative=int(speculative),
+                trace_id=trace_ctx[0] if trace_ctx else None)
         return self._enqueue_and_wait(req, timeout)
 
     def _validate_gen_args(self, ids, max_new_tokens: int,
@@ -553,7 +560,7 @@ class Engine:
                        top_k: Optional[int] = None, seed: int = 0,
                        speculative: int = 0,
                        timeout: Optional[float] = None,
-                       trace_id: Optional[str] = None) -> dict:
+                       trace_ctx: Optional[tuple] = None) -> dict:
         """Prefill-only mode: prefill the prompt through the normal slot
         path (prefix reuse, tree insert), emit the first token, then
         export the request's block chain to the host and retire: no
@@ -576,14 +583,15 @@ class Engine:
         req = _Request(ids=ids, max_new_tokens=int(max_new_tokens),
                        eos_id=eos_id, temperature=float(temperature),
                        top_k=top_k, seed=int(seed),
-                       speculative=int(speculative), export=True)
+                       speculative=int(speculative), export=True,
+                       trace_ctx=trace_ctx)
         req.t_submit = time.monotonic()
         if self._reqlog is not None:
             req.rid = self._reqlog.begin(
                 int(ids.size), int(max_new_tokens),
                 temperature=float(temperature), top_k=top_k,
                 speculative=int(speculative), kind="prefill_export",
-                trace_id=trace_id)
+                trace_id=trace_ctx[0] if trace_ctx else None)
         return self._enqueue_and_wait(req, timeout)
 
     def _check_key(self, key, temperature: float) -> np.ndarray:
@@ -903,14 +911,17 @@ class Engine:
         return count
 
     def submit_exclusive(self, fn: Callable[[], Any],
-                         timeout: Optional[float] = None):
+                         timeout: Optional[float] = None,
+                         trace_ctx: Optional[tuple] = None):
         """Run ``fn`` single-flight on the engine thread between batch
         iterations; FIFO with batched admissions through the same
         bounded queue."""
-        req = _Request(fn=fn)
+        req = _Request(fn=fn, trace_ctx=trace_ctx)
         req.t_submit = time.monotonic()
         if self._reqlog is not None:
-            req.rid = self._reqlog.begin(None, 0, kind="exclusive")
+            req.rid = self._reqlog.begin(
+                None, 0, kind="exclusive",
+                trace_id=trace_ctx[0] if trace_ctx else None)
         return self._enqueue_and_wait(req, timeout)
 
     def _enqueue_and_wait(self, req: _Request, timeout: Optional[float]):
@@ -1376,7 +1387,12 @@ class Engine:
             rlog.admitted(req.rid, -1, t0 - req.t_submit
                           if req.t_submit else 0.0)
         try:
-            result = req.fn()
+            # parented under the ingress's inbound traceparent: the
+            # exclusive lane runs on the engine thread, so the contextvar
+            # chain from the handler thread does not reach here, the
+            # explicit remote context does
+            with trace.span_under(req.trace_ctx, "exclusive_generate"):
+                result = req.fn()
         except BaseException as e:  # noqa: BLE001 - surfaced to the caller
             req.finish(error=e)
             if rlog is not None:
@@ -1494,8 +1510,13 @@ class Engine:
                     nb = -(-(int(positions[0, -1]) + 1) // self.block_size)
                     return self._prefill_fn(c)(self._pool, table[:nb],
                                                chunk, positions)
-                last = self._run_chunks(req, shared, call)
-                first, slot.gen = self._first_token(req, last)
+                with trace.span_under(
+                        req.trace_ctx, "prefill", prompt_len=len(ids),
+                        chunks=len(split_prefill(len(ids) - shared,
+                                                 self.buckets)),
+                        shared=shared):
+                    last = self._run_chunks(req, shared, call)
+                    first, slot.gen = self._first_token(req, last)
                 if self._tree is not None:
                     # re-match NOW: block allocations above may have
                     # evicted part of the originally-matched path, and
@@ -1509,10 +1530,14 @@ class Engine:
                     self._index_add(created)
             else:
                 row = self._init_cache_fn(1, self.device)
-                last = self._run_chunks(
-                    req, 0, lambda c, chunk, positions: self._prefill_fn(c)(
-                        row, chunk, positions))
-                first, slot.gen = self._first_token(req, last)
+                with trace.span_under(
+                        req.trace_ctx, "prefill", prompt_len=len(ids),
+                        chunks=len(split_prefill(len(ids), self.buckets))):
+                    last = self._run_chunks(
+                        req, 0,
+                        lambda c, chunk, positions: self._prefill_fn(c)(
+                            row, chunk, positions))
+                    first, slot.gen = self._first_token(req, last)
         except BaseException as e:  # noqa: BLE001 - bad request must not kill the loop
             req.finish(error=e)
             if rlog is not None:
@@ -1752,7 +1777,10 @@ class Engine:
         position -1: (paged) their writes are dropped before reaching the
         pool, or (dense) the model's write slot wraps to S-1 in a row the
         next join's scatter fully replaces.  Row independence of the
-        batched math keeps active rows exact.
+        batched math keeps active rows exact, except with MoE layers
+        (``num_experts > 0``): expert capacity is per model call, so
+        every row of the call competes for it, the inactive rows at
+        ``pad_id`` included, exactly as in the reference's engine.
 
         Speculative slots divert the whole step into the variable-width
         path: all plain slots advance one token while every spec slot of
@@ -1796,19 +1824,24 @@ class Engine:
         sampling = any(s.req.temperature > 0 for s in active)
         step_key = (k, sampling, False)
         t_step = time.monotonic()
-        if self.paged:
-            if self._tables_dirty:
-                self._tables_dev = self._placement.put_tables(
-                    np.stack([s.table for s in self._slots]))
-                self._tables_dirty = False
-            # the table columns any row's positions reach this step
-            width = max(-(-(s.pos + k) // self.block_size) for s in active)
-            toks_host = self._step_fn(self._pool,
-                                      self._tables_dev[:, :width], ints,
-                                      gens, temps, topks, k)  # [k, B]
-        else:
-            toks_host = self._step_fn(self._cache, ints, gens, temps,
-                                      topks)  # [1, B]
+        # the span closes after the step's one host read of its tokens
+        # (inside _step_fn), so it measures the device work, not only the
+        # host's issue of it
+        with trace.span("decode_step", active=len(active), fused=k):
+            if self.paged:
+                if self._tables_dirty:
+                    self._tables_dev = self._placement.put_tables(
+                        np.stack([s.table for s in self._slots]))
+                    self._tables_dirty = False
+                # the table columns any row's positions reach this step
+                width = max(-(-(s.pos + k) // self.block_size)
+                            for s in active)
+                toks_host = self._step_fn(self._pool,
+                                          self._tables_dev[:, :width], ints,
+                                          gens, temps, topks, k)  # [k, B]
+            else:
+                toks_host = self._step_fn(self._cache, ints, gens, temps,
+                                          topks)  # [1, B]
         step_dur = time.monotonic() - t_step
         sd_h = self.metrics.get("step_duration")
         if sd_h is not None:
@@ -1883,18 +1916,22 @@ class Engine:
             temps[s.idx] = s.req.temperature
             topks[s.idx] = s.req.top_k or 0
         sampling = any(s.req.temperature > 0 for s in active)
+        n_spec = sum(1 for s in active if s.req.speculative)
         step_key = (W, sampling, True)
         t_step = time.monotonic()
-        if self._tables_dirty:
-            self._tables_dev = self._placement.put_tables(
-                np.stack([s.table for s in self._slots]))
-            self._tables_dirty = False
-        # the table columns any row's chunk reaches
-        width = max(-(-(s.pos + (W if s.req.speculative else 1))
-                      // self.block_size) for s in active)
-        emit_host, n_host = self._spec_fn(
-            self._pool, self._tables_dev[:, :width], chunk, ints, gens,
-            temps, topks, W)
+        with trace.span("decode_step", active=len(active), fused=W,
+                        spec=n_spec):
+            if self._tables_dirty:
+                self._tables_dev = self._placement.put_tables(
+                    np.stack([s.table for s in self._slots]))
+                self._tables_dirty = False
+            # the table columns any row's chunk reaches
+            width = max(-(-(s.pos + (W if s.req.speculative else 1))
+                          // self.block_size) for s in active)
+            # the verify's one host read of emissions and counts is inside
+            emit_host, n_host = self._spec_fn(
+                self._pool, self._tables_dev[:, :width], chunk, ints, gens,
+                temps, topks, W)
         step_dur = time.monotonic() - t_step
         sd_h = self.metrics.get("step_duration")
         if sd_h is not None:

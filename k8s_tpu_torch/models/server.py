@@ -16,8 +16,14 @@ Endpoints (JSON over HTTP/1.1, stdlib only):
 - ``GET /debug/requests`` / ``GET /debug/engine`` -> per-request serving
   timelines and the engine step ledger (models/requestlog.py; 404 with an
   explicit body until ``K8S_TPU_REQUEST_LOG=1`` activates the recorder),
-  and ``GET /debug``, the index of these endpoints.  ``/debug/traces``
-  and ``/debug/compiles`` answer 404 naming what they wait for.
+  and ``GET /debug``, the index of these endpoints.
+- ``GET /debug/traces`` -> recent span trees (``serve_request``,
+  ``prefill``, ``decode_step``, ``exclusive_generate``, ``kv_migrate``,
+  ``kv_fetch``; k8s_tpu_torch.trace), 404 with an explicit body while
+  tracing is off (``K8S_TPU_TRACE_SAMPLE`` unset or 0).  An inbound W3C
+  ``traceparent`` on POST /v1/generate parents the server and engine
+  spans, joining caller -> ingress -> engine into one trace.
+  ``/debug/compiles`` answers 404 naming why it has no counterpart.
 - ``POST /v1/generate`` with ``{"text": str | "tokens": [int], ...}`` ->
   ``{"text": str | "tokens": [int]}``.  Optional fields:
   ``max_new_tokens``, ``temperature``, ``top_k``, ``eos``, ``seed``,
@@ -64,9 +70,9 @@ Tiered KV memory and disaggregated serving, as in the reference:
   chain fingerprints this pod holds.
 
 What differs from the reference: the manifest carries the sampler
-generator's state instead of a threefry key (models/engine.py), and the
-hop is recorded in the request recorder's ``migrate`` phase only, with
-``trace_id`` null on the wire: span tracing is not ported.  Mesh serving
+generator's state instead of a threefry key (models/engine.py).  The hop
+is a ``kv_migrate`` span in the request's trace and carries its
+``trace_id`` on the wire, as the reference's does.  Mesh serving
 (``K8S_TPU_SERVE_MESH``) is not ported yet and is refused by name.
 """
 
@@ -84,6 +90,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from k8s_tpu_torch import trace
 from k8s_tpu_torch.models import decode as decode_lib
 from k8s_tpu_torch.models import engine as engine_lib
 from k8s_tpu_torch.models import kvtier
@@ -457,7 +464,8 @@ class LmServer:
                  "n_blocks": manifest["n_blocks"],
                  "block_size": manifest["block_size"]}, wire)
 
-    def _fetch_on_miss(self, parsed: ParsedRequest) -> int:
+    def _fetch_on_miss(self, parsed: ParsedRequest,
+                       trace_ctx: Optional[tuple]) -> int:
         """Requester side of fleet fetch-on-miss: pull the prompt's
         cached prefix chain from ``parsed.kv_src`` and graft it here, so
         the submit right after attaches it as a tree hit.  Best-effort:
@@ -470,9 +478,11 @@ class LmServer:
         if not fps or engine.dedup_have(fps) >= len(fps):
             return 0  # nothing fetchable, or already cached here
         try:
-            statics, arrays = self._kv_sender.fetch(
-                parsed.kv_src, {"v": kvxfer_lib.PROTOCOL_VERSION},
-                {"ids": np.asarray(parsed.ids, np.int32)})
+            with trace.span_under(trace_ctx, "kv_fetch",
+                                  src=parsed.kv_src):
+                statics, arrays = self._kv_sender.fetch(
+                    parsed.kv_src, {"v": kvxfer_lib.PROTOCOL_VERSION},
+                    {"ids": np.asarray(parsed.ids, np.int32)})
             n = int(statics.get("n_blocks") or 0)
             if n <= 0:
                 return 0
@@ -507,15 +517,18 @@ class LmServer:
             trace_id=statics.get("trace_id"),
             seated=on_seated)
 
-    def _generate_disagg(self, parsed: ParsedRequest) -> list[int]:
+    def _generate_disagg(self, parsed: ParsedRequest,
+                         trace_ctx: Optional[tuple]) -> list[int]:
         """The phase-split path: prefill-only here (no decode slot held),
         stream the block chain to ``parsed.kv_dest``, and return the
-        decode pod's tokens.  The request's timeline closes with the hop
-        billed to its ``migrate`` phase."""
+        decode pod's tokens.  The transfer span joins the caller's trace;
+        the request's timeline closes with the hop billed to its
+        ``migrate`` phase."""
         export = self.engine.prefill_export(
             parsed.ids, parsed.max_new_tokens, eos_id=parsed.eos,
             temperature=parsed.temperature, top_k=parsed.top_k,
-            seed=parsed.seed, speculative=parsed.speculative)
+            seed=parsed.seed, speculative=parsed.speculative,
+            trace_ctx=trace_ctx)
         if export["done"]:
             return export["tokens"]
         rid = export.get("rid")
@@ -527,7 +540,7 @@ class LmServer:
             statics = {
                 "v": kvxfer_lib.PROTOCOL_VERSION,
                 "wire_int8": quantized,
-                "trace_id": None,
+                "trace_id": trace_ctx[0] if trace_ctx else None,
                 "req": {
                     "first": export["first"],
                     "max_new_tokens": parsed.max_new_tokens,
@@ -550,9 +563,13 @@ class LmServer:
                 fps = kvtier.chain_fingerprints(
                     ids, export["block_size"],
                     max_blocks=(len(ids) - 1) // export["block_size"])
-            tokens, seated_s = self._kv_sender.migrate(
-                parsed.kv_dest, statics, wire, fingerprints=fps,
-                info=info)
+            with trace.span_under(trace_ctx, "kv_migrate",
+                                  dest=parsed.kv_dest,
+                                  blocks=export["n_blocks"],
+                                  wire_int8=quantized):
+                tokens, seated_s = self._kv_sender.migrate(
+                    parsed.kv_dest, statics, wire, fingerprints=fps,
+                    info=info)
             skipped = int(info.get("skipped_blocks") or 0)
             if skipped:
                 self.metrics["kvxfer_dedup_skipped"].inc(skipped)
@@ -568,9 +585,14 @@ class LmServer:
                 rlog.retire(rid, "error")
             raise
 
-    def generate(self, parsed: ParsedRequest) -> dict:
+    def generate(self, parsed: ParsedRequest,
+                 trace_ctx: Optional[tuple] = None) -> dict:
         """One validated generation request.  May raise engine.QueueFull
-        under backpressure.  Sampled requests ride the batch unless
+        under backpressure.  ``trace_ctx`` is the ``(trace_id, span_id,
+        sampled)`` context the HTTP ingress extracted from the inbound
+        W3C ``traceparent`` (or minted for its own server span): the
+        engine parents its prefill/exclusive spans under it across the
+        thread hop, so one trace spans caller -> ingress -> engine.  Sampled requests ride the batch unless
         ``batch_sampling`` routes them to the exclusive lane; speculative
         requests ride it unless ``batch_spec`` routes them there, or the
         engine has no paged pool to write-mask (windowed configs), or the
@@ -587,7 +609,7 @@ class LmServer:
                 and self.engine is not None and self.engine.paged:
             # fleet fetch-on-miss: a peer caches this prompt's prefix
             # chain; graft it here first so the prefill attaches it
-            self._fetch_on_miss(parsed)
+            self._fetch_on_miss(parsed, trace_ctx)
         if parsed.kv_dest and self._kv_sender is not None \
                 and self.engine is not None and self.engine.paged \
                 and use_batched:
@@ -596,16 +618,18 @@ class LmServer:
             # role, windowed engine), or a request the lane-routing knobs
             # send to the exclusive lane (migration seats batched lanes
             # only), serves here instead
-            toks = self._generate_disagg(parsed)
+            toks = self._generate_disagg(parsed, trace_ctx)
         elif self.engine is not None and use_batched:
             toks = self.engine.submit(parsed.ids, parsed.max_new_tokens,
                                       eos_id=parsed.eos,
                                       temperature=parsed.temperature,
                                       top_k=parsed.top_k, seed=parsed.seed,
-                                      speculative=parsed.speculative)
+                                      speculative=parsed.speculative,
+                                      trace_ctx=trace_ctx)
         elif self.engine is not None:
             toks = self.engine.submit_exclusive(
-                lambda: self._generate_exclusive(parsed))
+                lambda: self._generate_exclusive(parsed),
+                trace_ctx=trace_ctx)
             self.metrics["tokens"].inc(_emitted(toks, parsed.eos))
         else:
             # the lock is held across the whole generation and the copy
@@ -643,7 +667,6 @@ class LmServer:
 
 
 _NOT_PORTED_DEBUG = {
-    "/debug/traces": "span tracing (k8s_tpu/trace) is not ported",
     "/debug/compiles": "eager PyTorch compiles no programs, so the "
                        "reference's compile ledger has no counterpart",
 }
@@ -655,6 +678,11 @@ def debug_index_response() -> tuple[int, str, str]:
     reference's shared index, for the endpoints a serving pod has)."""
     active = requestlog.active() is not None
     endpoints = [
+        {"path": "/debug/traces",
+         "subsystem": "span tracing (k8s_tpu_torch.trace)",
+         "active": trace.enabled(),
+         "activation": "K8S_TPU_TRACE_SAMPLE > 0",
+         "params": ["job", "n"]},
         {"path": "/debug/requests",
          "subsystem": "request lifecycle recorder (models/requestlog.py)",
          "active": active, "activation": "K8S_TPU_REQUEST_LOG=1",
@@ -722,6 +750,9 @@ class _Handler(BaseHTTPRequestHandler):
                                        "text/plain")
             return self._send_text(
                 200, body, "text/plain; version=0.0.4; charset=utf-8")
+        if path == "/debug/traces":
+            return self._send_text(
+                *trace.debug_traces_response(trace.TRACER, query))
         if path == "/debug/requests":
             return self._send_text(
                 *requestlog.debug_requests_response(query))
@@ -759,9 +790,19 @@ class _Handler(BaseHTTPRequestHandler):
         except RequestError as e:
             m["requests"].labels("bad_request").inc()
             return self._send(400, {"error": str(e), "field": e.field})
+        # end-to-end trace join: the inbound W3C traceparent parents this
+        # request's server span, and the engine's prefill/exclusive spans
+        # parent under that across the thread hop: one trace per request
+        # across processes.  With tracing off the recorder still keeps
+        # the inbound trace id on the timeline, so the join survives.
+        inbound = trace.parse_traceparent(self.headers.get("traceparent"))
         start = time.monotonic()
         try:
-            out = lm.generate(parsed)
+            with trace.span_under(inbound, "serve_request",
+                                  prompt_len=int(parsed.ids.size),
+                                  max_new=parsed.max_new_tokens) as sspan:
+                ctx = trace.span_context(sspan) or inbound
+                out = lm.generate(parsed, trace_ctx=ctx)
         except engine_lib.QueueFull as e:
             # backpressure: shed with an explicit retry hint; /healthz
             # stays 200 (serve_rejected_total is counted by the engine)

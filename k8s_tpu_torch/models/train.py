@@ -226,8 +226,24 @@ def make_sharded_train_step(*args, **kwargs):
     raise NotImplementedError(f"the sharded train step {_PARALLEL}")
 
 
-def make_moe_apply_fn(*args, **kwargs):
-    raise NotImplementedError(f"MoE training {_PARALLEL}")
+def make_moe_apply_fn(model, *, aux_loss_weight: float = 0.01, mesh=None):
+    """apply_fn for make_train_step/fit over an MoE transformer: runs the
+    model gathering every MoE layer's load-balance loss and returns
+    ``(logits, aux_loss_weight * sum)``, which the train step adds to the
+    task loss.  Without it the routers get no balancing gradient,
+    collapse onto a few experts, and capacity-bounded dispatch drops most
+    tokens.  ``mesh`` (expert parallelism) is refused."""
+    del model  # the apply_fn takes the model it runs, as every apply_fn
+    if mesh is not None:
+        raise NotImplementedError(f"MoE training over a mesh {_PARALLEL}")
+
+    def apply_fn(m, inputs):
+        aux: list = []
+        logits = m(inputs, aux_losses=aux)
+        total = sum(aux) if aux else logits.new_zeros(())
+        return logits, aux_loss_weight * total
+
+    return apply_fn
 
 
 class MetricsWriter:

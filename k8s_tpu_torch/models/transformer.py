@@ -36,8 +36,14 @@ The KV cache is a list of per-layer dicts of tensors (``new_cache()``),
 updated in place — PyTorch's idiom for state the reference threads through
 flax's ``cache`` collection.
 
+With ``num_experts > 0`` each block's MLP is a routed mixture of experts
+(``models/moe.py``), in every mode: its f32 router keeps its own dtype in
+the served weights (the reference serves it f32), the expert stacks are
+held in ``config.dtype`` like every projection, and
+``forward(aux_losses=[...])`` gathers each layer's load-balance loss.
+
 Not in this port yet (each raises ``NotImplementedError``): the sp ring
-and ulysses (``parallel/``), MoE.
+and ulysses (``parallel/``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from k8s_tpu_torch.models import paged
+from k8s_tpu_torch.models.moe import MoeMLP
 from k8s_tpu_torch.models.paged import quantize_kv
 from k8s_tpu_torch.ops._common import resolve_device
 from k8s_tpu_torch.ops.flash_attention import flash_attention
@@ -387,26 +394,44 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """Attention and an MLP, each behind an RMSNorm and a residual; the
+    MLP is :class:`~k8s_tpu_torch.models.moe.MoeMLP` (``moe_mlp``) when
+    ``num_experts > 0``.  Returns ``(x, aux)``, ``aux`` the MoE layer's
+    load-balance loss or None."""
+
     def __init__(self, config: TransformerConfig):
         super().__init__()
         fused = config.use_fused_norm
         self.attn_norm = RMSNorm(config.hidden, fused=fused)
         self.attn = Attention(config)
         self.mlp_norm = RMSNorm(config.hidden, fused=fused)
-        self.mlp = MLP(config)
+        if config.num_experts > 0:
+            self.moe_mlp = MoeMLP(
+                config.num_experts, config.hidden, config.ffn_hidden,
+                top_k=config.expert_top_k,
+                capacity_factor=config.expert_capacity_factor,
+                dtype=config.dtype)
+        else:
+            self.mlp = MLP(config)
 
     def forward(self, x, positions, mode: str = "train", cache=None):
         x = x + self.attn(self.attn_norm(x), positions, mode, cache)
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if hasattr(self, "moe_mlp"):
+            y, aux = self.moe_mlp(h)
+            return x + y, aux
+        return x + self.mlp(h), None
 
 
 def _served_tensor(config: TransformerConfig, name: str, t: torch.Tensor,
                    device) -> torch.Tensor:
-    """A state-dict tensor in the dtype the forward uses: norm scales keep
-    theirs, the embedding is f32 holding ``config.dtype``-rounded values,
-    every projection is ``config.dtype``.  No copy when it already is."""
+    """A state-dict tensor in the dtype the forward uses: norm scales and
+    MoE routers keep theirs (the router's product runs in f32), the
+    embedding is f32 holding ``config.dtype``-rounded values, every
+    projection and expert stack is ``config.dtype``.  No copy when it
+    already is."""
     t = torch.as_tensor(t)
-    if name.endswith(".scale"):
+    if name.endswith((".scale", ".router")):
         return t.to(device=device)
     if name == "embedding":
         return t.to(device=device, dtype=config.dtype).to(torch.float32)
@@ -426,9 +451,6 @@ class Transformer(nn.Module):
     def __init__(self, config: TransformerConfig, params: dict, *,
                  device="cuda", trainable: bool = False):
         super().__init__()
-        if config.num_experts > 0:
-            raise NotImplementedError(
-                "MoE (num_experts > 0) comes with a later slice of the port")
         self.config = config
         self.trainable = trainable
         with torch.device("meta"):
@@ -454,14 +476,22 @@ class Transformer(nn.Module):
         return [{} for _ in self.layers]
 
     def forward(self, tokens, positions=None, mode: str = "train",
-                cache: Optional[list] = None, return_hidden: bool = False):
+                cache: Optional[list] = None, return_hidden: bool = False,
+                aux_losses: Optional[list] = None):
         """``mode``: "train" (the full teacher-forced pass), "prefill" (the
         same pass plus K/V-cache population) or "decode" (cached steps;
         ``positions`` carries absolute positions).  Prefill and decode
         update ``cache`` (from :meth:`new_cache`) in place.  Returns f32
         logits ``[B, L, V]``, or with ``return_hidden`` the final normed
         hidden states ``[B, L, hidden]`` in ``config.dtype`` (the fused
-        cross-entropy head's input)."""
+        cross-entropy head's input).  A list passed as ``aux_losses``
+        receives each MoE layer's load-balance loss.
+
+        MoE configs decode: routing is per token, so a cached decode
+        matches the teacher-forced pass exactly whenever no (token,
+        choice) pair overflows expert capacity.  Capacity is per call
+        (``B*1`` tokens a decode step against ``B*L`` in training), as in
+        the reference."""
         cfg = self.config
         B, L = tokens.shape
         if mode not in ("train", "prefill", "decode"):
@@ -486,11 +516,13 @@ class Transformer(nn.Module):
         for i, block in enumerate(self.layers):
             if remat:
                 # recompute the block in the backward: HBM for FLOPs
-                x = torch.utils.checkpoint.checkpoint(
+                x, aux = torch.utils.checkpoint.checkpoint(
                     block, x, positions, use_reentrant=False)
             else:
-                x = block(x, positions, mode,
-                          None if cache is None else cache[i])
+                x, aux = block(x, positions, mode,
+                               None if cache is None else cache[i])
+            if aux is not None and aux_losses is not None:
+                aux_losses.append(aux)
         x = self.final_norm(x).to(cfg.dtype)
         if return_hidden:
             return x

@@ -7,8 +7,10 @@
 
 Same presets, flags, defaults, log lines and exit codes as the reference:
 a Transformer (GPT-2-small by default) trained under the operator's env
-contract (``launcher.bootstrap``) on a synthetic corpus staged through
-``models.data``, by ``models.train.fit`` with checkpoint/resume and
+contract (``launcher.bootstrap``) on a token-shard corpus (``--data_dir``,
+``models.dataset.TokenDataset``: a stable ``--eval_fraction`` holdout for
+``--eval_every``, and a resume that continues at the next unread window)
+or a synthetic one, staged through ``models.data``, by ``models.train.fit`` with checkpoint/resume and
 cooperative SIGTERM (exit 143 = retryable; exit 1 on a non-finite loss).
 On the card the flash-attention kernels (forward and backward) are on, as
 the reference turns its Pallas kernels on for a TPU.  After training the
@@ -17,7 +19,7 @@ trained weights are exported as a serving artifact under ``--train_dir``
 
 Flags whose machinery a later slice of the port brings exit non-zero with
 a message saying so: ``--tp``, ``--sp`` and ``--pp`` above 1 (the
-parallel slice) and ``--data_dir`` (the token-shard dataset).
+parallel slice).
 """
 
 from __future__ import annotations
@@ -86,8 +88,10 @@ def parse_args(argv=None):
                    "<train_dir>/metrics.jsonl when --train_dir is set")
     p.add_argument("--eval_every", type=int, default=0, metavar="N",
                    help="evaluate held-out loss every N steps (plus a "
-                   "final eval) on a fixed synthetic eval corpus; 0 "
-                   "disables")
+                   "final eval); 0 disables. With --data_dir the holdout "
+                   "is a stable --eval_fraction tail of the corpus "
+                   "(excluded from training); without, a fixed synthetic "
+                   "eval corpus")
     p.add_argument("--eval_fraction", type=float, default=0.05)
     p.add_argument("--eval_batches", type=int, default=8,
                    help="batches averaged per evaluation")
@@ -112,11 +116,6 @@ def build_config(args, on_gpu: bool):
             f"--tp {args.tp} --sp {args.sp} --pp {args.pp}: tensor, "
             "sequence and pipeline parallelism come with the parallel "
             "slice of the port; use --tp 1 --sp 1 --pp 1")
-    if args.data_dir:
-        raise SystemExit(
-            "--data_dir: the token-shard dataset (TokenDataset, mmap "
-            "shards) comes with a later slice of the port; leave it empty "
-            "for the synthetic corpus")
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise SystemExit(
             f"--batch_size {args.batch_size} is not divisible into "
@@ -193,20 +192,59 @@ def main(argv=None) -> int:
         # the schedule's update count from the checkpoint
         decay_steps=max(1, args.train_steps - args.warmup_steps))
 
-    corpus = synthetic_corpus(
-        cfg.vocab_size, 64 * args.batch_size * args.seq_len, args.seq_len,
-        seed=1)
-    batches = ((b, b) for (b,) in data_lib.array_batches(
-        (corpus,), args.batch_size, seed=0))
-    if args.eval_every > 0:
-        eval_corpus = synthetic_corpus(
-            cfg.vocab_size, 8 * args.batch_size * args.seq_len,
-            args.seq_len, seed=2)  # disjoint fixed eval draw
+    if args.data_dir:
+        from k8s_tpu_torch.models.dataset import TokenDataset
 
-        def eval_iter_factory():
-            return data_lib.prefetch_to_device(
-                ((b, b) for (b,) in data_lib.array_batches(
-                    (eval_corpus,), args.batch_size, seed=0)), device)
+        ds = TokenDataset(args.data_dir)
+        if not ds.vocab_size or ds.vocab_size > cfg.vocab_size:
+            # a missing/zero vocab_size must not pass the guard: ids beyond
+            # the model vocab would fail the embedding gather
+            raise SystemExit(
+                f"dataset vocab {ds.vocab_size or 'unknown'} missing or "
+                f"exceeds model vocab {cfg.vocab_size}")
+        log.info("token dataset: %d tokens, %d windows of %d",
+                 ds.total_tokens, ds.num_sequences(args.seq_len),
+                 args.seq_len)
+        if args.eval_every > 0:
+            # training excludes the stable eval tail; every evaluation
+            # re-reads the same held-out windows
+            batches = ds.batches(args.batch_size, args.seq_len, seed=0,
+                                 split="train",
+                                 eval_fraction=args.eval_fraction)
+
+            def eval_stream():
+                return ds.batches(args.batch_size, args.seq_len,
+                                  shuffle=False, seed=0, split="eval",
+                                  eval_fraction=args.eval_fraction)
+            # probe now: an eval split smaller than the batch fails at
+            # startup, not at the first eval mid-run (the stream's
+            # constructor guard reads no data)
+            try:
+                eval_stream()
+            except ValueError as e:
+                raise SystemExit(
+                    f"{e}\n  (raise --eval_fraction or lower "
+                    "--batch_size so the holdout covers one batch)")
+
+            def eval_iter_factory():
+                return data_lib.prefetch_to_device(eval_stream(), device)
+        else:
+            batches = ds.batches(args.batch_size, args.seq_len, seed=0)
+    else:
+        corpus = synthetic_corpus(
+            cfg.vocab_size, 64 * args.batch_size * args.seq_len,
+            args.seq_len, seed=1)
+        batches = ((b, b) for (b,) in data_lib.array_batches(
+            (corpus,), args.batch_size, seed=0))
+        if args.eval_every > 0:
+            eval_corpus = synthetic_corpus(
+                cfg.vocab_size, 8 * args.batch_size * args.seq_len,
+                args.seq_len, seed=2)  # disjoint fixed eval draw
+
+            def eval_iter_factory():
+                return data_lib.prefetch_to_device(
+                    ((b, b) for (b,) in data_lib.array_batches(
+                        (eval_corpus,), args.batch_size, seed=0)), device)
     data_iter = data_lib.prefetch_to_device(batches, device)
 
     state = train_lib.init_state(model, optimizer)

@@ -24,6 +24,7 @@ from k8s_tpu.models.server import serve as jax_serve
 from k8s_tpu.models.transformer import Transformer as JaxTransformer
 from k8s_tpu.models.transformer import TransformerConfig as JaxConfig
 from k8s_tpu.util.metrics import Registry as JaxRegistry
+from k8s_tpu_torch import trace
 from k8s_tpu_torch.models import bridge, serving
 from k8s_tpu_torch.models.server import LmServer, parse_request, serve
 from k8s_tpu_torch.models.transformer import TransformerConfig
@@ -151,8 +152,19 @@ def test_healthz_metrics_and_404(servers):
     assert 'serve_requests_total{result="ok"}' in text
     assert "serve_tokens_total" in text and "serve_queue_depth 0" in text
     assert "serve_request_duration_seconds_count" in text
-    for path in ("/nope", "/debug/traces"):
-        assert _get(turl, path)[0] == 404
+    assert _get(turl, "/nope")[0] == 404
+    # span tracing is ported: /debug/traces serves the span ring
+    trace.configure(sample_rate=1.0, exporter=trace.RingBufferExporter(8))
+    try:
+        assert _post(turl, {"tokens": [4]})[0] == 200
+        code, body = _get(turl, "/debug/traces")
+        assert code == 200
+        assert [t["name"] for t in json.loads(body)["traces"]] == \
+            ["serve_request"]
+    finally:
+        trace.configure(sample_rate=0.0,
+                        exporter=trace.RingBufferExporter())
+    assert _get(turl, "/debug/traces")[0] == 404  # tracing off again
     code, body = _get(turl, "/debug")  # the index, as the reference's
     assert code == 200 and "/debug/requests" in body
     assert _post(turl, {"tokens": [1]}, path="/v2/other")[0] == 404

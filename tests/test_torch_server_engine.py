@@ -30,6 +30,7 @@ from k8s_tpu.models.server import serve as jax_serve
 from k8s_tpu.models.transformer import Transformer as JaxTransformer
 from k8s_tpu.models.transformer import TransformerConfig as JaxConfig
 from k8s_tpu.util.metrics import Registry as JaxRegistry
+from k8s_tpu_torch import trace
 from k8s_tpu_torch.models import bridge, requestlog, serving
 from k8s_tpu_torch.models.server import LmServer, serve
 from k8s_tpu_torch.models.transformer import TransformerConfig
@@ -314,12 +315,26 @@ def test_debug_index_and_missing_slices(servers):
     code, body = _get(turl, "/debug")
     paths = {e["path"]: e for e in json.loads(body)["endpoints"]}
     assert code == 200
-    assert set(paths) >= {"/debug/requests", "/debug/engine"}
-    for path in ("/debug/traces", "/debug/compiles"):
-        code, body = _get(turl, path)
-        assert code == 404 and ("not ported" in body
-                                or "no counterpart" in body), path
-        assert not paths[path]["active"]
+    assert set(paths) >= {"/debug/requests", "/debug/engine",
+                          "/debug/traces"}
+    code, body = _get(turl, "/debug/compiles")
+    assert code == 404 and "no counterpart" in body
+    assert not paths["/debug/compiles"]["active"]
+    # span tracing is ported: the index marks it active once it is on,
+    # and /debug/traces answers with the engine's spans
+    trace.configure(sample_rate=1.0, exporter=trace.RingBufferExporter(64))
+    try:
+        _post(turl, {"tokens": [8, 9], "max_new_tokens": 3})
+        code, body = _get(turl, "/debug/traces")
+        assert code == 200
+        names = {t["name"] for t in json.loads(body)["traces"]}
+        assert {"serve_request", "prefill", "decode_step"} <= names
+        paths = {e["path"]: e for e in
+                 json.loads(_get(turl, "/debug")[1])["endpoints"]}
+        assert paths["/debug/traces"]["active"]
+    finally:
+        trace.configure(sample_rate=0.0,
+                        exporter=trace.RingBufferExporter())
 
 
 def test_metrics_carry_the_engine_families(servers):

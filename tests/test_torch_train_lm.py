@@ -99,6 +99,18 @@ def test_sigterm_exits_143_with_a_checkpoint(tmp_path):
     (["--data_dir=tests/fixtures/tokens"], "TokenDataset"),
 ])
 def test_later_slice_flags_are_refused(tmp_path, args, match):
+    if match == "TokenDataset":
+        # the token-shard dataset is ported: --data_dir trains on the
+        # fixture corpus (tests/test_torch_dataset.py holds it against
+        # the reference script); only the native C++ reader waits
+        assert train_lm.main([f"--train_dir={tmp_path}", *BASE, *args,
+                              "--train_steps=2"]) == 0
+        from k8s_tpu_torch.models.dataset import TokenDataset
+
+        ds = TokenDataset(os.path.join(REPO, "tests", "fixtures", "tokens"))
+        with pytest.raises(NotImplementedError, match="native"):
+            next(ds.sequences(64, reader="native"))
+        return
     with pytest.raises(SystemExit, match=match):
         train_lm.main([f"--train_dir={tmp_path}", *BASE, *args])
 

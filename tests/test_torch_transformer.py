@@ -181,6 +181,16 @@ def test_init_params_loads_and_is_seeded():
 ])
 def test_later_slices_raise(kw, exc):
     cfg = dataclasses.replace(tt.tiny_test(), **kw)
+    if cfg.num_experts:
+        # MoE is ported: the config builds and runs every mode
+        # (tests/test_torch_moe.py holds it against the reference)
+        params = bridge.init_params(cfg, seed=0, device="cpu")
+        model = tt.Transformer(cfg, params, device="cpu")
+        aux = []
+        logits = model(torch.zeros(1, 4, dtype=torch.long), aux_losses=aux)
+        assert logits.shape == (1, 4, cfg.vocab_size) and len(aux) == 2
+        assert isinstance(model.layers[0].moe_mlp, tt.MoeMLP)
+        return
     params = bridge.init_params(tt.tiny_test(), seed=0, device="cpu")
     with pytest.raises(exc, match="slice"):
         tt.Transformer(cfg, params, device="cpu")(
