@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's main paths, on one card.
 
-    python3 chip_profile.py [--path serve|train|engine|spec|both]
+    python3 chip_profile.py [--path serve|train|engine|spec|resnet|vit|both]
                             [--prompt_len 509] [--new_tokens 32] [--seed 0]
 
 ``serve``: builds the model chip_smoke.py serves (llama_8b widths, bf16,
@@ -48,6 +48,18 @@ builds it:
   median of 5 after 3 warm-up steps;
 - ``torch.profiler`` over one step: device time by kernel and the
   device-busy share.
+
+``resnet``, ``vit``: one training step of chip_smoke.py's ``resnet``
+phase (ResNet-50, bf16, 7x7 stem, SGD momentum) or ``vit`` phase
+(ViT-B/16, bf16, fused norm on, AdamW), B128 at 224x224, built by
+chip_smoke.py's own ``resnet_trainer`` / ``vit_trainer``:
+
+- host clock around steps that end in ``torch.cuda.synchronize()``,
+  median of 5 after 3 warm-up steps (``cudnn.benchmark`` on);
+- ``torch.profiler`` over one step: device time by kernel and by class
+  (convolution, matmul, norm, softmax, pool, elementwise and reductions,
+  optimizer) and the device-busy share; ``vit`` also times one layer's
+  plain attention, forward and backward, with CUDA events.
 
 Prints JSON lines; everything also goes to
 ``chip_reports/chip_profile.json``.
@@ -385,10 +397,115 @@ def profile_train(torch, args, report) -> int:
     return 0
 
 
+# Device time by class of kernel, from the kernel's name (the first class
+# whose pattern the lower-cased name holds).  The plain attention's two
+# products are cuBLAS batched GEMMs and count as matmul; ``--path vit``
+# times the attention on its own beside the profile.
+OP_CLASSES = (
+    ("optimizer", ("multi_tensor_apply", "adam", "sgd")),
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("norm", ("batch_norm", "bn_", "rms_norm")),
+    ("softmax", ("softmax",)),
+    ("pool", ("pool",)),
+    ("elementwise_reduce", ("elementwise", "reduce", "copy", "fill",
+                            "cat", "index", "scatter", "gather")),
+)
+
+
+def op_classes(by_name: dict) -> dict:
+    """{class: {"ms", "count", "share"}} over every kernel in ``by_name``
+    (``other`` for a name no pattern matches)."""
+    out: dict = {}
+    for name, (count, ms) in by_name.items():
+        low = name.lower()
+        cls = next((c for c, pats in OP_CLASSES
+                    if any(p in low for p in pats)), "other")
+        rec = out.setdefault(cls, {"ms": 0.0, "count": 0})
+        rec["ms"] += ms
+        rec["count"] += count
+    busy = sum(r["ms"] for r in out.values())
+    for rec in out.values():
+        rec["share"] = rec["ms"] / busy
+    return out
+
+
+def profile_vision(torch, args, report, path: str) -> int:
+    """One training step of chip_smoke.py's ``resnet`` (ResNet-50, conv
+    stem, SGD momentum) or ``vit`` (ViT-B/16, fused norm on, AdamW) phase
+    at its batch, from its step builders: host clock of steps ending in a sync (median of 5
+    after 3 warm-up steps, ``cudnn.benchmark`` on), then
+    ``torch.profiler`` over one step: device time by kernel and by class
+    (``OP_CLASSES``) and the device-busy share.  For ``vit`` also the
+    plain attention of one layer, forward and backward, by CUDA events."""
+    import chip_smoke as smoke
+    from k8s_tpu_torch.models import resnet, vit
+    from k8s_tpu_torch.models import train as train_lib
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats()
+    if path == "resnet":
+        B, gflop = smoke.RESNET_BATCH, smoke.RESNET_GFLOP
+        x, y = smoke.vision_batch(torch, B, args.seed)
+        _, step = smoke.resnet_trainer(torch, resnet, train_lib, x, y,
+                                       "conv", args.seed)
+    else:
+        B, gflop = smoke.VIT_BATCH, smoke.VIT_GFLOP
+        x, y = smoke.vision_batch(torch, B, args.seed)
+        cfg = vit.vit_b16(remat=False, use_fused_norm=True)
+        weights = vit.ViT(cfg, device="cuda", seed=args.seed).state_dict()
+        _, step = smoke.vit_trainer(torch, vit, train_lib, cfg, x, y,
+                                    weights)
+
+    def run():
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(3):  # warm-up: cuDNN's algorithm search, allocator
+        run()
+    step_s = median([run() for _ in range(5)])
+    wall = {"step_s": step_s, "images_per_s": B / step_s,
+            "peak_16bit_share":
+                3 * 2 * gflop * 1e9 * B / step_s / smoke.PEAK_16BIT,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "cudnn_benchmark": True}
+    if path == "vit":
+        from k8s_tpu_torch.models.transformer import _plain_attention
+
+        q, k, v = (torch.randn(B, 197, 12, 64, device="cuda",
+                               dtype=torch.bfloat16, requires_grad=True)
+                   for _ in range(3))
+        do = torch.randn(B, 197, 12, 64, device="cuda", dtype=torch.bfloat16)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        for _ in range(3):
+            _plain_attention(q, k, v, False).backward(do)
+        start.record()
+        for _ in range(10):
+            _plain_attention(q, k, v, False).backward(do)
+        end.record()
+        torch.cuda.synchronize()
+        wall["attention_fwd_bwd_ms_a_layer"] = start.elapsed_time(end) / 10
+    report[f"{path}_wall"] = wall
+    emit({"phase": f"{path}_wall", "batch": [B, 224, 224, 3], **wall})
+    by_name, traced_s, kernels = profile_device(torch, run)
+    if not kernels:
+        print("FAIL: the profiler saw no device work", file=sys.stderr)
+        return 1
+    rec = summary(f"profile_{path}_step", by_name, traced_s, kernels, 25)
+    rec["by_class"] = op_classes(by_name)
+    report[rec["phase"]] = rec
+    emit(rec)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--path",
-                   choices=["serve", "train", "engine", "spec", "both"],
+                   choices=["serve", "train", "engine", "spec", "resnet",
+                            "vit", "both"],
                    default="both")
     p.add_argument("--prompt_len", type=int, default=509)
     p.add_argument("--new_tokens", type=int, default=32)
@@ -419,6 +536,8 @@ def main(argv=None) -> int:
         rc = rc or profile_engine(torch, args, report)
     if args.path == "spec":
         rc = rc or profile_spec(torch, args, report)
+    if args.path in ("resnet", "vit"):
+        rc = rc or profile_vision(torch, args, report, args.path)
 
     os.makedirs(os.path.join(REPO, "chip_reports"), exist_ok=True)
     with open(os.path.join(REPO, "chip_reports", "chip_profile.json"),

@@ -93,6 +93,22 @@ Phases, each fatal on failure:
    steps with checkpoints and a held-out eval every 3, exact launches,
    then a run resumed from step 3 whose losses equal the uninterrupted
    run's.
+8. vision and dist_mnist: ``vision_parity`` (``resnet18_thin`` with both
+   stems, ``vit_tiny_test`` with the RMSNorm kernel, ``MnistCNN``, f32:
+   logits, one training step's loss and gradients, ResNet's BatchNorm
+   running stats and SGD parameters, cuda against cpu); ``resnet``:
+   ResNet-50 in bf16 at B128, 224x224, 1000 classes, SGD momentum, 3
+   warm-up and 10 timed steps with the 7x7 stem and with the s2d stem
+   (images/s, step ms, peak memory; finite, moving loss and BN stats; no
+   hand-written kernel launched); ``vit``: ViT-B/16 in bf16 at B128,
+   AdamW, fused norm on and off in turns on / off / off / on from the
+   same weights (images/s each, peak memory, the first step's loss
+   difference against the bf16 model's own rounding error, K1 exactly 25
+   launches a step with fused norm on and none with it off); ``mnist``:
+   ``k8s_tpu_torch.dist_mnist.main`` on the committed digit fixture with
+   a held-out split and checkpoints, then a run resumed at step 100
+   whose losses and final weights equal the uninterrupted run's; K1 at
+   the ViT shape [25216, 768] joins the kernel cases.
 
 Prints the card line first, one JSON object per phase and case, then a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -106,6 +122,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import subprocess
@@ -331,7 +348,8 @@ def rms_cases(torch, F, fused_norm, _build=None):
              ("strided_4104", 64, 4096, bf, f32, 4104),
              ("strided_4100", 64, 4096, bf, f32, 4100),
              ("ragged_d_99_f16", 5, 99, f16, f32),
-             ("wide_d_8195_f32", 2, 8195, f32, f32)]
+             ("wide_d_8195_f32", 2, 8195, f32, f32),
+             ("vit_b16_train", 128 * 197, 768, bf, f32)]
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for name, N, D, xd, sd, *width in cases:
@@ -1962,6 +1980,17 @@ TRAIN_ARGS = ["--preset", "gpt2-small", "--batch_size", "8", "--seq_len",
               "5", "--log_every", "1", "--generate", "8", "--device", "cuda"]
 
 
+class Messages(logging.Handler):
+    """Collects the messages of the loggers it is added to."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
 def serve_lm_runs(torch, tlib, common, train_dir, cfg) -> dict:
     """``python -m k8s_tpu_torch.serve_lm`` on the exported artifact, run
     in this process (``runpy``, as ``-m`` runs it) so its launches can be
@@ -1973,17 +2002,11 @@ def serve_lm_runs(torch, tlib, common, train_dir, cfg) -> dict:
     when the artifact turns it on (gpt2-small does not)."""
     import contextlib
     import io
-    import logging
     import runpy
 
     prompt = ",".join(str(t) for t in list(range(101, 117)) * 2)
-    logs: list[str] = []
-
-    class Collect(logging.Handler):
-        def emit(self, record):
-            logs.append(record.getMessage())
-
-    handler = Collect()
+    handler = Messages()
+    logs = handler.lines
     logging.getLogger("serve_lm").addHandler(handler)
     out = {}
     try:
@@ -2942,6 +2965,463 @@ def data_path(torch, train_lm, common, dataset):
     return launches
 
 
+# -- phase 8: the vision models and dist_mnist -------------------------------
+
+
+VISION_TOL = 1e-4      # logits, losses, parameters after an SGD step
+VISION_GRAD_TOL = 1e-3  # gradients, per tensor
+BN_RTOL, BN_ATOL = 1e-5, 1e-6
+
+
+def rel_err(got, want) -> float:
+    """Max abs difference over the largest magnitude of ``want``."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                 1e-12)
+
+
+def vision_parity(torch, resnet, vit, mnist, train_lib):
+    """``resnet18_thin`` (both stems), ``vit_tiny_test`` (fused norm on:
+    K1 on the card) and ``MnistCNN``, f32, each built on the cpu and on
+    the card with the same weights and fed the same batch: the logits
+    (ResNet in eval mode), then one training step, its loss, every
+    gradient and, for ResNet, the BatchNorm running stats after the step
+    and the parameters after SGD(0.1, momentum 0.9).  Tolerances:
+    logits, losses and parameters 1e-4 relative to the largest magnitude
+    of the cpu tensor (summation order); gradients 1e-3 per tensor (cuDNN
+    may pick an FFT or Winograd algorithm, whose f32 rounding differs more
+    than a direct sum's; TF32 is off); running stats rtol 1e-5, atol
+    1e-6."""
+    g = torch.Generator().manual_seed(21)
+    img32 = torch.randn(4, 32, 32, 3, generator=g)
+    img28 = torch.rand(8, 28, 28, 1, generator=g)
+    labels = torch.randint(0, 10, (8,), generator=g)
+    cases = [("resnet18_thin_conv",
+              lambda d: resnet.resnet18_thin(stem="conv", device=d, seed=3),
+              img32, labels[:4], "sgd"),
+             ("resnet18_thin_s2d",
+              lambda d: resnet.resnet18_thin(stem="s2d", device=d, seed=3),
+              img32, labels[:4], "sgd"),
+             ("vit_tiny_fused",
+              lambda d: vit.ViT(dataclasses.replace(
+                  vit.vit_tiny_test(), use_fused_norm=True), device=d,
+                  seed=4), img32, labels[:4], "adam"),
+             ("mnist_cnn", lambda d: mnist.MnistCNN(device=d, seed=5),
+              img28, labels, "adam")]
+    out = {}
+    for name, build, x, y, opt_name in cases:
+        models = {"cpu": build("cpu")}
+        # a copy: the state dict's tensors are the live ones, which the
+        # step updates in place
+        sd = {n: t.clone() for n, t in models["cpu"].state_dict().items()}
+        models["cuda"] = build("cuda")
+        models["cuda"].load_state_dict(sd)
+        res = {}
+        for dev, m in models.items():
+            xd, yd = x.to(dev), y.to(dev)
+            is_resnet = name.startswith("resnet")
+            with torch.no_grad():
+                logits = m(xd, train=False) if is_resnet else m(xd)
+            if opt_name == "sgd":
+                opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+            else:
+                opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+            loss = train_lib.cross_entropy_loss(
+                m(xd, train=True) if is_resnet else m(xd), yd)
+            loss.backward()
+            grads = {n: p.grad.clone() for n, p in m.named_parameters()}
+            opt.step()
+            res[dev] = {"logits": logits, "loss": loss.detach(),
+                        "grads": grads, "state": m.state_dict()}
+        c, r = res["cuda"], res["cpu"]
+        rec = {"phase": "vision_parity", "model": name,
+               "logits_rel_err": rel_err(c["logits"], r["logits"]),
+               "loss_rel_err": rel_err(c["loss"], r["loss"]),
+               "grad_rel_err": max(rel_err(c["grads"][n], r["grads"][n])
+                                   for n in r["grads"])}
+        bad = rec["logits_rel_err"] > VISION_TOL or \
+            rec["loss_rel_err"] > VISION_TOL or \
+            rec["grad_rel_err"] > VISION_GRAD_TOL
+        if name.startswith("resnet"):
+            stats = [n for n in r["state"] if n.endswith((".mean", ".var"))]
+            rec["bn_stats_max_abs_err"] = max(
+                (c["state"][n].cpu() - r["state"][n]).abs().max().item()
+                for n in stats)
+            moved = [n for n in stats if not torch.equal(
+                r["state"][n], sd[n])]
+            rec["bn_stats_moved"] = f"{len(moved)}/{len(stats)}"
+            rec["param_rel_err_after_sgd"] = max(
+                rel_err(c["state"][n], r["state"][n])
+                for n in r["grads"])
+            bad = bad or len(moved) != len(stats) or \
+                rec["param_rel_err_after_sgd"] > VISION_TOL or not all(
+                    torch.allclose(c["state"][n].cpu(), r["state"][n],
+                                   rtol=BN_RTOL, atol=BN_ATOL)
+                    for n in stats)
+        rec.update(tol=VISION_TOL, grad_tol=VISION_GRAD_TOL,
+                   bn_rtol=BN_RTOL, bn_atol=BN_ATOL)
+        if bad:
+            fail(f"vision parity {name} cuda vs cpu: {rec}")
+        emit(rec)
+        out[name] = rec
+    REPORT["vision_parity"] = out
+
+
+RESNET_BATCH = 128
+RESNET_WARMUP, RESNET_STEPS = 3, 10
+RESNET_GFLOP = 4.1  # ResNet-50's forward, one 224x224 image
+VIT_BATCH = 128
+VIT_GFLOP = 17.6    # ViT-B/16's forward, one 224x224 image
+
+
+def vision_batch(torch, B: int, seed: int):
+    """Random NHWC images ``[B, 224, 224, 3]`` and labels in [0, 1000),
+    on the card, from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, 224, 224, 3, generator=g, device="cuda")
+    return x, torch.randint(0, 1000, (B,), generator=g, device="cuda")
+
+
+def resnet_trainer(torch, resnet, train_lib, x, y, stem: str, seed: int):
+    """``resnet50(dtype=bf16, stem=stem)`` with SGD(lr 0.1, momentum 0.9),
+    the ``optax.sgd(0.1, momentum=0.9)`` of the reference: ``(model,
+    step)``, where ``step()`` trains once on (x, y) and returns the
+    loss."""
+    model = resnet.resnet50(dtype=torch.bfloat16, stem=stem, device="cuda",
+                            seed=seed)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = train_lib.cross_entropy_loss(model(x, train=True), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return model, step
+
+
+def vit_trainer(torch, vit, train_lib, cfg, x, y, weights):
+    """``ViT(cfg)`` from the state dict ``weights`` with AdamW
+    (``default_optimizer(1e-3, weight_decay=0.05)``, bench.py's cell):
+    ``(model, step)``, where ``step()`` trains once on (x, y) and returns
+    the loss."""
+    model = vit.ViT(cfg, device="cuda")
+    model.load_state_dict(weights)
+    opt = train_lib.default_optimizer(1e-3, weight_decay=0.05)
+    state = train_lib.init_state(model, opt)
+    train_step = train_lib.make_train_step(
+        lambda m, b: m(b), train_lib.cross_entropy_loss, opt)
+    return model, lambda: train_step(state, (x, y))[1]
+
+
+def resnet_path(torch, resnet, train_lib, common):
+    """``resnet50(dtype=bf16)`` at full width and depth (bench.py's
+    ResNet-50 cell: B128 at 224x224x3, 1000 classes), random NHWC images
+    and labels from a seed, trained with SGD(lr 0.1, momentum 0.9), the
+    ``optax.sgd(0.1, momentum=0.9)`` of the reference: 3 warm-up steps
+    (cuDNN's algorithm search, with ``cudnn.benchmark`` on for this
+    phase), then 10 timed steps, with the 7x7 stem and then the s2d
+    stem.  Per step: CUDA events around each step (device time of the
+    step's queue) and the host clock around all 10 (images/s).  The loss
+    and every BatchNorm running stat must be finite and must have moved;
+    no hand-written kernel may launch (the reference's convolutions are
+    XLA, not Pallas)."""
+    B = RESNET_BATCH
+    x, y = vision_batch(torch, B, 31)
+    flops = 3 * 2 * RESNET_GFLOP * 1e9 * B
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    out, launches = {}, {}
+    try:
+        for stem in ("conv", "s2d"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model, step = resnet_trainer(torch, resnet, train_lib, x, y,
+                                         stem, 32)
+            stats0 = {n: b.clone() for n, b in model.named_buffers()}
+            common.reset_launches()
+            t0 = time.perf_counter()
+            losses = [step() for _ in range(RESNET_WARMUP)]
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(RESNET_STEPS + 1)]
+            t0 = time.perf_counter()
+            events[0].record()
+            for i in range(RESNET_STEPS):
+                losses.append(step())
+                events[i + 1].record()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches[stem] = common.launches()
+            losses = torch.stack(losses).tolist()
+            step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            stats = dict(model.named_buffers())
+            finite = all(math.isfinite(v) for v in losses) and all(
+                bool(torch.isfinite(b).all()) for b in stats.values())
+            moved = sum(not torch.equal(stats[n], stats0[n]) for n in stats)
+            rec = {"phase": "resnet", "card": REPORT["card"],
+                   "config": f"resnet50 bf16 stem={stem}, f32 params and "
+                             "BN stats, channels_last, SGD(0.1, m=0.9)",
+                   "batch": [B, 224, 224, 3], "cudnn_benchmark": True,
+                   "warmup_steps": RESNET_WARMUP, "warmup_s": warm_s,
+                   "steps": RESNET_STEPS, "wall_s": wall_s,
+                   "images_per_s": B * RESNET_STEPS / wall_s,
+                   "step_ms": step_ms,
+                   "step_ms_median": sorted(step_ms)[RESNET_STEPS // 2],
+                   "flops_per_step": flops,
+                   "peak_16bit_share":
+                       flops / (wall_s / RESNET_STEPS) / PEAK_16BIT,
+                   "max_memory_allocated_gib":
+                       torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "params": sum(p.numel() for p in model.parameters()),
+                   "losses": losses,
+                   "bn_buffers_moved": f"{moved}/{len(stats)}",
+                   "launches": launches[stem]}
+            if not finite or moved != len(stats) or \
+                    losses[0] == losses[-1] or \
+                    any(launches[stem].values()):
+                fail(f"resnet50 {stem}: losses {losses}, finite {finite}, "
+                     f"BN buffers moved {moved}/{len(stats)}, launches "
+                     f"{launches[stem]} (expected none)")
+            emit(rec)
+            out[stem] = rec
+            del model, step, stats, stats0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    REPORT["resnet"] = out
+    return {k: sum(v[k] for v in launches.values()) for k in common.KERNELS}
+
+
+VIT_STEPS = 5  # a turn
+
+
+def vit_path(torch, vit, train_lib, common):
+    """``ViT(vit_b16(remat=False))`` at full width (hidden 768, 12 layers,
+    12 heads, ffn 2048, 224/16 -> 197 tokens), bf16 over f32 masters,
+    B128, AdamW (``default_optimizer(1e-3, weight_decay=0.05)``, as
+    bench.py's cell), twice from the same weights: with
+    ``use_fused_norm`` (K1 for every block's two norms and the final
+    norm) and without, in turns on / off / off / on of 5 steps each after
+    a warm-up step each (``cudnn.benchmark`` on).  Every norm scale is
+    drawn from U[0.5, 1.5), not left at its init of 1, so that a K1 which
+    dropped or misapplied the scale would show.  K1 must launch exactly
+    2*12+1 = 25 times a step with fused norm on and never with it off.
+    On the same batch and weights, fused norm on and off may differ by
+    at most the bf16 model's own rounding error there, measured against
+    the same weights run in f32 without gradients: the first forward's
+    logits by at most twice max|logits(off) - logits(f32)| (each of on
+    and off carries its own rounding error of that size), the first
+    step's loss by at most |loss(off) - loss(f32)|, and never less than
+    one bf16 step of the loss (2^-8 relative)."""
+    B = VIT_BATCH
+    x, y = vision_batch(torch, B, 41)
+    base = vit.vit_b16(remat=False)
+    flops = 3 * 2 * VIT_GFLOP * 1e9 * B
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    weights = vit.ViT(base, device="cuda", seed=42).state_dict()
+    g = torch.Generator(device="cuda").manual_seed(43)
+    for name, t in weights.items():
+        if name.endswith(".scale"):
+            t.copy_(0.5 + torch.rand(t.shape, generator=g, device="cuda"))
+    runs = {}
+    for fused in (True, False):
+        model, step = vit_trainer(
+            torch, vit, train_lib,
+            dataclasses.replace(base, use_fused_norm=fused), x, y, weights)
+        runs[fused] = {"model": model, "step": step, "wall_s": [],
+                       "launches": [], "losses": []}
+    try:
+        with torch.no_grad():
+            ref = vit.ViT(dataclasses.replace(base, dtype=torch.float32),
+                          device="cuda")
+            ref.load_state_dict(weights)
+            logits_f32 = ref(x).float()
+            loss_f32 = train_lib.cross_entropy_loss(logits_f32, y).item()
+            del ref
+            logits = {fused: r["model"](x).float()
+                      for fused, r in runs.items()}
+        logit_err = (logits[False] - logits_f32).abs().max().item()
+        logit_diff = (logits[True] - logits[False]).abs().max().item()
+        logit_scale = logits_f32.abs().max().item()
+        del logits, logits_f32
+        first = {}
+        for fused, r in runs.items():  # warm-up: the same first batch
+            first[fused] = r["step"]().item()
+        for fused in (True, False, False, True):
+            r = runs[fused]
+            torch.cuda.synchronize()
+            common.reset_launches()
+            t0 = time.perf_counter()
+            losses = [r["step"]() for _ in range(VIT_STEPS)]
+            torch.cuda.synchronize()
+            r["wall_s"].append(time.perf_counter() - t0)
+            r["launches"].append(common.launches())
+            r["losses"] += torch.stack(losses).tolist()
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_k1 = 25 * VIT_STEPS
+    launches = {fused: {k: sum(lc[k] for lc in r["launches"])
+                        for k in common.KERNELS}
+                for fused, r in runs.items()}
+    ok = all(lc == {**dict.fromkeys(common.KERNELS, 0),
+                    "rms_norm": want_k1 if fused else 0}
+             for fused, r in runs.items() for lc in r["launches"])
+    bound = max(abs(first[False] - loss_f32), 2 ** -8 * abs(loss_f32))
+    diff = abs(first[True] - first[False])
+    finite = all(math.isfinite(v) for r in runs.values()
+                 for v in r["losses"])
+    rec = {"phase": "vit", "card": REPORT["card"],
+           "config": "vit_b16(remat=False) bf16 over f32 masters, plain "
+                     "attention, AdamW(1e-3, wd 0.05)",
+           "batch": [B, 224, 224, 3], "cudnn_benchmark": True,
+           "turns": ["on", "off", "off", "on"], "steps_per_turn": VIT_STEPS,
+           "flops_per_step": flops,
+           "fused_on": {"turn_wall_s": runs[True]["wall_s"],
+                        "images_per_s": [B * VIT_STEPS / w
+                                         for w in runs[True]["wall_s"]],
+                        "launches_per_turn": runs[True]["launches"]},
+           "fused_off": {"turn_wall_s": runs[False]["wall_s"],
+                         "images_per_s": [B * VIT_STEPS / w
+                                          for w in runs[False]["wall_s"]],
+                         "launches_per_turn": runs[False]["launches"]},
+           "norm_scales": "U[0.5, 1.5) from seed 43",
+           "first_logits": {"max_abs_diff_on_off": logit_diff,
+                            "bound": 2 * logit_err,
+                            "max_abs_err_off_vs_f32": logit_err,
+                            "max_abs_f32": logit_scale},
+           "first_step_loss": {"on": first[True], "off": first[False],
+                               "f32_no_grad": loss_f32},
+           "first_step_loss_abs_diff": diff, "loss_diff_bound": bound,
+           "losses_on": runs[True]["losses"],
+           "losses_off": runs[False]["losses"],
+           "max_memory_allocated_gib": peak,
+           "params": sum(p.numel() for p in runs[True]["model"].parameters()),
+           "expected_rms_norm_per_turn": {"on": want_k1, "off": 0}}
+    rec["peak_16bit_share_on"] = flops * VIT_STEPS / min(
+        runs[True]["wall_s"]) / PEAK_16BIT
+    if not ok or diff > bound or logit_diff > 2 * logit_err or not finite:
+        fail(f"vit_b16: {rec}")
+    emit(rec)
+    REPORT["vit"] = rec
+    del runs, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[True]
+
+
+MNIST_ARGS = ["--device", "cuda", "--eval_holdout", "256",
+              "--checkpoint_every", "50"]
+MNIST_STEPS = 200
+
+
+def mnist_path(torch, dist_mnist, mnist, mnist_data, train_lib, common):
+    """``k8s_tpu_torch.dist_mnist.main`` in-process on the committed
+    real-digit fixture (``tests/fixtures/mnist``, 1797 digits; the last
+    256 held out): 200 steps with a checkpoint every 50, then a second
+    training directory run to step 100 and resumed to 200.  The resumed
+    run's logged losses from step 100 on and its final weights must equal
+    the uninterrupted run's exactly: the same batches (the stream is
+    fast-forwarded at the resume) through deterministic kernels
+    (``cudnn.deterministic`` on, ``cudnn.benchmark`` off, for this phase
+    only).  The step time is a separate clock of the same step
+    (``make_train_step``, Adam, B64) over 50 steps ending in a sync, after
+    5 warm-up steps.  No hand-written kernel may launch."""
+    data = os.path.join(REPO, "tests", "fixtures", "mnist")
+    logger = logging.getLogger("dist_mnist")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    logs, weights = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for name, plan in (("full", [MNIST_STEPS]),
+                               ("resumed", [MNIST_STEPS // 2, MNIST_STEPS])):
+                d = os.path.join(root, name)
+                handler = Messages()
+                logger.addHandler(handler)
+                try:
+                    if name == "full":
+                        common.reset_launches()
+                        t0 = time.perf_counter()
+                    for n in plan:
+                        rc = dist_mnist.main(MNIST_ARGS + [
+                            "--data_dir", data, "--train_dir", d,
+                            "--train_steps", str(n)])
+                        if rc != 0:
+                            fail(f"dist_mnist ({name}, {n} steps) exited "
+                                 f"{rc}")
+                    torch.cuda.synchronize()
+                    if name == "full":
+                        wall_s = time.perf_counter() - t0
+                        launches = common.launches()
+                finally:
+                    logger.removeHandler(handler)
+                logs[name] = handler.lines
+                weights[name] = torch.load(
+                    os.path.join(d, dist_mnist.CKPT_NAME),
+                    map_location="cpu", weights_only=True)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+
+    def losses(lines, start):
+        out = {}
+        for m in lines:
+            parts = m.split()
+            if len(parts) == 4 and parts[0] == "step" and parts[2] == "loss":
+                if int(parts[1]) >= start:
+                    out[int(parts[1])] = parts[3]
+        return out
+    full, res = logs["full"], logs["resumed"]
+    acc = [m for m in full if m.startswith("held-out accuracy")]
+    restored = [m for m in res if m.startswith("restored checkpoint")]
+    want, got = losses(full, MNIST_STEPS // 2), losses(res, MNIST_STEPS // 2)
+    same_weights = all(
+        torch.equal(t, weights["resumed"]["model"][n])
+        for n, t in weights["full"]["model"].items())
+    if not (acc and restored and want and got == want and same_weights
+            and weights["resumed"]["step"] == MNIST_STEPS
+            and not any(launches.values())):
+        fail(f"dist_mnist: accuracy {acc}, restored {restored}, losses "
+             f"{got} vs uninterrupted {want}, same weights {same_weights}, "
+             f"launches {launches}")
+
+    # the step's own time, outside main's logging and checkpoints
+    x, y = (torch.from_numpy(a[:64]).cuda()
+            for a in mnist_data.load_dataset(data))
+    model = mnist.MnistCNN(device="cuda", seed=0)
+    opt = train_lib.default_optimizer(1e-3)
+    state = train_lib.init_state(model, opt)
+    step = train_lib.make_train_step(lambda m, b: m(b),
+                                     train_lib.cross_entropy_loss, opt)
+    for _ in range(5):
+        step(state, (x, y))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        step(state, (x, y))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 50 * 1e3
+    rec = {"phase": "mnist", "card": REPORT["card"],
+           "config": "dist_mnist.main, MnistCNN f32, Adam 1e-3, B64, "
+                     "tests/fixtures/mnist (1797 digits, 256 held out)",
+           "args": MNIST_ARGS, "steps": MNIST_STEPS,
+           "cudnn_deterministic": True, "full_run_wall_s": wall_s,
+           "held_out_accuracy": acc[0], "resumed_from": restored[0],
+           "losses_from_resume": got, "resumed_weights_equal": same_weights,
+           "step_ms": step_ms, "launches": launches}
+    emit(rec)
+    REPORT["mnist"] = rec
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2950,8 +3430,9 @@ def main() -> int:
              "card")
     sys.path.insert(0, REPO)
     try:
-        from k8s_tpu_torch import trace, train_lm
+        from k8s_tpu_torch import dist_mnist, trace, train_lm
         from k8s_tpu_torch.models import bridge, dataset, decode, moe
+        from k8s_tpu_torch.models import mnist, mnist_data, resnet, vit
         from k8s_tpu_torch.models import server, serving
         from k8s_tpu_torch.models import engine as engine_lib
         from k8s_tpu_torch.models import requestlog
@@ -2999,6 +3480,7 @@ def main() -> int:
     spec_parity(torch, tlib, bridge, decode, engine_lib)
     train_parity(torch, tlib, bridge, train_lib, _common)
     moe_parity(torch, tlib, bridge, decode, train_lib, moe)
+    vision_parity(torch, resnet, vit, mnist, train_lib)
     served = serve_main_path(torch, tlib, bridge, server, _common)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3029,6 +3511,12 @@ def main() -> int:
     moe_trained = moe_train(torch, tlib, bridge, train_lib, _common, dataset,
                             moe)
     data = data_path(torch, train_lm, _common, dataset)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_run = resnet_path(torch, resnet, train_lib, _common)
+    vit_run = vit_path(torch, vit, train_lib, _common)
+    mnist_run = mnist_path(torch, dist_mnist, mnist, mnist_data, train_lib,
+                           _common)
     gc.collect()
     torch.cuda.empty_cache()
     # last: its profiler session slows every later host clock
@@ -3062,6 +3550,9 @@ def main() -> int:
                    "serve_moe_llama_8b_e8_20_layers": moe_served[kname],
                    "train_moe_llama_width_e8_2_layers": moe_trained[kname],
                    "train_lm_data_dir_gpt2_small": data[kname],
+                   "train_resnet50_both_stems": resnet_run[kname],
+                   "train_vit_b16_fused_norm": vit_run[kname],
+                   "dist_mnist": mnist_run[kname],
                    **{f"serve_lm_{mode}_gpt2_small": r[kname]
                       for mode, r in lm_runs.items()}}
         kernels.append({"name": kname, "route": route, "source": source,
@@ -3080,6 +3571,15 @@ def main() -> int:
                             "spill_loads", "smem_static_bytes",
                             "smem_dynamic_bytes")
                            if key in rec}})
+    # K1 at the ViT-B/16 training shape, the first shape no earlier path
+    # gave it
+    vit_case = rms["vit_b16_train"]
+    kernels[1]["vit_case"] = {
+        key: vit_case[key] for key in (
+            "case", "shape", "max_abs_err", "ms", "wall_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share", "body",
+            "plan", "registers", "spill_stores", "spill_loads")
+        if key in vit_case}
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     emit({"phase": "done", "total_s": REPORT["total_s"]})

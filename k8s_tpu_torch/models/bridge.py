@@ -1,5 +1,7 @@
-"""Parameters between the reference's flax tree and the port's state dict,
-and random parameters drawn directly on the device.
+"""Parameters between the reference's flax trees and the port's state
+dicts, and random LM parameters drawn directly on the device.  The LM's
+mapping comes first; the vision models' (ResNet, ViT, the MNIST CNN) are
+at the end of the module.
 
 The flax tree (``k8s_tpu/models/transformer.py``), as numpy arrays::
 
@@ -52,60 +54,72 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _block_from_jax(lt, p: str, sd: dict) -> None:
+    """One encoder/decoder block's flax subtree into ``sd`` under the
+    state-dict prefix ``p`` (``layers.{i}.``)."""
+    for norm in ("attn_norm", "mlp_norm"):
+        sd[p + norm + ".scale"] = _to_torch(lt[norm]["scale"])
+    for name in _ATTN:
+        kern = np.asarray(lt["attn"][name]["kernel"])
+        sd[p + f"attn.{name}.weight"] = _to_torch(
+            kern.reshape(kern.shape[0], -1).T)
+    kern = np.asarray(lt["attn"]["o_proj"]["kernel"])
+    sd[p + "attn.o_proj.weight"] = _to_torch(
+        kern.reshape(-1, kern.shape[-1]).T)
+    if "moe_mlp" in lt:
+        for name in _MOE:
+            sd[p + f"moe_mlp.{name}"] = _to_torch(lt["moe_mlp"][name])
+    else:
+        for name in _MLP:
+            sd[p + f"mlp.{name}.weight"] = _to_torch(
+                np.asarray(lt["mlp"][name]["kernel"]).T)
+
+
+def _n_layers(tree) -> int:
+    return sum(1 for k in tree if k.startswith("layer_"))
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """The reference's params tree (nested dicts of arrays) as a state dict
     of CPU tensors, dtypes kept."""
     sd = {"embedding": _to_torch(tree["embedding"])}
-    n_layers = sum(1 for k in tree if k.startswith("layer_"))
-    for i in range(n_layers):
-        lt, p = tree[f"layer_{i}"], f"layers.{i}."
-        for norm in ("attn_norm", "mlp_norm"):
-            sd[p + norm + ".scale"] = _to_torch(lt[norm]["scale"])
-        for name in _ATTN:
-            kern = np.asarray(lt["attn"][name]["kernel"])
-            sd[p + f"attn.{name}.weight"] = _to_torch(
-                kern.reshape(kern.shape[0], -1).T)
-        kern = np.asarray(lt["attn"]["o_proj"]["kernel"])
-        sd[p + "attn.o_proj.weight"] = _to_torch(
-            kern.reshape(-1, kern.shape[-1]).T)
-        if "moe_mlp" in lt:
-            for name in _MOE:
-                sd[p + f"moe_mlp.{name}"] = _to_torch(lt["moe_mlp"][name])
-        else:
-            for name in _MLP:
-                sd[p + f"mlp.{name}.weight"] = _to_torch(
-                    np.asarray(lt["mlp"][name]["kernel"]).T)
+    for i in range(_n_layers(tree)):
+        _block_from_jax(tree[f"layer_{i}"], f"layers.{i}.", sd)
     sd["final_norm.scale"] = _to_torch(tree["final_norm"]["scale"])
     return sd
+
+
+def _block_to_jax(sd: dict, p: str, heads: int, kv_heads: int,
+                  head_dim: int) -> dict:
+    """Inverse of :func:`_block_from_jax` over a state dict of numpy
+    arrays."""
+    per = {"q_proj": heads, "k_proj": kv_heads, "v_proj": kv_heads}
+    attn = {name: {"kernel": np.ascontiguousarray(
+        sd[p + f"attn.{name}.weight"].T.reshape(-1, per[name], head_dim))}
+        for name in _ATTN}
+    attn["o_proj"] = {"kernel": np.ascontiguousarray(
+        sd[p + "attn.o_proj.weight"].T.reshape(heads, head_dim, -1))}
+    block = {"attn_norm": {"scale": sd[p + "attn_norm.scale"]},
+             "attn": attn,
+             "mlp_norm": {"scale": sd[p + "mlp_norm.scale"]}}
+    if p + "moe_mlp.router" in sd:
+        block["moe_mlp"] = {name: sd[p + f"moe_mlp.{name}"] for name in _MOE}
+    else:
+        block["mlp"] = {name: {"kernel": np.ascontiguousarray(
+            sd[p + f"mlp.{name}.weight"].T)} for name in _MLP}
+    return block
 
 
 def params_to_jax(state_dict: dict, config: TransformerConfig) -> dict:
     """Inverse of :func:`params_from_jax`: a state dict as the reference's
     params tree of numpy arrays (bf16 tensors come back as f32)."""
-    H, Hkv, D = config.heads, config.kv_heads, config.dims_per_head
-    heads = {"q_proj": H, "k_proj": Hkv, "v_proj": Hkv}
     sd = {k: _to_numpy(v) for k, v in state_dict.items()}
     tree = {"embedding": sd["embedding"],
             "final_norm": {"scale": sd["final_norm.scale"]}}
     for i in range(config.layers):
-        p = f"layers.{i}."
-        attn = {name: {"kernel": np.ascontiguousarray(
-            sd[p + f"attn.{name}.weight"].T.reshape(-1, heads[name], D))}
-            for name in _ATTN}
-        attn["o_proj"] = {"kernel": np.ascontiguousarray(
-            sd[p + "attn.o_proj.weight"].T.reshape(H, D, -1))}
-        tree[f"layer_{i}"] = {
-            "attn_norm": {"scale": sd[p + "attn_norm.scale"]},
-            "attn": attn,
-            "mlp_norm": {"scale": sd[p + "mlp_norm.scale"]},
-        }
-        if p + "moe_mlp.router" in sd:
-            tree[f"layer_{i}"]["moe_mlp"] = {
-                name: sd[p + f"moe_mlp.{name}"] for name in _MOE}
-        else:
-            tree[f"layer_{i}"]["mlp"] = {
-                name: {"kernel": np.ascontiguousarray(
-                    sd[p + f"mlp.{name}.weight"].T)} for name in _MLP}
+        tree[f"layer_{i}"] = _block_to_jax(
+            sd, f"layers.{i}.", config.heads, config.kv_heads,
+            config.dims_per_head)
     return tree
 
 
@@ -149,3 +163,128 @@ def init_params(config: TransformerConfig, seed: int, device="cuda",
         sd[p + "mlp.down_proj.weight"] = normal((hid, ffn), ffn ** -0.5)
     sd["final_norm.scale"] = ones()
     return sd
+
+
+# -- vision models ----------------------------------------------------------
+#
+# flax kernels: Conv [kh, kw, in, out] (torch Conv2d [out, in, kh, kw]),
+# Dense [in, out] (torch Linear [out, in]); biases as they are.
+
+
+def _layer_from_jax(leaf, p: str, sd: dict) -> None:
+    """A flax Conv or Dense (``kernel`` and maybe ``bias``) into ``sd``
+    as ``{p}weight`` / ``{p}bias``."""
+    kern = np.asarray(leaf["kernel"])
+    sd[p + "weight"] = _to_torch(
+        kern.transpose(3, 2, 0, 1) if kern.ndim == 4 else kern.T)
+    if "bias" in leaf:
+        sd[p + "bias"] = _to_torch(leaf["bias"])
+
+
+def _layer_to_jax(sd: dict, p: str) -> dict:
+    w = sd[p + "weight"]
+    leaf = {"kernel": np.ascontiguousarray(
+        w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T)}
+    if p + "bias" in sd:
+        leaf["bias"] = sd[p + "bias"]
+    return leaf
+
+
+def resnet_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """The reference ResNet's ``params`` and ``batch_stats`` trees as a
+    state dict of :class:`~k8s_tpu_torch.models.resnet.ResNet`: convs
+    ``conv_init`` and ``stage{i}_block{j}/{conv1,conv2,conv3,conv_proj}``
+    (under ``blocks.``), BatchNorm ``bn_*`` with ``scale`` / ``bias`` from
+    ``params`` and ``mean`` / ``var`` from ``batch_stats``, the dense
+    ``head``."""
+    sd: dict = {}
+
+    def walk(ptree, stree, prefix):
+        for name, leaf in ptree.items():
+            p = prefix + name + "."
+            if name.startswith("stage"):
+                walk(leaf, stree[name], "blocks." + p)
+            elif name.startswith("bn"):
+                for key in ("scale", "bias"):
+                    sd[p + key] = _to_torch(leaf[key])
+                for key in ("mean", "var"):
+                    sd[p + key] = _to_torch(stree[name][key])
+            else:  # conv_* and the head
+                _layer_from_jax(leaf, p, sd)
+    walk(params, batch_stats, "")
+    return sd
+
+
+def _subtree(tree: dict, path) -> dict:
+    for part in path:
+        tree = tree.setdefault(part, {})
+    return tree
+
+
+def resnet_to_jax(state_dict: dict) -> tuple[dict, dict]:
+    """Inverse of :func:`resnet_from_jax`: ``(params, batch_stats)`` trees
+    of numpy arrays."""
+    sd = {k: _to_numpy(v) for k, v in state_dict.items()}
+    params: dict = {}
+    stats: dict = {}
+    for key in sd:
+        module, leaf = key.rsplit(".", 1)
+        path = module.split(".")
+        if path[0] == "blocks":
+            path = path[1:]
+        if path[-1].startswith("bn"):
+            tree = stats if leaf in ("mean", "var") else params
+            _subtree(tree, path)[leaf] = sd[key]
+        elif leaf == "weight":  # a conv or the head, bias and all
+            _subtree(params, path[:-1])[path[-1]] = _layer_to_jax(
+                sd, module + ".")
+    return params, stats
+
+
+def mnist_from_jax(params) -> dict[str, torch.Tensor]:
+    """The reference ``MnistCNN``'s params (``Conv_0``, ``Conv_1``,
+    ``Dense_0``, ``Dense_1``) as :class:`~k8s_tpu_torch.models.mnist.
+    MnistCNN`'s state dict.  ``Dense_0``'s rows stay in the reference's
+    (h, w, c) flatten order: the port flattens NHWC too."""
+    sd: dict = {}
+    for name, leaf in params.items():
+        _layer_from_jax(leaf, name.lower() + ".", sd)
+    return sd
+
+
+def mnist_to_jax(state_dict: dict) -> dict:
+    """Inverse of :func:`mnist_from_jax`."""
+    sd = {k: _to_numpy(v) for k, v in state_dict.items()}
+    return {name: _layer_to_jax(sd, name.lower() + ".")
+            for name in ("Conv_0", "Conv_1", "Dense_0", "Dense_1")}
+
+
+def vit_from_jax(params) -> dict[str, torch.Tensor]:
+    """The reference ViT's params (``patch_embed``, ``cls_token``,
+    ``pos_embedding``, ``layer_{i}``, ``final_norm``, ``head``) as
+    :class:`~k8s_tpu_torch.models.vit.ViT`'s state dict; each layer maps
+    as the LM's blocks do."""
+    sd: dict = {}
+    _layer_from_jax(params["patch_embed"], "patch_embed.", sd)
+    for name in ("cls_token", "pos_embedding"):
+        sd[name] = _to_torch(params[name])
+    for i in range(_n_layers(params)):
+        _block_from_jax(params[f"layer_{i}"], f"layers.{i}.", sd)
+    sd["final_norm.scale"] = _to_torch(params["final_norm"]["scale"])
+    _layer_from_jax(params["head"], "head.", sd)
+    return sd
+
+
+def vit_to_jax(state_dict: dict, config) -> dict:
+    """Inverse of :func:`vit_from_jax` for a ``ViTConfig``."""
+    sd = {k: _to_numpy(v) for k, v in state_dict.items()}
+    tree = {"patch_embed": _layer_to_jax(sd, "patch_embed."),
+            "cls_token": sd["cls_token"],
+            "pos_embedding": sd["pos_embedding"],
+            "final_norm": {"scale": sd["final_norm.scale"]},
+            "head": _layer_to_jax(sd, "head.")}
+    head_dim = config.hidden // config.heads
+    for i in range(config.layers):
+        tree[f"layer_{i}"] = _block_to_jax(sd, f"layers.{i}.", config.heads,
+                                           config.heads, head_dim)
+    return tree

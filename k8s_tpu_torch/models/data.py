@@ -58,14 +58,15 @@ class PrefetchIterator:
 
     Runs the wrapped iterator on a daemon thread, moving every array of
     each batch (a tuple or list of numpy arrays or tensors) to
-    ``device`` into a bounded queue.  Call ``close()`` (use try/finally
+    ``device`` into a bounded queue.  ``device`` is required: the
+    caller names where its step runs (``cuda``, or ``cpu`` for tests).  Call ``close()`` (use try/finally
     around the consuming loop) to stop the producer: the live thread keeps
     the iterator reachable, so garbage collection alone will not stop it.
     """
 
     _DONE = object()
 
-    def __init__(self, it: Iterable, *, device="cpu", buffer_size: int = 2):
+    def __init__(self, it: Iterable, *, device, buffer_size: int = 2):
         if buffer_size < 1:
             raise ValueError("buffer_size must be >= 1")
         self._device = torch.device(device)

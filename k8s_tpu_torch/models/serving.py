@@ -4,7 +4,9 @@ so the reference's file loads as is) and the port's params file
 ``params.pt`` (a ``torch.save``d state dict).
 
 Port of ``k8s_tpu/models/serving.py``.  Reading the reference's orbax
-params checkpoint needs JAX; that converter lives outside this package.
+params checkpoint needs JAX, so its converter lives outside this package:
+``python tools/orbax_to_torch.py --train_dir D`` writes ``params.pt``
+beside the reference's ``model_config.json``.
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ def load_serving(train_dir: str, device="cuda"
     if not os.path.exists(ppath):
         raise FileNotFoundError(
             f"no {PARAMS_FILE} at {d}: an export written by the JAX "
-            "package holds orbax params, which need converting first")
+            "package holds orbax params; convert them with "
+            f"`python tools/orbax_to_torch.py --train_dir {train_dir}`")
     params = torch.load(ppath, map_location=resolve_device(device),
                         weights_only=True)
     return config, params

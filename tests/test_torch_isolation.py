@@ -50,14 +50,19 @@ def test_scan_sees_the_whole_package():
     assert os.path.join("k8s_tpu_torch", "ops", "flash_attention.py") in rel
     for part in (("trace", "__init__.py"), ("trace", "tracer.py"),
                  ("trace", "export.py"), ("trace", "propagation.py"),
-                 ("models", "moe.py"), ("models", "dataset.py")):
+                 ("models", "moe.py"), ("models", "dataset.py"),
+                 ("models", "resnet.py"), ("models", "vit.py"),
+                 ("models", "mnist.py"), ("models", "mnist_data.py"),
+                 ("dist_mnist.py",)):
         assert os.path.join("k8s_tpu_torch", *part) in rel
 
 
 def test_server_import_loads_nothing_of_k8s_tpu():
     code = ("import sys, k8s_tpu_torch.models.server, "
             "k8s_tpu_torch.models.bridge, k8s_tpu_torch.models.dataset, "
-            "k8s_tpu_torch.train_lm; "
+            "k8s_tpu_torch.models.resnet, k8s_tpu_torch.models.vit, "
+            "k8s_tpu_torch.models.mnist, k8s_tpu_torch.models.mnist_data, "
+            "k8s_tpu_torch.train_lm, k8s_tpu_torch.dist_mnist; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'k8s_tpu' or m.startswith('k8s_tpu.')); "
             "print(bad); sys.exit(1 if bad else 0)")
