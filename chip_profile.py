@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's main paths, on one card.
 
-    python3 chip_profile.py [--path serve|train|engine|spec|resnet|vit|both]
+    python3 chip_profile.py [--path serve|train|engine|spec|resnet|vit|fsdp|both]
                             [--prompt_len 509] [--new_tokens 32] [--seed 0]
 
 ``serve``: builds the model chip_smoke.py serves (llama_8b widths, bf16,
@@ -60,6 +60,19 @@ chip_smoke.py's own ``resnet_trainer`` / ``vit_trainer``:
   (convolution, matmul, norm, softmax, pool, elementwise and reductions,
   optimizer) and the device-busy share; ``vit`` also times one layer's
   plain attention, forward and backward, with CUDA events.
+
+``fsdp``: the ``train`` step (Adam 1e-4, clip 1.0) unsharded and
+FSDP2-sharded over the one-rank NCCL mesh
+(``launcher.bootstrap.make_training_mesh``), as chip_smoke.py's
+``fsdp_train`` builds them from the same weights:
+
+- host clock around steps that end in ``torch.cuda.synchronize()``,
+  median of 5 after 3 warm-up steps, in turns sharded / plain / plain /
+  sharded;
+- ``torch.profiler`` over one step of each: device time by kernel and by
+  class (``collective`` for NCCL's kernels), the device-busy share, and
+  the host time inside the profiler's ranges (FSDP2's ``FSDP::`` hooks,
+  ``Optimizer.step``).
 
 Prints JSON lines; everything also goes to
 ``chip_reports/chip_profile.json``.
@@ -402,6 +415,7 @@ def profile_train(torch, args, report) -> int:
 # products are cuBLAS batched GEMMs and count as matmul; ``--path vit``
 # times the attention on its own beside the profile.
 OP_CLASSES = (
+    ("collective", ("nccl",)),
     ("optimizer", ("multi_tensor_apply", "adam", "sgd")),
     ("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -501,11 +515,90 @@ def profile_vision(torch, args, report, path: str) -> int:
     return 0
 
 
+def host_ranges(torch, fn, prefixes=("FSDP::", "Optimizer.")) -> dict:
+    """torch.profiler over ``fn()``: host ms inside the ranges whose names
+    start with ``prefixes``, by name (nested ranges count in each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name.startswith(prefixes):
+            rec = out.setdefault(e.name[:80], [0, 0.0])
+            rec[0] += 1
+            rec[1] += e.time_range.elapsed_us() / 1e3
+    return {n: {"count": c, "ms": ms} for n, (c, ms) in sorted(
+        out.items(), key=lambda kv: -kv[1][1])}
+
+
+def profile_fsdp(torch, args, report) -> int:
+    from k8s_tpu_torch import train_lm
+    from k8s_tpu_torch.launcher import bootstrap
+    from k8s_tpu_torch.models import bridge
+    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch.models.transformer import Transformer
+
+    mesh, _ = bootstrap.make_training_mesh(config=bootstrap.LauncherConfig())
+    targs = train_lm.parse_args(["--device", "cuda"])
+    cfg = train_lm.build_config(targs, True)
+    params = bridge.init_params(cfg, args.seed, "cuda", dtype=torch.float32)
+    opt = train_lib.default_optimizer(targs.learning_rate, clip_norm=1.0)
+    steps, states = {}, {}
+    for name in ("sharded", "plain"):
+        state = train_lib.init_state(Transformer(
+            cfg, params, device="cuda", trainable=True), opt)
+        if name == "sharded":
+            state, sh = train_lib.shard_train_state(state, mesh)
+            steps[name] = train_lib.make_sharded_train_step(
+                lambda m, x: m(x), train_lib.lm_loss, opt, mesh, sh)
+        else:
+            steps[name] = train_lib.make_train_step(
+                lambda m, x: m(x), train_lib.lm_loss, opt)
+        states[name] = state
+    del params
+    tokens = torch.randint(
+        0, cfg.vocab_size, (targs.batch_size, targs.seq_len),
+        generator=torch.Generator().manual_seed(args.seed + 2)).cuda()
+
+    def run(name):
+        t0 = time.perf_counter()
+        steps[name](states[name], (tokens, tokens))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name in ("sharded", "plain"):
+        for _ in range(3):  # warm-up: NCCL, FSDP2's lazy init, cuBLAS
+            run(name)
+    clocks: dict = {"sharded": [], "plain": []}
+    for name in ("sharded", "plain", "plain", "sharded"):
+        clocks[name].append(median([run(name) for _ in range(5)]))
+    wall = {"turns": ["sharded", "plain", "plain", "sharded"],
+            "step_s": clocks,
+            "sharded_over_plain": sum(clocks["sharded"])
+            / sum(clocks["plain"])}
+    report["fsdp_wall"] = wall
+    emit({"phase": "fsdp_wall", **wall})
+    for name in ("sharded", "plain"):
+        by_name, traced_s, kernels = profile_device(torch, lambda: run(name))
+        if not kernels:
+            print("FAIL: the profiler saw no device work", file=sys.stderr)
+            return 1
+        rec = summary(f"profile_fsdp_{name}", by_name, traced_s, kernels, 25)
+        rec["classes"] = op_classes(by_name)
+        rec["host_ranges"] = host_ranges(torch, lambda: run(name))
+        report[rec["phase"]] = rec
+        emit(rec)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--path",
                    choices=["serve", "train", "engine", "spec", "resnet",
-                            "vit", "both"],
+                            "vit", "fsdp", "both"],
                    default="both")
     p.add_argument("--prompt_len", type=int, default=509)
     p.add_argument("--new_tokens", type=int, default=32)
@@ -538,6 +631,8 @@ def main(argv=None) -> int:
         rc = rc or profile_spec(torch, args, report)
     if args.path in ("resnet", "vit"):
         rc = rc or profile_vision(torch, args, report, args.path)
+    if args.path == "fsdp":
+        rc = rc or profile_fsdp(torch, args, report)
 
     os.makedirs(os.path.join(REPO, "chip_reports"), exist_ok=True)
     with open(os.path.join(REPO, "chip_reports", "chip_profile.json"),

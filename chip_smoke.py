@@ -109,6 +109,20 @@ Phases, each fatal on failure:
    a held-out split and checkpoints, then a run resumed at step 100
    whose losses and final weights equal the uninterrupted run's; K1 at
    the ViT shape [25216, 768] joins the kernel cases.
+9. multi-process bring-up at world 1 (NCCL refuses two ranks on one
+   card; worlds of 2 and 4 are held against JAX on the CPU over gloo):
+   ``launcher.bootstrap.make_training_mesh`` makes a one-rank NCCL group;
+   ``dist_parity`` (the tiny model, f32: 3 steps of the FSDP2 step with
+   the clip active against the unsharded step, 1e-6); ``fsdp_train``
+   (gpt2-small at full width and depth, B8 L1024 bf16, flash on: the
+   FSDP2 step and the unsharded step in turns sharded / plain / plain /
+   sharded, step time, peak memory, the largest loss difference (bound
+   1e-4), exactly 12 launches of K2, K3 and K4 a step; a DCP save sync
+   and async, the ms the loop is blocked, and restores that give the
+   next step's loss exactly); ``gang`` (``python -m
+   k8s_tpu_torch.e2e.rendezvous_worker`` and ``launcher.tpu_smoke`` under
+   a one-worker operator env built here, and a worker preempted at
+   step_2, resumed to the uninterrupted control's final loss exactly).
 
 Prints the card line first, one JSON object per phase and case, then a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -3422,6 +3436,290 @@ def mnist_path(torch, dist_mnist, mnist, mnist_data, train_lib, common):
     return launches
 
 
+# -- phase 9: multi-process bring-up and FSDP training, at world 1 ----------
+
+FSDP_STEPS = 10
+FSDP_TURNS = (("sharded", 0, 5), ("plain", 0, 5), ("plain", 5, 10),
+              ("sharded", 5, 10))
+
+
+def dist_parity(torch, tlib, bridge, train_lib, mesh):
+    """``tiny_test`` in f32 (flash on) on the one-rank NCCL mesh: 3 steps of
+    ``make_sharded_train_step`` (FSDP2, clip 0.1 active) against
+    ``make_train_step`` from the same weights and batches.  At world 1
+    the all-gather and the reduce-scatter copy, so only the clip's norm
+    is summed in another order: losses and parameters within 1e-6 of
+    their largest magnitude."""
+    cfg = dataclasses.replace(tlib.tiny_test(), use_flash_attention=True)
+    params = bridge.init_params(cfg, seed=12, device="cuda",
+                                dtype=torch.float32)
+    gen = torch.Generator().manual_seed(13)
+    batches = [torch.randint(0, cfg.vocab_size, (4, 96), generator=gen
+                             ).cuda() for _ in range(3)]
+    opt = train_lib.default_optimizer(1e-3, clip_norm=0.1)
+    # the clip is active: the first gradient's norm is above it
+    model = tlib.Transformer(cfg, params, device="cuda", trainable=True)
+    train_lib.lm_loss(model(batches[0]), batches[0]).backward()
+    norm = torch.linalg.vector_norm(torch.stack(
+        [p.grad.norm() for p in model.parameters()])).item()
+    del model
+    losses, finals = {}, {}
+    for name in ("sharded", "plain"):
+        model = tlib.Transformer(cfg, params, device="cuda", trainable=True)
+        state = train_lib.init_state(model, opt)
+        if name == "sharded":
+            state, sh = train_lib.shard_train_state(state, mesh)
+            step = train_lib.make_sharded_train_step(
+                lambda m, x: m(x), train_lib.lm_loss, opt, mesh, sh)
+        else:
+            step = train_lib.make_train_step(lambda m, x: m(x),
+                                             train_lib.lm_loss, opt)
+        out = []
+        for b in batches:
+            state, loss = step(state, (b, b))
+            out.append(loss)
+        losses[name] = torch.stack(out)
+        finals[name] = {
+            n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach()
+            for n, p in state["model"].named_parameters()}
+    loss_err = rel_err(losses["sharded"], losses["plain"])
+    param_err = max(rel_err(finals["sharded"][n], p)
+                    for n, p in finals["plain"].items())
+    if not (loss_err <= 1e-6 and param_err <= 1e-6 and norm > 0.1):
+        fail(f"dist_parity: loss err {loss_err}, param err {param_err} "
+             f"(tol 1e-6), first gradient norm {norm} (clip 0.1)")
+    rec = {"phase": "dist_parity", "card": REPORT["card"],
+           "config": "tiny_test f32 flash, B4 L96, adam 1e-3 clip 0.1, "
+                     "one-rank NCCL mesh", "steps": len(batches),
+           "losses_sharded": losses["sharded"].tolist(),
+           "losses_plain": losses["plain"].tolist(),
+           "loss_rel_err": loss_err, "param_rel_err": param_err, "tol": 1e-6,
+           "first_grad_norm": norm}
+    emit(rec)
+    REPORT["dist_parity"] = rec
+
+
+def fsdp_train(torch, tlib, bridge, train_lib, train_lm, common, checkpoint,
+               mesh):
+    """gpt2-small at full width and depth (bf16 over f32 masters, flash on,
+    B8 L1024, Adam 1e-4, clip 1.0): the FSDP2 step over the one-rank NCCL
+    mesh and the unsharded step from the same weights and batches, in
+    turns sharded / plain / plain / sharded (5 steps a turn, each step
+    clocked between syncs).  Then a DCP save of the sharded state,
+    synchronous and asynchronous (the ms the loop is blocked, the rest of
+    the async write behind one more step), and restores of both that give
+    that step's loss again.  The launch counters, zeroed just before each
+    sharded turn and read just after, must show 12 launches of K2, K3 and
+    K4 a step and none of K1."""
+    cfg = train_lm.build_config(train_lm.parse_args(TRAIN_ARGS), True)
+    params = bridge.init_params(cfg, 0, "cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(14)
+    batches = [torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen
+                             ).cuda() for _ in range(FSDP_STEPS + 1)]
+    opt = train_lib.default_optimizer(1e-4, clip_norm=1.0)
+    states, steps = {}, {}
+    for name in ("sharded", "plain"):
+        state = train_lib.init_state(tlib.Transformer(
+            cfg, params, device="cuda", trainable=True), opt)
+        if name == "sharded":
+            state, sh = train_lib.shard_train_state(state, mesh)
+            steps[name] = train_lib.make_sharded_train_step(
+                lambda m, x: m(x), train_lib.lm_loss, opt, mesh, sh)
+        else:
+            steps[name] = train_lib.make_train_step(
+                lambda m, x: m(x), train_lib.lm_loss, opt)
+        states[name] = state
+    del params
+    losses = {"sharded": [], "plain": []}
+    step_ms = {"sharded": [], "plain": []}
+    peak = {"sharded": 0, "plain": 0}
+    launches = dict.fromkeys(common.KERNELS, 0)
+    for name, lo, hi in FSDP_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "sharded":
+            common.reset_launches()
+        for i in range(lo, hi):
+            b = batches[i]
+            t0 = time.perf_counter()
+            states[name], loss = steps[name](states[name], (b, b))
+            losses[name].append(loss.item())  # syncs
+            step_ms[name].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        if name == "sharded":
+            for k, v in common.launches().items():
+                launches[k] += v
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+    loss_diff = max(abs(a - b) for a, b in zip(losses["sharded"],
+                                                losses["plain"]))
+    want = {"flash_fwd": 12 * FSDP_STEPS, "rms_norm": 0,
+            "flash_bwd_dq": 12 * FSDP_STEPS,
+            "flash_bwd_dkv": 12 * FSDP_STEPS}
+    if launches != want or not loss_diff <= 1e-4 or not all(
+            math.isfinite(x) for x in losses["sharded"]):
+        fail(f"fsdp_train: launches {launches} (want {want}), loss diff "
+             f"{loss_diff} (bound 1e-4), losses {losses}")
+
+    # DCP: sync, async, and restores that give the next step's loss again
+    state, step = states["sharded"], steps["sharded"]
+    del states["plain"], steps["plain"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    nxt = batches[FSDP_STEPS]
+    with tempfile.TemporaryDirectory() as root:
+        sync = checkpoint.Checkpointer(os.path.join(root, "sync"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.save(FSDP_STEPS, state, force=True)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        asy = checkpoint.Checkpointer(os.path.join(root, "async"),
+                                      async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asy.save(FSDP_STEPS, state, force=True)
+        async_block_ms = (time.perf_counter() - t0) * 1e3
+        state, loss = step(state, (nxt, nxt))
+        next_loss = loss.item()
+        t0 = time.perf_counter()
+        asy.wait()
+        async_wait_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(os.path.join(root, "sync"))
+                     for f in fs)
+        again = {}
+        for name, ck in (("async", asy), ("sync", sync)):
+            state, _ = ck.restore_latest(state)
+            state, loss = step(state, (nxt, nxt))
+            again[name] = loss.item()
+    if any(v != next_loss for v in again.values()):
+        fail(f"fsdp_train: the step after a restore gives {again}, the "
+             f"step after the save {next_loss}")
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    rec = {"phase": "fsdp_train", "card": REPORT["card"],
+           "config": "gpt2-small (12 x 768, vocab 32000) bf16 over f32 "
+                     "masters, flash on, B8 L1024, adam 1e-4 clip 1.0; "
+                     "FSDP2 over the one-rank NCCL mesh vs unsharded",
+           "turns": [t[0] for t in FSDP_TURNS],
+           "step_ms": step_ms,
+           "median_step_ms": {k: median(v[1:]) for k, v in step_ms.items()},
+           "sharded_over_plain": median(step_ms["sharded"][1:])
+           / median(step_ms["plain"][1:]),
+           "peak_gib": {k: v / 2 ** 30 for k, v in peak.items()},
+           "losses": losses, "max_loss_diff": loss_diff,
+           "loss_bound": 1e-4, "launches": launches,
+           "dcp": {"bytes": nbytes, "sync_ms": sync_ms,
+                   "async_blocked_ms": async_block_ms,
+                   "async_wait_after_one_step_ms": async_wait_ms,
+                   "next_loss": next_loss, "next_loss_after_restore": again}}
+    emit(rec)
+    REPORT["fsdp_train"] = rec
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gang_env(port: int) -> dict:
+    """The env the operator gives the one worker of a one-replica TFJob
+    (``controller_v2.tpu_config.gen_env_vars``), its coordinator on
+    loopback, and the platform the card is."""
+    host = "rdzv-worker-0.rdzv.e2e.svc.cluster.local"
+    config = json.dumps({"cluster": {"worker": [f"{host}:{port}"]},
+                         "task": {"index": 0, "type": "worker"}},
+                        sort_keys=True)
+    return {**os.environ, "TPU_CONFIG": config, "TF_CONFIG": config,
+            "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0",
+            "TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": host,
+            "K8S_TPU_PLATFORM": "gpu",
+            "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             "")}
+
+
+def gang_path(torch):
+    """The operator's in-pod payloads as one-worker gangs, in their own
+    processes on the card: ``python -m k8s_tpu_torch.e2e.rendezvous_worker``
+    (membership sum 1, one sharded step, a finite loss, the RDZV_OK keys),
+    ``python -m k8s_tpu_torch.launcher.tpu_smoke``, a worker preempted at
+    ``step_2`` of 4 (exit 143, a checkpoint every step) beside an
+    uninterrupted control, then the preempted one resumed: its final loss
+    must equal the control's exactly."""
+    with tempfile.TemporaryDirectory() as root:
+        env = gang_env(29500)
+        ckpt = {"K8S_TPU_E2E_STEPS": "4", "K8S_TPU_E2E_CKPT_EVERY": "1"}
+        worker = "k8s_tpu_torch.e2e.rendezvous_worker"
+        runs = {
+            "worker": (worker, env),
+            "tpu_smoke": ("k8s_tpu_torch.launcher.tpu_smoke", env),
+            "preempted": (worker, {**env, **ckpt, "K8S_TPU_E2E_FAIL":
+                                   "0:143:step_2", "CHECKPOINT_DIR":
+                                   os.path.join(root, "gang")}),
+            "control": (worker, {**env, **ckpt, "CHECKPOINT_DIR":
+                                 os.path.join(root, "control")}),
+        }
+
+        def start(module, env):
+            return subprocess.Popen(
+                [sys.executable, "-m", module], env=env, cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        t0 = time.perf_counter()
+        procs = {k: start(*v) for k, v in runs.items()}
+        out = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+        rcs = {k: p.returncode for k, p in procs.items()}
+        resumed = start(worker, {**runs["preempted"][1],
+                                 "K8S_TPU_E2E_FAIL": ""})
+        out["resumed"] = resumed.communicate(timeout=600)[0]
+        rcs["resumed"] = resumed.returncode
+        wall_s = time.perf_counter() - t0
+
+    def rdzv(text):
+        for line in text.splitlines():
+            if line.startswith("RDZV_OK "):
+                return json.loads(line[len("RDZV_OK "):])
+        return None
+
+    def kernel_launches(text):
+        for line in text.splitlines():
+            if "kernel launches " in line:
+                return json.loads(line.split("kernel launches ", 1)[1])
+        return None
+
+    res = {k: rdzv(out[k]) for k in ("worker", "control", "resumed")}
+    keys = {"process_id", "num_processes", "is_chief", "global_devices",
+            "mesh", "num_slices", "membership_sum", "loss", "step",
+            "start_step"}
+    launches = kernel_launches(out["worker"])
+    ok = (rcs == {"worker": 0, "tpu_smoke": 0, "preempted": 143,
+                  "control": 0, "resumed": 0}
+          and all(r is not None and set(r) == keys for r in res.values())
+          and res["worker"]["membership_sum"] == 1.0
+          and res["worker"]["step"] == 1
+          and math.isfinite(res["worker"]["loss"])
+          and "smoke OK on 1 devices" in out["tpu_smoke"]
+          and res["resumed"]["start_step"] == 2
+          and res["resumed"]["step"] == 4
+          and res["control"]["start_step"] == 0
+          and res["resumed"]["loss"] == res["control"]["loss"]
+          and launches is not None)
+    if not ok:
+        fail(f"gang: exit codes {rcs}, results {res}, outputs "
+             + json.dumps({k: v[-1500:] for k, v in out.items()}))
+    rec = {"phase": "gang", "card": REPORT["card"],
+           "config": "rendezvous_worker (vocab 64, hidden 32, 1 layer, "
+                     "L16, no flash) and tpu_smoke as one-worker gangs "
+                     "over NCCL", "exit_codes": rcs, "results": res,
+           "resumed_equals_control": True, "launches": launches,
+           "wall_s": wall_s}
+    emit(rec)
+    REPORT["gang"] = rec
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3431,7 +3729,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from k8s_tpu_torch import dist_mnist, trace, train_lm
-        from k8s_tpu_torch.models import bridge, dataset, decode, moe
+        from k8s_tpu_torch.launcher import bootstrap
+        from k8s_tpu_torch.models import bridge, checkpoint, dataset, decode
+        from k8s_tpu_torch.models import moe
         from k8s_tpu_torch.models import mnist, mnist_data, resnet, vit
         from k8s_tpu_torch.models import server, serving
         from k8s_tpu_torch.models import engine as engine_lib
@@ -3519,6 +3819,16 @@ def main() -> int:
                            _common)
     gc.collect()
     torch.cuda.empty_cache()
+    # one process: make_training_mesh makes the one-rank NCCL group
+    t0 = time.perf_counter()
+    mesh, _ = bootstrap.make_training_mesh(config=bootstrap.LauncherConfig())
+    dist_parity(torch, tlib, bridge, train_lib, mesh)
+    fsdp_run = fsdp_train(torch, tlib, bridge, train_lib, train_lm, _common,
+                          checkpoint, mesh)
+    gang_run = gang_path(torch)
+    torch.distributed.destroy_process_group()
+    REPORT["dist_phases_s"] = time.perf_counter() - t0
+    emit({"phase": "dist_done", "s": REPORT["dist_phases_s"]})
     # last: its profiler session slows every later host clock
     moe_served = moe_serve(torch, tlib, bridge, server, _common, requestlog,
                            moe, trace)
@@ -3553,6 +3863,8 @@ def main() -> int:
                    "train_resnet50_both_stems": resnet_run[kname],
                    "train_vit_b16_fused_norm": vit_run[kname],
                    "dist_mnist": mnist_run[kname],
+                   "train_gpt2_small_fsdp_nccl_world1": fsdp_run[kname],
+                   "rendezvous_worker": gang_run[kname],
                    **{f"serve_lm_{mode}_gpt2_small": r[kname]
                       for mode, r in lm_runs.items()}}
         kernels.append({"name": kname, "route": route, "source": source,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""MNIST training on one GPU: the port of
+"""MNIST training on GPUs: the port of
 ``examples/dist_mnist/dist_mnist.py`` (the operator's e2e workload).
 
     python -m k8s_tpu_torch.dist_mnist --train_steps 200      # on the card
@@ -8,8 +8,9 @@
 
 The reference's flags, defaults and log lines (``step N loss X``,
 ``held out N examples for evaluation``, ``held-out accuracy A over N
-examples``, ``training complete at step N``), plus ``--device`` (``cuda``
-by default; ``cpu`` for tests).  The model is ``models.mnist.MnistCNN``,
+examples``, ``training complete at step N``), plus ``--device`` (the pod
+env's ``K8S_TPU_PLATFORM`` by default, else ``cuda``; ``cpu`` for
+tests).  The model is ``models.mnist.MnistCNN``,
 trained by ``models.train``'s step (Adam, ``cross_entropy_loss``) on
 batches from ``models.data.array_batches`` staged through
 ``prefetch_to_device``: the IDX files under ``--data_dir``
@@ -27,9 +28,14 @@ uninterrupted run.  The reference reseeds the stream with the resume
 step instead (``seed=start_step``), which gives other batches after a
 resume.
 
-One process only: a job of more processes or slices exits non-zero,
-naming the parallel slice of the port that brings them.  A non-finite
-final loss exits 1.
+A job of more processes or slices (the operator's env) trains
+data-parallel: ``torch.distributed`` from the env, the FSDP-sharded state
+and step over ``make_training_mesh``'s mesh, each process staging its
+rows of the same global batches.  Before each save every process enters
+a barrier and the gather of the full state (a collective); process 0
+alone writes ``mnist_state.pt``, in the one-process format, which a job
+of any size resumes from.  ``--eval_holdout`` is skipped with a warning
+there, as in the reference.  A non-finite final loss exits 1.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import logging
 import math
 import os
 import sys
+from typing import Optional
 
 log = logging.getLogger("dist_mnist")
 
@@ -64,16 +71,50 @@ def parse_args(argv=None):
     p.add_argument("--sync_replicas", action="store_true", default=True,
                    help="kept for flag compatibility; training is always "
                    "synchronous")
-    p.add_argument("--device", default="cuda",
-                   help="cuda, or cpu (for tests)")
+    p.add_argument("--device", default=None,
+                   help="cuda, or cpu (for tests); default: "
+                   "K8S_TPU_PLATFORM, else cuda")
     return p.parse_args(argv)
 
 
-def save_checkpoint(train_dir: str, state: dict, step: int) -> None:
+def _full_payload(state: dict, step: int) -> Optional[dict]:
+    """The one-process checkpoint payload of a sharded state: the full
+    model and optimizer state dicts gathered to process 0 (a collective
+    every process enters; the others get None), the optimizer's keyed by
+    parameter index as ``torch.optim`` keys them."""
+    import torch.distributed as dist
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions, get_model_state_dict, get_optimizer_state_dict,
+    )
+
+    model, opt = state["model"], state["optimizer"]
+    options = StateDictOptions(full_state_dict=True, cpu_offload=True)
+    full_model = get_model_state_dict(model, options=options)
+    full_opt = get_optimizer_state_dict(model, opt, options=options)
+    if dist.get_rank() != 0:
+        return None
+    index = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+    full_opt = {
+        "state": {index[n]: v for n, v in full_opt["state"].items()},
+        "param_groups": [{**g, "params": [index[n] for n in g["params"]]}
+                         for g in full_opt["param_groups"]]}
+    return {"model": full_model, "optimizer": full_opt, "step": step}
+
+
+def save_checkpoint(train_dir: str, state: dict, step: int,
+                    sharded: bool = False) -> None:
+    """Write ``mnist_state.pt``.  ``sharded``: every process calls this
+    (the gather is a collective) and process 0 writes."""
     import torch
 
-    payload = {"model": state["model"].state_dict(),
-               "optimizer": state["optimizer"].state_dict(), "step": step}
+    if sharded:
+        payload = _full_payload(state, step)
+        if payload is None:
+            return
+    else:
+        payload = {"model": state["model"].state_dict(),
+                   "optimizer": state["optimizer"].state_dict(),
+                   "step": step}
     os.makedirs(train_dir, exist_ok=True)
     tmp = os.path.join(train_dir, CKPT_NAME + ".tmp")
     torch.save(payload, tmp)
@@ -103,14 +144,8 @@ def main(argv=None) -> int:
 
     from k8s_tpu_torch.launcher import bootstrap
 
-    launch = bootstrap.LauncherConfig.from_env()
-    if launch.is_distributed or launch.num_slices > 1:
-        raise SystemExit(
-            f"dist_mnist: {launch.num_processes} processes / "
-            f"{launch.num_slices} slices: multi-process data-parallel "
-            "training comes with the parallel slice of the port "
-            "(ROADMAP.md, Queue 1 item 8); run one process")
-    bootstrap.initialize_distributed(launch)
+    launch = bootstrap.initialize_distributed(device=args.device)
+    sharded = launch.is_distributed or launch.num_slices > 1
 
     import numpy as np
     import torch
@@ -118,15 +153,23 @@ def main(argv=None) -> int:
     from k8s_tpu_torch.models import data as data_lib
     from k8s_tpu_torch.models import train as train_lib
     from k8s_tpu_torch.models.mnist import MnistCNN
-    from k8s_tpu_torch.ops._common import resolve_device
 
-    device = resolve_device(args.device)
+    device = bootstrap.process_device()
     model = MnistCNN(device=device, seed=0)
     optimizer = train_lib.default_optimizer(args.learning_rate)
     state = train_lib.init_state(model, optimizer)
     start_step = restore_checkpoint(args.train_dir, state, device)
-    step_fn = train_lib.make_train_step(
-        lambda m, x: m(x), train_lib.cross_entropy_loss, optimizer)
+    apply_fn = lambda m, x: m(x)  # noqa: E731
+    if sharded:
+        mesh, _ = bootstrap.make_training_mesh(config=launch)
+        state, shardings = train_lib.shard_train_state(state, mesh)
+        model = state["model"]
+        step_fn = train_lib.make_sharded_train_step(
+            apply_fn, train_lib.cross_entropy_loss, optimizer, mesh,
+            shardings)
+    else:
+        step_fn = train_lib.make_train_step(
+            apply_fn, train_lib.cross_entropy_loss, optimizer)
 
     if args.data_dir:
         from k8s_tpu_torch.models.mnist_data import load_dataset
@@ -140,7 +183,11 @@ def main(argv=None) -> int:
         ds_y = rng.integers(0, 10, size=(64 * args.batch_size,)).astype(
             np.int32)
     eval_x = eval_y = None
-    if args.eval_holdout > 0:
+    if args.eval_holdout > 0 and sharded:
+        log.warning("--eval_holdout skipped: multi-process runs hold "
+                    "sharded params this single-process eval does not "
+                    "gather")
+    elif args.eval_holdout > 0:
         if args.eval_holdout > len(ds_x) - args.batch_size:
             raise SystemExit(
                 f"--eval_holdout {args.eval_holdout} leaves fewer than "
@@ -155,9 +202,9 @@ def main(argv=None) -> int:
                 "resuming at step %d: held-out accuracy is only a clean "
                 "eval if every prior run used the same --eval_holdout",
                 start_step)
-    data_iter = data_lib.prefetch_to_device(
-        data_lib.array_batches((ds_x, ds_y), args.batch_size, seed=0),
-        device)
+    batches = data_lib.array_batches((ds_x, ds_y), args.batch_size, seed=0)
+    data_iter = data_lib.prefetch_to_mesh(batches, mesh, device) if sharded \
+        else data_lib.prefetch_to_device(batches, device)
     if start_step > 0:
         data_iter.skip(start_step)  # continue the stream where it stopped
 
@@ -168,11 +215,14 @@ def main(argv=None) -> int:
             if step % 10 == 0 or step == args.train_steps - 1:
                 log.info("step %d loss %.4f", step, float(loss))
             if args.train_dir and (step + 1) % args.checkpoint_every == 0:
-                save_checkpoint(args.train_dir, state, step + 1)
+                # every process enters the barrier and the gather
+                bootstrap.barrier("pre-checkpoint")
+                save_checkpoint(args.train_dir, state, step + 1, sharded)
     finally:
         data_iter.close()
     if args.train_dir:
-        save_checkpoint(args.train_dir, state, args.train_steps)
+        bootstrap.barrier("final-checkpoint")
+        save_checkpoint(args.train_dir, state, args.train_steps, sharded)
     if loss is not None and not math.isfinite(float(loss)):
         log.error("non-finite loss %s", float(loss))
         return 1

@@ -1,29 +1,45 @@
-"""In-pod bootstrap: the operator-injected env contract.
+"""In-pod bootstrap: the operator-injected env contract, then
+``torch.distributed``, then the device mesh.
 
-Port of ``k8s_tpu/launcher/bootstrap.py``'s ``LauncherConfig`` and
-``initialize_distributed``.  The operator is not rewritten, so the env
-names stay those it injects (``k8s_tpu.controller_v2.tpu_config``):
+Port of ``k8s_tpu/launcher/bootstrap.py``.  The operator is not rewritten,
+so the env names stay those it injects (``k8s_tpu.controller_v2.tpu_config``):
 
-    JAX_COORDINATOR_ADDRESS  host:port of process 0
+    JAX_COORDINATOR_ADDRESS  host:port of process 0 (the rendezvous store)
     JAX_NUM_PROCESSES        world size
-    JAX_PROCESS_ID           this pod's process id
+    JAX_PROCESS_ID           this pod's rank
     TPU_ACCELERATOR_TYPE / TPU_TOPOLOGY        slice topology
     MEGASCALE_NUM_SLICES / MEGASCALE_SLICE_ID  multi-slice
     CHECKPOINT_DIR           the resume directory
+    K8S_TPU_PLATFORM         ``cpu`` or ``gpu``/``cuda``: the device asked for
 
-A single-process job needs no bring-up.  More than one process (or slice)
-raises: ``torch.distributed`` over NCCL, the device mesh and the sharded
-train step come with the parallel slice of the port.
+``initialize_distributed`` is idempotent and a no-op for one process.
+For more, it joins ``torch.distributed`` at the coordinator address:
+NCCL when the process runs on CUDA, gloo on the CPU.  One process drives
+one device (rank ``r`` takes GPU ``r % device_count``).
+``make_training_mesh`` lays the world out as the reference's mesh; at one
+process it first makes a one-rank group, so a mesh always exists.
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 from dataclasses import dataclass
 from typing import Optional
 
+from k8s_tpu_torch.parallel.mesh import (
+    DcnConfig, MeshConfig, make_hybrid_mesh, make_mesh, mesh_shape,
+)
+
 log = logging.getLogger(__name__)
+
+# A collective that waits longer than this fails: a survivor of a dead
+# peer exits instead of hanging.
+TIMEOUT_S = 300
+
+_device = None       # this process's device, fixed at bring-up
+_host_group = None   # the gloo group for host-side coordination
 
 
 @dataclass
@@ -61,16 +77,179 @@ class LauncherConfig:
         return self.process_id == 0
 
 
-def initialize_distributed(config: Optional[LauncherConfig] = None
-                           ) -> LauncherConfig:
-    """The bring-up from the operator env contract: a no-op for a
-    single-process job; multi-process and multi-slice jobs raise until the
-    parallel slice brings torch.distributed."""
+def apply_platform_env(env: Optional[dict] = None) -> Optional[str]:
+    """The device the pod env's ``K8S_TPU_PLATFORM`` names: ``cpu`` for
+    ``cpu``, ``cuda`` for ``gpu`` or ``cuda``, None when it is unset or
+    empty.  Any other value raises."""
+    e = env if env is not None else os.environ
+    platform = e.get("K8S_TPU_PLATFORM", "").strip().lower()
+    if not platform:
+        return None
+    if platform == "cpu":
+        return "cpu"
+    if platform in ("gpu", "cuda"):
+        return "cuda"
+    raise ValueError(
+        f"K8S_TPU_PLATFORM={platform!r}: the port runs on 'cpu' or "
+        "'gpu'/'cuda'")
+
+
+def default_device(flag: Optional[str] = None) -> str:
+    """An entry point's device: its ``--device`` flag if given, else the
+    pod env's ``K8S_TPU_PLATFORM``, else ``cuda``."""
+    return flag or apply_platform_env() or "cuda"
+
+
+def process_device():
+    """The device this process drives (set at bring-up; the pod env's
+    choice before it)."""
+    import torch
+
+    from k8s_tpu_torch.ops._common import resolve_device
+
+    return _device if _device is not None else resolve_device(
+        torch.device(default_device()))
+
+
+def process_index() -> int:
+    """This process's rank in the default group (0 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _bind_device(device, process_id: int):
+    """Resolve ``device`` (None: the pod env's, else cuda) and, on CUDA,
+    pin this process to GPU ``process_id % device_count``."""
+    global _device
+    import torch
+
+    from k8s_tpu_torch.ops._common import resolve_device
+
+    dev = resolve_device(default_device(device))
+    if dev.type == "cuda":
+        dev = torch.device("cuda", process_id % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    _device = dev
+    return dev
+
+
+def _join(dev, **kw) -> None:
+    import torch.distributed as dist
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        kw["device_id"] = dev
+    dist.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
+
+
+def initialize_distributed(config: Optional[LauncherConfig] = None, *,
+                           device=None) -> LauncherConfig:
+    """Idempotent ``torch.distributed`` bring-up from the operator env
+    contract; a no-op (beyond fixing the device) for one process.
+    ``device``: None takes ``K8S_TPU_PLATFORM``, else cuda."""
+    import torch.distributed as dist
+
+    global _device
     cfg = config or LauncherConfig.from_env()
-    if cfg.is_distributed or cfg.num_slices > 1:
-        raise NotImplementedError(
-            f"{cfg.num_processes} processes / {cfg.num_slices} slices: "
-            "multi-process training (torch.distributed over NCCL) comes "
-            "with the parallel slice of the port")
-    log.info("single-process job; no distributed bring-up")
+    if dist.is_initialized():
+        return cfg
+    if not cfg.is_distributed:
+        # each one-process bring-up fixes the device anew (an earlier
+        # run in this process may have asked for another)
+        _device = None
+        if device is not None:
+            _bind_device(device, cfg.process_id)
+        else:
+            apply_platform_env()  # a bad value fails here, at start-up
+        log.info("single-process job; skipping torch.distributed")
+        return cfg
+    dev = _bind_device(device, cfg.process_id)
+    if not cfg.coordinator_address:
+        raise RuntimeError(
+            "JAX_NUM_PROCESSES > 1 but JAX_COORDINATOR_ADDRESS is not set - "
+            "was this pod created by the tpu-job operator?")
+    log.info("torch.distributed.init_process_group(%s, tcp://%s, "
+             "world_size=%d, rank=%d)", "nccl" if dev.type == "cuda"
+             else "gloo", cfg.coordinator_address, cfg.num_processes,
+             cfg.process_id)
+    _join(dev, init_method=f"tcp://{cfg.coordinator_address}",
+          rank=cfg.process_id, world_size=cfg.num_processes)
     return cfg
+
+
+def _gather_ints(value: int) -> list[int]:
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([value], device=_device)
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return [int(x.item()) for x in out]
+
+
+def make_training_mesh(tp: int = 1, sp: int = 1, fsdp: Optional[int] = None,
+                       config: Optional[LauncherConfig] = None, *,
+                       pp: int = 1):
+    """The global training mesh over every process of the job; returns
+    ``(mesh, config)``.  Multi-slice (``MEGASCALE_NUM_SLICES > 1``): dp
+    spans the slices through the hybrid layout (each process's
+    ``MEGASCALE_SLICE_ID`` names its slice); every other axis stays inside
+    a slice.  At one process a one-rank group is made first (NCCL on
+    CUDA)."""
+    import torch.distributed as dist
+
+    cfg = config or LauncherConfig.from_env()
+    if not dist.is_initialized():
+        if cfg.is_distributed:
+            initialize_distributed(cfg)
+        else:
+            dev = _device if _device is not None else _bind_device(
+                None, cfg.process_id)
+            _join(dev, store=dist.HashStore(), rank=0, world_size=1)
+    device_type = process_device().type
+    n = dist.get_world_size()
+    if cfg.num_slices > 1:
+        if n % cfg.num_slices != 0:
+            raise ValueError(
+                f"{n} devices not divisible by {cfg.num_slices} slices")
+        ici = MeshConfig.auto(n // cfg.num_slices, tp=tp, sp=sp, fsdp=fsdp,
+                              pp=pp)
+        mesh = make_hybrid_mesh(ici, DcnConfig(dp=cfg.num_slices),
+                                slice_index=_gather_ints(cfg.slice_id),
+                                device_type=device_type)
+    else:
+        mesh = make_mesh(MeshConfig.auto(n, tp=tp, sp=sp, fsdp=fsdp, pp=pp),
+                         device_type=device_type)
+    log.info("mesh: %s over %d devices (%d slice(s))", mesh_shape(mesh), n,
+             cfg.num_slices)
+    return mesh, cfg
+
+
+def host_group():
+    """A gloo group over the world of its own, for host-side coordination
+    beside training's collectives (``torch.distributed.checkpoint.
+    async_save`` coordinates on it from its writer thread, so it must not
+    share a communicator with the step's).  Made on the first call, which
+    every rank must make."""
+    global _host_group
+    import torch.distributed as dist
+
+    if _host_group is None:
+        _host_group = dist.new_group(backend="gloo")
+    return _host_group
+
+
+def barrier(name: str = "launcher") -> None:
+    """Cross-process sync point (before checkpoint writes and teardown):
+    an all-reduce of ones on this process's device, waited for."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        t = torch.ones(1, device=process_device())
+        dist.all_reduce(t)
+        if t.item() != dist.get_world_size():
+            raise RuntimeError(f"barrier {name!r}: {t.item()} of "
+                               f"{dist.get_world_size()} processes")

@@ -1,21 +1,28 @@
-"""Checkpoint/resume for training state, single process.
+"""Checkpoint/resume for training state, one process or sharded.
 
-Port of ``k8s_tpu/models/checkpoint.py``'s ``Checkpointer`` interface
-(``save``, ``maybe_save``, ``latest_step``, ``restore_or_init``,
-``max_to_keep``, ``wait``, ``close``) for one process:
+Port of ``k8s_tpu/models/checkpoint.py``'s ``Checkpointer`` (``save``,
+``maybe_save``, ``latest_step``, ``restore_or_init``, ``max_to_keep``,
+``async_save``, ``wait``, ``close``, ``save_on_preemption``) over the
+port's train state ``{"model", "optimizer", "step"}`` (``models/train.py``):
 
-- the train state is the port's ``{"model", "optimizer", "step"}``
-  (``models/train.py``); a checkpoint is one ``torch.save`` of the model's
-  and the optimizer's state dicts and the step, as ``<dir>/<step>.pt``;
-- each save writes a temporary file and ``os.replace``s it into place, so
-  a writer killed mid-save leaves no half checkpoint behind;
+- a one-process (unsharded) state is one ``torch.save`` of the model's and
+  the optimizer's state dicts and the step, as ``<dir>/<step>.pt``: a
+  temporary file ``os.replace``d into place, so a writer killed mid-save
+  leaves no half checkpoint behind;
+- an FSDP-sharded state (``train.shard_train_state``) is saved with
+  ``torch.distributed.checkpoint`` into ``<dir>/<step>/``, orbax's layout:
+  every rank writes its own shards, process 0 commits the step by writing
+  ``.metadata`` last, and a restore reads each rank's shards back onto
+  its own device.  The optimizer's param groups (the schedule's update
+  count) travel with the moments.  Every rank calls ``save`` and
+  ``restore`` (they are collectives); process 0 alone prunes;
+- ``async_save``: the state is copied off the device, then written on a
+  background thread while training goes on; ``wait()`` (or the next
+  save) joins the writer.  Sharded, the writer coordinates over a gloo
+  group beside NCCL (``launcher.bootstrap.host_group``);
 - ``maybe_save`` follows the reference's orbax policy: a step at or below
   the latest saved one is skipped; otherwise save on multiples of
-  ``save_interval_steps``, or when no checkpoint exists yet;
-- restoring loads into the given state's model and optimizer in place.
-
-Sharded, multi-process checkpoints (``torch.distributed.checkpoint``) come
-with the parallel slice of the port.
+  ``save_interval_steps``, or when no checkpoint exists yet.
 """
 
 from __future__ import annotations
@@ -23,14 +30,46 @@ from __future__ import annotations
 import logging
 import os
 import re
+import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
 
+from k8s_tpu_torch.launcher.bootstrap import host_group, process_index
+from k8s_tpu_torch.models.train import is_sharded
+
 log = logging.getLogger(__name__)
 
-_NAME = re.compile(r"^(\d+)\.pt$")
+_FILE = re.compile(r"^(\d+)\.pt$")
+_DIR = re.compile(r"^(\d+)$")
+_COMMITTED = ".metadata"  # written last by torch.distributed.checkpoint
+
+
+def _dcp_state(state: dict) -> dict:
+    """The sharded train state as ``torch.distributed.checkpoint`` takes
+    it: the model's and the optimizer's state dicts (DTensors, keyed by
+    parameter name) and the step."""
+    from torch.distributed.checkpoint.state_dict import (
+        get_model_state_dict, get_optimizer_state_dict,
+    )
+
+    model = state["model"]
+    return {"model": get_model_state_dict(model),
+            "optimizer": get_optimizer_state_dict(model, state["optimizer"]),
+            "step": int(state["step"])}
+
+
+def _host_copy(obj):
+    """A copy of a state dict with every tensor on the host."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
 
 
 class Checkpointer:
@@ -40,20 +79,28 @@ class Checkpointer:
       directory: checkpoint root (CHECKPOINT_DIR from the operator env).
       max_to_keep: newest N checkpoints kept, older pruned.
       save_interval_steps: ``maybe_save`` only saves on multiples of this.
+      async_save: write on a background thread (``wait()`` or the next
+        save joins the writer).
     """
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1, async_save: bool = False):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self.directory = str(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        self.async_save = async_save
         os.makedirs(self.directory, exist_ok=True)
         self._lock = threading.Lock()
+        self._pending: Optional[tuple] = None  # (step, future)
+        self._writer: Optional[ThreadPoolExecutor] = None  # one-file saves
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{int(step)}.pt")
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(int(step)))
 
     # -- save ------------------------------------------------------------
 
@@ -67,19 +114,69 @@ class Checkpointer:
         """Save ``state`` at ``step``.  Returns True if a save happened
         (off-interval steps are skipped unless ``force``)."""
         with self._lock:
-            if not force and not self.should_save(step):
-                return False
+            return self._save_locked(step, state, force)
+
+    def _save_locked(self, step: int, state: dict, force: bool) -> bool:
+        if not force and not self.should_save(step):
+            return False
+        self._join()
+        if is_sharded(state["model"]):
+            self._save_sharded(step, state)
+        else:
             payload = {"model": state["model"].state_dict(),
                        "optimizer": state["optimizer"].state_dict(),
                        "step": int(state["step"])}
-            path = self._path(step)
-            tmp = os.path.join(self.directory,
-                               f".{int(step)}.pt.tmp{os.getpid()}")
-            torch.save(payload, tmp)
-            os.replace(tmp, path)
-            for old in self.all_steps()[:-self.max_to_keep]:
+            if self.async_save:
+                if self._writer is None:
+                    self._writer = ThreadPoolExecutor(
+                        1, thread_name_prefix="checkpoint-writer")
+                self._pending = (int(step), self._writer.submit(
+                    self._write_file, step, _host_copy(payload)))
+            else:
+                self._write_file(step, payload)
+        return True
+
+    def _write_file(self, step: int, payload: dict) -> None:
+        tmp = os.path.join(self.directory,
+                           f".{int(step)}.pt.tmp{os.getpid()}")
+        torch.save(payload, tmp)
+        os.replace(tmp, self._path(step))
+        if not self.async_save:
+            self._prune()
+
+    def _save_sharded(self, step: int, state: dict) -> None:
+        import torch.distributed.checkpoint as dcp
+
+        sd = _dcp_state(state)
+        if self.async_save:
+            future = dcp.async_save(sd, checkpoint_id=self._dir(step),
+                                    process_group=host_group())
+            # newer torch returns a response whose upload future is the
+            # one that ends with the commit
+            future = getattr(future, "upload_completion", future)
+            self._pending = (int(step), future)
+        else:
+            dcp.save(sd, checkpoint_id=self._dir(step))
+            self._prune()
+
+    def _join(self) -> None:
+        """Wait for the in-flight async save (re-raising its error), then
+        prune."""
+        if self._pending is None:
+            return
+        _, future = self._pending
+        self._pending = None
+        future.result()
+        self._prune()
+
+    def _prune(self) -> None:
+        if process_index() != 0:
+            return
+        for old in self.all_steps()[:-self.max_to_keep]:
+            if os.path.isdir(self._dir(old)):
+                shutil.rmtree(self._dir(old), ignore_errors=True)
+            if os.path.exists(self._path(old)):
                 os.remove(self._path(old))
-            return True
 
     def maybe_save(self, step: int, state: dict) -> bool:
         """Interval-respecting save (the per-step call site in train loops)."""
@@ -88,17 +185,30 @@ class Checkpointer:
     # -- restore ---------------------------------------------------------
 
     def all_steps(self) -> list[int]:
-        return sorted(int(m.group(1)) for m in map(
-            _NAME.match, os.listdir(self.directory)) if m)
+        """Committed steps: ``<step>.pt`` files and ``<step>/``
+        directories holding ``.metadata``."""
+        steps = set()
+        for name in os.listdir(self.directory):
+            if _FILE.match(name):
+                steps.add(int(name[:-3]))
+            elif _DIR.match(name) and os.path.exists(
+                    os.path.join(self.directory, name, _COMMITTED)):
+                steps.add(int(name))
+        return sorted(steps)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
-        return steps[-1] if steps else None
+        if self._pending is not None:
+            steps.append(self._pending[0])
+        return max(steps) if steps else None
 
     def restore(self, step: int, target_state: dict) -> dict:
-        """Load ``step`` into ``target_state``'s model and optimizer (in
-        place, on the model's device); returns the state."""
+        """Load ``step`` into ``target_state``'s model and optimizer in
+        place, on their devices (a sharded checkpoint into a sharded
+        state, shard by shard); returns the state."""
         model = target_state["model"]
+        if is_sharded(model):
+            return self._restore_sharded(step, target_state)
         device = next(model.parameters()).device
         payload = torch.load(self._path(step), map_location=device,
                              weights_only=True)
@@ -107,8 +217,27 @@ class Checkpointer:
         target_state["step"] = payload["step"]
         return target_state
 
+    def _restore_sharded(self, step: int, target_state: dict) -> dict:
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.checkpoint.state_dict import (
+            set_model_state_dict, set_optimizer_state_dict,
+        )
+
+        if not os.path.isdir(self._dir(step)):
+            raise FileNotFoundError(
+                f"no sharded checkpoint {self._dir(step)} for a sharded "
+                "state")
+        sd = _dcp_state(target_state)
+        dcp.load(sd, checkpoint_id=self._dir(step))
+        model, opt = target_state["model"], target_state["optimizer"]
+        set_model_state_dict(model, sd["model"])
+        set_optimizer_state_dict(model, opt, sd["optimizer"])
+        target_state["step"] = int(sd["step"])
+        return target_state
+
     def restore_latest(self, target_state: dict
                        ) -> tuple[dict, Optional[int]]:
+        self._join()
         step = self.latest_step()
         if step is None:
             return target_state, None
@@ -128,7 +257,44 @@ class Checkpointer:
     # -- lifecycle -------------------------------------------------------
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is ever in flight."""
+        """Join any in-flight async save."""
+        with self._lock:
+            self._join()
 
     def close(self) -> None:
         self.wait()
+        if self._writer is not None:
+            self._writer.shutdown()
+            self._writer = None
+
+    def save_on_preemption(self, get_state, get_step):
+        """Register a SIGTERM hook that saves synchronously before the
+        pod's grace period runs out (a preemption is SIGTERM / exit 143,
+        which the operator's exit-code policy restarts).  ``get_state`` and
+        ``get_step`` are callables, read at signal time.
+
+        Best effort, as the reference: the handler runs on the main thread
+        between bytecodes, so if the signal lands while a save holds the
+        lock, blocking would deadlock the process inside its grace window;
+        the hook skips instead (the in-flight save is at most one interval
+        stale).  ``train.fit`` saves at the next step boundary regardless.
+
+        Returns the unsubscribe callable from ``signals.on_shutdown``."""
+        from k8s_tpu_torch.util import signals
+
+        def _save_now():
+            if not self._lock.acquire(blocking=False):
+                log.warning(
+                    "SIGTERM during an in-flight save; skipping final save")
+                return
+            try:
+                step = int(get_step())
+                log.warning("SIGTERM: checkpointing step %d before exit", step)
+                self._save_locked(step, get_state(), force=True)
+                self._join()
+            except Exception:  # noqa: BLE001 - best effort on the way out
+                log.exception("preemption checkpoint failed")
+            finally:
+                self._lock.release()
+
+        return signals.on_shutdown(_save_now)

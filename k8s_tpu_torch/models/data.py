@@ -9,6 +9,10 @@ batches is queued while the device computes on the current one.  It keeps
 the reference's contract: producer exceptions surface at the consumer's
 next ``__next__``, ``close()`` stops the producer, and ``skip(n)`` before
 the first batch fast-forwards the source (checkpoint resume).
+``prefetch_to_mesh`` stages only this rank's rows of each global batch:
+every process draws the same seeded global batches and keeps its block
+over the mesh's (dp, fsdp) axes, as the reference's ``device_put`` of a
+global batch keeps each process's rows.
 """
 
 from __future__ import annotations
@@ -59,17 +63,21 @@ class PrefetchIterator:
     Runs the wrapped iterator on a daemon thread, moving every array of
     each batch (a tuple or list of numpy arrays or tensors) to
     ``device`` into a bounded queue.  ``device`` is required: the
-    caller names where its step runs (``cuda``, or ``cpu`` for tests).  Call ``close()`` (use try/finally
-    around the consuming loop) to stop the producer: the live thread keeps
-    the iterator reachable, so garbage collection alone will not stop it.
+    caller names where its step runs (``cuda``, or ``cpu`` for tests).
+    ``shard`` (a ``parallel.mesh.DataSharding``) keeps only this rank's
+    rows of every array.  Call ``close()`` (use try/finally around the
+    consuming loop) to stop the producer: the live thread keeps the
+    iterator reachable, so garbage collection alone will not stop it.
     """
 
     _DONE = object()
 
-    def __init__(self, it: Iterable, *, device, buffer_size: int = 2):
+    def __init__(self, it: Iterable, *, device, buffer_size: int = 2,
+                 shard=None):
         if buffer_size < 1:
             raise ValueError("buffer_size must be >= 1")
         self._device = torch.device(device)
+        self._shard = shard
         self._source = it
         self._q: queue.Queue = queue.Queue(maxsize=buffer_size)
         self._stop = threading.Event()
@@ -104,7 +112,8 @@ class PrefetchIterator:
 
         def put(x):
             if id(x) not in staged:
-                t = torch.as_tensor(x)
+                t = torch.as_tensor(x if self._shard is None
+                                    else self._shard.local(x))
                 if cuda:
                     t = t.pin_memory().to(self._device, non_blocking=True)
                 else:
@@ -170,6 +179,20 @@ class PrefetchIterator:
 def prefetch_to_device(it: Iterable, device, *, buffer_size: int = 2
                        ) -> PrefetchIterator:
     """The one-call path for fit(): stage every batch on ``device``,
-    ``buffer_size`` batches ahead (the single-device counterpart of the
-    reference's ``prefetch_to_mesh``)."""
+    ``buffer_size`` batches ahead (one device; :func:`prefetch_to_mesh`
+    for a sharded step)."""
     return PrefetchIterator(it, device=device, buffer_size=buffer_size)
+
+
+def prefetch_to_mesh(it: Iterable, mesh, device, *,
+                     axes: Sequence[str] = ("dp", "fsdp"),
+                     buffer_size: int = 2) -> PrefetchIterator:
+    """The one-call path for a sharded fit(): from each global batch of
+    ``it``, stage this rank's rows over ``axes`` of ``mesh``
+    (``parallel.mesh.data_sharding``) on ``device``, ``buffer_size``
+    batches ahead.  ``skip(n)`` still skips n global batches."""
+    from k8s_tpu_torch.parallel.mesh import data_sharding
+
+    return PrefetchIterator(it, device=device, buffer_size=buffer_size,
+                            shard=data_sharding(mesh, axes))
+

@@ -26,8 +26,8 @@ batched rows are not independent (models/engine.py).  The reference's
 einsums are plain XLA, not Pallas kernels, and so are these.
 
 Not in this port yet: expert parallelism (the reference's ``mesh`` and
-:func:`expert_sharding_rule`), which comes with the parallel slice and is
-refused by name.
+:func:`expert_sharding_rule`), which comes with the parallel slice
+(ROADMAP.md Queue 1 item 8b) and is refused by name.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-_PARALLEL = "comes with the parallel slice of the port"
+_PARALLEL = ("comes with the parallel slice of the port "
+             "(ROADMAP.md Queue 1 item 8b)")
 
 
 def top_k_lowest_index(x: torch.Tensor, k: int):

@@ -36,7 +36,8 @@ Conventions (the reference's):
   with the product cast once, exactly as in the dense path.
 
 The reference's tensor-parallel variants (``paged_kv_write_tp``,
-``paged_attention_tp``) come with the ``parallel/`` slice of the port.
+``paged_attention_tp``) come with the ``parallel/`` slice of the port
+(ROADMAP.md Queue 1 item 8c).
 """
 
 from __future__ import annotations

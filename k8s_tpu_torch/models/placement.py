@@ -21,8 +21,8 @@ This module holds the bodies and the placement that runs them:
 
 The reference's ``MeshPlacement`` (params tensor-sharded over a ``tp``
 mesh, the pool head-sharded per host) comes with the ``parallel/`` slice
-of the port; :func:`check_placement` refuses anything but the local
-placement.
+of the port (ROADMAP.md Queue 1 item 8c); :func:`check_placement` refuses
+anything but the local placement.
 """
 
 from __future__ import annotations
@@ -315,5 +315,6 @@ def check_placement(placement) -> LocalPlacement:
         raise NotImplementedError(
             f"placement {type(placement).__name__} is not ported: mesh "
             "serving (MeshPlacement, K8S_TPU_SERVE_MESH) comes with the "
-            "parallel/ slice of the port; use LocalPlacement")
+            "parallel/ slice of the port (ROADMAP.md Queue 1 item 8c); use "
+            "LocalPlacement")
     return placement

@@ -226,7 +226,8 @@ def _refuse_later_slices() -> None:
     if engine_lib._env_int("K8S_TPU_SERVE_MESH", 0) > 0:
         raise NotImplementedError(
             "K8S_TPU_SERVE_MESH: mesh serving comes with the parallel/ "
-            "slice of the port; unset it to serve on one device")
+            "slice of the port (ROADMAP.md Queue 1 item 8c); unset it to "
+            "serve on one device")
 
 
 class LmServer:

@@ -1,4 +1,5 @@
-"""Training: loss, optimizer, train step and the fit loop, on one device.
+"""Training: loss, optimizer, train step and the fit loop, on one device
+or FSDP-sharded over a mesh.
 
 Port of ``k8s_tpu/models/train.py``.  The reference's pytree state
 ``{params, opt_state, step}`` becomes ``{"model", "optimizer", "step"}``:
@@ -17,9 +18,18 @@ gets from optax is reproduced exactly:
   ``optax.scale_by_schedule`` does, warmup joined to cosine or linear decay.
 
 The loss stays on the device: ``fit`` syncs it only where the reference
-logs.  Sharded training (``shard_train_state``,
-``make_sharded_train_step``) and MoE (``make_moe_apply_fn``) come with the
-parallel slice of the port.
+logs.
+
+Sharded training (``shard_train_state``, ``make_sharded_train_step``,
+``fit(mesh=...)``) is FSDP2 over the mesh's (dp, fsdp) axes: each
+``Block`` and then the root are ``fully_shard``-ed (the tied embedding
+stays in the root, where the gather and the head both use it), with no
+mixed-precision policy, so the f32 masters are gathered and the model
+casts where it casts unsharded.  Each rank runs its rows of the global
+batch; FSDP2 averages the gradients over the data axes, the clip reduces
+the norm across the shards, and the step returns the global mean loss.
+Tensor, sequence, pipeline and expert parallelism come with the parallel
+slice of the port (ROADMAP.md Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ import torch
 
 log = logging.getLogger(__name__)
 
-_PARALLEL = "comes with the parallel slice of the port"
+_PARALLEL = ("comes with the parallel slice of the port "
+             "(ROADMAP.md Queue 1 item 8b)")
 
 
 def cross_entropy_loss(logits, labels):
@@ -99,12 +110,43 @@ def lr_schedule(lr: float, *, schedule: str = "constant",
     return main
 
 
+def _sharded_sq_norm(grads: list) -> tuple[list, torch.Tensor]:
+    """The local shards of FSDP-sharded (DTensor) gradients and the sum of
+    their squares over every shard: a sum of the local squares, reduced
+    over the mesh dims the gradients are sharded on (not over dp, where
+    they are replicated)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    def layout(g):  # the mesh, and which of its dims shard the tensor
+        return g.device_mesh, tuple(isinstance(p, Shard)
+                                    for p in g.placements)
+
+    mesh, sharded_dims = layout(grads[0])
+    if any(layout(g) != (mesh, sharded_dims) for g in grads):
+        raise ValueError("gradients sharded over different meshes")
+    local = [g.to_local() for g in grads]
+    sq = torch.stack(torch._foreach_norm(local)).square().sum()
+    for dim, sharded in enumerate(sharded_dims):
+        if sharded:
+            dist.all_reduce(sq, group=mesh.get_group(dim))
+    return local, sq
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: when the global norm reaches
     ``max_norm`` every gradient becomes ``(g / g_norm) * max_norm``.  No
-    host sync; returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    host sync; returns the norm.  FSDP-sharded gradients take the norm
+    of the whole gradient, reduced across the shards."""
+    from torch.distributed.tensor import DTensor
+
+    if grads and isinstance(grads[0], DTensor):
+        grads, sq = _sharded_sq_norm(grads)
+        norm = sq.sqrt()
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     clip = norm >= max_norm
     div = torch.where(clip, norm, 1.0)
     mul = torch.where(clip, max_norm, 1.0).to(norm.dtype)
@@ -218,12 +260,106 @@ def make_train_step(apply_fn: Callable, loss_fn: Callable,
     return step
 
 
-def shard_train_state(*args, **kwargs):
-    raise NotImplementedError(f"FSDP-sharded train state {_PARALLEL}")
+@dataclasses.dataclass(frozen=True)
+class StateShardings:
+    """Where a sharded train state lives: the mesh, and each parameter's
+    spec (``{name: spec}``, the reference's PartitionSpecs as tuples;
+    the optimizer moments follow their parameter)."""
+
+    mesh: object
+    params: dict
 
 
-def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError(f"the sharded train step {_PARALLEL}")
+def is_sharded(model: torch.nn.Module) -> bool:
+    """True when FSDP holds ``model``'s parameters as shards."""
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(p, DTensor) for p in model.parameters())
+
+
+def _check_data_parallel(mesh) -> None:
+    from k8s_tpu_torch.parallel.mesh import mesh_shape
+
+    shape = mesh_shape(mesh)
+    other = {a: n for a, n in shape.items() if a not in ("dp", "fsdp")
+             and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other}: tensor, sequence, pipeline and expert "
+            f"parallelism {_PARALLEL}")
+
+
+def shard_train_state(state: dict, mesh) -> tuple[dict, StateShardings]:
+    """FSDP-shard the model over the mesh's (dp, fsdp) axes, in place:
+    ``fully_shard`` on each ``Block`` (``model.layers``) and then on the
+    root, each parameter placed by ``parallel.sharding.fsdp_sharding``
+    (HSDP over a dp > 1 mesh).  The optimizer is rebuilt over the sharded
+    parameters with its param groups (the schedule's ``count``) and any
+    moments it holds, sharded like their parameter.  Returns ``(state,
+    shardings)``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from k8s_tpu_torch.parallel import sharding
+
+    _check_data_parallel(mesh)
+    model, opt = state["model"], state["optimizer"]
+    if is_sharded(model):
+        raise ValueError("the train state is sharded already")
+    old = dict(model.named_parameters())
+    specs = sharding.fsdp_sharding(old, mesh)
+    sharding.apply_fsdp(model, specs, mesh)
+    new = dict(model.named_parameters())
+    name_of = {id(p): n for n, p in old.items()}
+    groups = [{**{k: v for k, v in g.items() if k != "params"},
+               "params": [new[name_of[id(p)]] for p in g["params"]]}
+              for g in opt.param_groups]
+    sharded_opt = type(opt)(groups)
+    for p_old, moments in opt.state.items():
+        p = new[name_of[id(p_old)]]
+        sharded_opt.state[p] = {
+            k: distribute_tensor(v.detach(), p.device_mesh, p.placements)
+            if torch.is_tensor(v) and v.shape == p_old.shape else v
+            for k, v in moments.items()}
+    state["optimizer"] = sharded_opt
+    return state, StateShardings(mesh, specs)
+
+
+def make_sharded_train_step(apply_fn: Callable, loss_fn: Callable,
+                            optimizer: Optimizer, mesh,
+                            state_shardings: StateShardings,
+                            batch_axes: tuple = ("dp", "fsdp"),
+                            grad_accum: int = 1) -> Callable:
+    """The train step over a state from :func:`shard_train_state`.  The
+    batch is this rank's rows of the global batch (``parallel.mesh.
+    data_sharding``; ``models.data.prefetch_to_mesh`` hands them out);
+    FSDP2 gathers each layer's parameters around its use and averages the
+    gradients over ``batch_axes``.  Returns the global batch's mean loss,
+    on the device."""
+    import torch.distributed as dist
+
+    from k8s_tpu_torch.parallel.mesh import mesh_shape
+
+    _check_data_parallel(mesh)
+    if tuple(batch_axes) != ("dp", "fsdp"):
+        raise ValueError(f"batch_axes {batch_axes}: the batch is split "
+                         "over (dp, fsdp)")
+    if state_shardings.mesh is not mesh:
+        raise ValueError("state_shardings are of another mesh")
+    shards = mesh_shape(mesh)["dp"] * mesh_shape(mesh)["fsdp"]
+    step = make_train_step(apply_fn, loss_fn, optimizer,
+                           grad_accum=grad_accum)
+
+    def sharded_step(state, batch):
+        if not is_sharded(state["model"]):
+            raise ValueError("make_sharded_train_step needs the state "
+                             "shard_train_state returns")
+        state, loss = step(state, batch)
+        # every data shard holds as many rows: the global mean is the
+        # mean of the shards' means (gloo has no AVG)
+        dist.all_reduce(loss)
+        return state, loss / shards
+
+    return sharded_step
 
 
 def make_moe_apply_fn(model, *, aux_loss_weight: float = 0.01, mesh=None):
@@ -320,19 +456,35 @@ def fit(apply_fn: Callable, loss_fn: Callable, optimizer: Optimizer,
         checkpoint_every: int = 100, preemption_save: bool = True,
         log_every: int = 0, eval_fn: Optional[Callable] = None,
         eval_every: int = 0, grad_accum: int = 1,
-        metrics_path: str = "") -> FitResult:
-    """The training loop on one device, with the reference's contract:
-    resume from the latest checkpoint under ``checkpoint_dir`` (fast-
-    forwarding the data stream), save every ``checkpoint_every`` steps,
-    and on SIGTERM (with ``preemption_save``) save at the next step
-    boundary and return with ``preempted=True``.  ``eval_fn`` runs every
-    ``eval_every`` steps and after the last; ``metrics_path`` appends
-    JSONL scalars (every ``log_every``'th step, every step when 0, and the
-    last).  The state is updated in place and returned in the result.
-    The reference's ``mesh`` and prebuilt ``step_fn`` (the pipeline
-    schedule) come with the parallel slice of the port."""
-    step_fn = make_train_step(apply_fn, loss_fn, optimizer,
-                              grad_accum=grad_accum)
+        metrics_path: str = "", mesh=None,
+        step_fn: Optional[Callable] = None,
+        state_shardings: Optional[StateShardings] = None) -> FitResult:
+    """The training loop, with the reference's contract: resume from the
+    latest checkpoint under ``checkpoint_dir`` (fast-forwarding the data
+    stream), save every ``checkpoint_every`` steps, and on SIGTERM (with
+    ``preemption_save``) save at the next step boundary and return with
+    ``preempted=True``.  ``eval_fn`` runs every ``eval_every`` steps and
+    after the last; ``metrics_path`` appends JSONL scalars (every
+    ``log_every``'th step, every step when 0, and the last), from process
+    0 only.  The state is updated in place and returned in the result.
+
+    Without ``mesh`` the step is :func:`make_train_step` on one device.
+    With it the state is sharded (:func:`shard_train_state`) and the step
+    is :func:`make_sharded_train_step`; ``data_iter`` then yields this
+    rank's rows (``models.data.prefetch_to_mesh``).  A prebuilt
+    ``step_fn(state, batch) -> (state, loss)`` replaces the default step;
+    with ``state_shardings`` the state is sharded on their mesh first
+    unless it is already."""
+    if step_fn is None and mesh is not None:
+        state, shardings = shard_train_state(state, mesh)
+        step_fn = make_sharded_train_step(apply_fn, loss_fn, optimizer,
+                                          mesh, shardings,
+                                          grad_accum=grad_accum)
+    elif step_fn is None:
+        step_fn = make_train_step(apply_fn, loss_fn, optimizer,
+                                  grad_accum=grad_accum)
+    elif state_shardings is not None and not is_sharded(state["model"]):
+        state, _ = shard_train_state(state, state_shardings.mesh)
 
     ckpt = None
     start_step = 0
@@ -368,7 +520,12 @@ def fit(apply_fn: Callable, loss_fn: Callable, optimizer: Optimizer,
         from k8s_tpu_torch.util import signals
 
         unsubscribe = signals.on_shutdown(preempted.set)
-    metrics = MetricsWriter(metrics_path) if metrics_path else None
+    # process 0 only: every process of a gang runs fit, and the path
+    # usually lies on the shared checkpoint volume
+    from k8s_tpu_torch.launcher.bootstrap import process_index
+
+    metrics = MetricsWriter(metrics_path) \
+        if metrics_path and process_index() == 0 else None
 
     losses = []
     eval_losses = []

@@ -43,7 +43,7 @@ held in ``config.dtype`` like every projection, and
 ``forward(aux_losses=[...])`` gathers each layer's load-balance loss.
 
 Not in this port yet (each raises ``NotImplementedError``): the sp ring
-and ulysses (``parallel/``).
+and ulysses (``parallel/``, ROADMAP.md Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -508,7 +508,7 @@ class Transformer(nn.Module):
         elif cfg.use_ring_attention:
             raise NotImplementedError(
                 "sequence parallelism (ring / ulysses) comes with the "
-                "parallel/ slice of the port")
+                "parallel/ slice of the port (ROADMAP.md Queue 1 item 8b)")
         if positions is None:
             positions = torch.arange(L, device=tokens.device).expand(B, L)
         x = F.embedding(tokens, self.embedding).to(cfg.dtype)

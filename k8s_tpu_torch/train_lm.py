@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Causal-LM training on one GPU: the port of
+"""Causal-LM training on GPUs: the port of
 ``examples/train_lm/train_lm.py``.
 
     python -m k8s_tpu_torch.train_lm --train_steps 20     # on the card
@@ -17,9 +17,19 @@ the reference turns its Pallas kernels on for a TPU.  After training the
 trained weights are exported as a serving artifact under ``--train_dir``
 (``models.serving``) and, with ``--generate N``, greedily decode N tokens.
 
+The device is ``--device``, else the pod env's ``K8S_TPU_PLATFORM``, else
+cuda.  A job of more processes or slices (the operator's env) trains
+data-parallel: ``torch.distributed`` from the env, the mesh of
+``launcher.bootstrap.make_training_mesh``, and ``fit(mesh=...)`` with the
+FSDP-sharded state, each process staging its rows of the same seeded
+global batches (``models.data.prefetch_to_mesh``) and checkpointing its
+shards under ``<train_dir>/<step>/``.  The serving export and
+``--generate`` stay with one process, as in the reference.  One process
+keeps the unsharded step.
+
 Flags whose machinery a later slice of the port brings exit non-zero with
 a message saying so: ``--tp``, ``--sp`` and ``--pp`` above 1 (the
-parallel slice).
+parallel slice, ROADMAP.md Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -98,9 +108,9 @@ def parse_args(argv=None):
     p.add_argument("--generate", type=int, default=0, metavar="N",
                    help="after training, greedily generate N tokens from a "
                    "held-out prompt with the trained weights")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=None,
                    help="cuda (the kernels) or cpu (their plain versions, "
-                   "for tests)")
+                   "for tests); default: K8S_TPU_PLATFORM, else cuda")
     return p.parse_args(argv)
 
 
@@ -115,7 +125,8 @@ def build_config(args, on_gpu: bool):
         raise SystemExit(
             f"--tp {args.tp} --sp {args.sp} --pp {args.pp}: tensor, "
             "sequence and pipeline parallelism come with the parallel "
-            "slice of the port; use --tp 1 --sp 1 --pp 1")
+            "slice of the port (ROADMAP.md Queue 1 item 8b); use --tp 1 "
+            "--sp 1 --pp 1")
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise SystemExit(
             f"--batch_size {args.batch_size} is not divisible into "
@@ -160,7 +171,8 @@ def main(argv=None) -> int:
 
     from k8s_tpu_torch.launcher import bootstrap
 
-    cfg_launch = bootstrap.initialize_distributed()
+    cfg_launch = bootstrap.initialize_distributed(device=args.device)
+    sharded = cfg_launch.is_distributed or cfg_launch.num_slices > 1
 
     import torch
 
@@ -168,10 +180,12 @@ def main(argv=None) -> int:
     from k8s_tpu_torch.models import data as data_lib
     from k8s_tpu_torch.models import train as train_lib
     from k8s_tpu_torch.models.transformer import Transformer
-    from k8s_tpu_torch.ops._common import resolve_device
 
-    device = resolve_device(args.device)
+    device = bootstrap.process_device()
     cfg = build_config(args, device.type == "cuda")
+    mesh = None
+    if sharded:
+        mesh, _ = bootstrap.make_training_mesh(config=cfg_launch)
     log.info("preset %s: layers=%d hidden=%d seq=%d flash=%s ring=%s",
              args.preset, cfg.layers, cfg.hidden, args.seq_len,
              cfg.use_flash_attention, cfg.use_ring_attention)
@@ -245,7 +259,8 @@ def main(argv=None) -> int:
                 return data_lib.prefetch_to_device(
                     ((b, b) for (b,) in data_lib.array_batches(
                         (eval_corpus,), args.batch_size, seed=0)), device)
-    data_iter = data_lib.prefetch_to_device(batches, device)
+    data_iter = data_lib.prefetch_to_mesh(batches, mesh, device) if sharded \
+        else data_lib.prefetch_to_device(batches, device)
 
     state = train_lib.init_state(model, optimizer)
     fused = args.fused_ce == "on" or (args.fused_ce == "auto"
@@ -276,15 +291,18 @@ def main(argv=None) -> int:
             metrics_path=args.metrics_path or (
                 os.path.join(args.train_dir, "metrics.jsonl")
                 if args.train_dir else ""),
+            mesh=mesh,
         )
     finally:
         data_iter.close()
 
     def maybe_export_serving():
-        # causal configs only (decode-mode attention is causal by
-        # construction); best-effort: a failed export must not flip the
+        # chief-only and single-process (the sharded weights live on every
+        # process), causal configs only (decode-mode attention is causal
+        # by construction); best-effort: a failed export must not flip the
         # exit code of a finished training run
-        if not (args.train_dir and cfg.causal and cfg_launch.is_chief):
+        if not (args.train_dir and cfg.causal and not sharded
+                and cfg_launch.is_chief):
             return
         try:
             from k8s_tpu_torch.models import serving
@@ -316,9 +334,9 @@ def main(argv=None) -> int:
              args.train_steps, final)
     maybe_export_serving()
     if args.generate > 0:
-        if not cfg.causal:
+        if not cfg.causal or sharded:
             log.warning("--generate skipped: KV-cached decode serves "
-                        "causal configs")
+                        "causal single-process configs")
         else:
             from k8s_tpu_torch.models import decode as decode_lib
 

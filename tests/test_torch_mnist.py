@@ -235,6 +235,8 @@ def test_dist_mnist_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="fewer than one training batch"):
         dist_mnist.main(["--device", "cpu", "--data_dir", MNIST,
                          "--eval_holdout", "1790", "--batch_size", "16"])
+    # more processes train sharded (tests/test_torch_dist_ckpt.py); they
+    # need the operator's coordinator address
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
-    with pytest.raises(SystemExit, match="parallel slice"):
+    with pytest.raises(RuntimeError, match="JAX_COORDINATOR_ADDRESS"):
         dist_mnist.main(["--device", "cpu", f"--train_dir={tmp_path}"])

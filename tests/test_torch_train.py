@@ -330,12 +330,17 @@ def test_prefetch_contract():
 
 
 def test_parallel_pieces_name_their_slice():
-    for fn in (ttrain.shard_train_state, ttrain.make_sharded_train_step):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
-            fn()
+    # the FSDP step is ported (tests/test_torch_fsdp.py); a mesh with a
+    # model axis (tensor parallelism here) names the slice that brings it
+    class TpMesh:
+        mesh_dim_names = ("dp", "pp", "fsdp", "ep", "sp", "tp")
+        mesh = np.zeros((1, 1, 1, 1, 1, 2))
+
+    with pytest.raises(NotImplementedError, match="parallel slice.*8b"):
+        ttrain.shard_train_state({"model": None}, TpMesh())
     # MoE training is ported; only its mesh (expert parallelism) waits
     assert callable(ttrain.make_moe_apply_fn(None))
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(NotImplementedError, match="parallel slice.*8b"):
         ttrain.make_moe_apply_fn(None, mesh=object())
     from k8s_tpu_torch.launcher import bootstrap
 
@@ -344,7 +349,10 @@ def test_parallel_pieces_name_their_slice():
          "JAX_COORDINATOR_ADDRESS": "h:1", "CHECKPOINT_DIR": "/c"})
     assert (cfg.num_processes, cfg.process_id, cfg.checkpoint_dir) == \
         (2, 1, "/c") and not cfg.is_chief
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        bootstrap.initialize_distributed(cfg)
+    # a world of more processes needs its coordinator (the reference's
+    # words); none is joined here
+    with pytest.raises(RuntimeError, match="JAX_COORDINATOR_ADDRESS is not"):
+        bootstrap.initialize_distributed(
+            bootstrap.LauncherConfig(num_processes=2), device="cpu")
     assert bootstrap.initialize_distributed(
         bootstrap.LauncherConfig()).is_chief

@@ -1,0 +1,263 @@
+"""Gloo worlds of the port for the CPU tests: ``spawn`` starts N processes
+under the operator's env contract, and ``python tests/torch_world.py fsdp
+IO_DIR`` is the worker of the sharded-step tests.
+
+``spawn`` builds each worker's env with the reference's own gang helpers
+(``k8s_tpu.e2e.multiprocess.build_gang_tfjob`` and ``localhost_env``:
+``controller_v2.tpu_config.gen_env_vars`` with the coordinator mapped to
+loopback), adds ``K8S_TPU_PLATFORM=cpu`` as ``run_gang`` does, and runs
+any command line, so the port's entry points run with their own flags.
+The pytest process itself never joins a process group.
+
+The ``fsdp`` worker reads ``IO_DIR/in.json`` (config overrides of
+``tiny_test``, optimizer, steps, grad_accum) and ``IO_DIR/in.npz``
+(``param/<name>`` weights, ``tokens`` ``[steps, B, L]``), trains through
+``train.fit(mesh=...)`` on the mesh ``make_training_mesh`` builds from the
+env, with a checkpoint at the end, then restores that checkpoint into a
+fresh sharded state, and takes the gradient at the final weights on the
+first batch.  Process 0 writes ``out.json`` and ``out.npz``.  The
+``ckpt`` worker drives the sharded ``Checkpointer`` the same way.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def spawn(n: int, argv: list, *, num_slices: int = 1, extra_env=None,
+          timeout: float = 120.0) -> tuple[list, list]:
+    """Run ``argv`` (after ``python``) as an n-process gang; returns each
+    worker's exit code and output.  The first failure terminates the
+    rest, as the operator restarts a whole gang."""
+    from k8s_tpu.e2e import multiprocess
+
+    tfjob = multiprocess.build_gang_tfjob(n, multiprocess.free_port(),
+                                          num_slices=num_slices)
+    procs, logs = [], []
+    for i in range(n):
+        env = dict(os.environ)
+        env.update(multiprocess.localhost_env(tfjob, "worker", i))
+        env.update(K8S_TPU_PLATFORM="cpu", OMP_NUM_THREADS="1",
+                   PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+        env.update(extra_env or {})
+        log = tempfile.TemporaryFile()
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, *argv], env=env,
+                                      cwd=REPO, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    deadline = time.time() + timeout
+    while time.time() < deadline and any(p.poll() is None for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs):
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+        time.sleep(0.05)
+    outputs = []
+    for p, log in zip(procs, logs):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log.seek(0)
+        outputs.append(log.read().decode(errors="replace"))
+        log.close()
+    return [p.returncode for p in procs], outputs
+
+
+def fsdp_worker(io_dir: str) -> int:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed
+
+    from k8s_tpu_torch.launcher import bootstrap
+    from k8s_tpu_torch.models import checkpoint
+    from k8s_tpu_torch.models import data as data_lib
+    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch.models import transformer as tt
+    from k8s_tpu_torch.parallel.mesh import data_sharding, mesh_shape
+
+    torch.set_num_threads(1)
+    spec = json.load(open(os.path.join(io_dir, "in.json")))
+    arrays = np.load(os.path.join(io_dir, "in.npz"))
+    cfg = dataclasses.replace(tt.tiny_test(), **spec["config"])
+    params = {k[len("param/"):]: torch.from_numpy(arrays[k])
+              for k in arrays.files if k.startswith("param/")}
+    tokens = arrays["tokens"]
+
+    launch = bootstrap.initialize_distributed()
+    mesh, launch = bootstrap.make_training_mesh(config=launch)
+    optimizer = train_lib.default_optimizer(**spec["opt"])
+
+    def fresh(p):
+        model = tt.Transformer(cfg, p, device="cpu", trainable=True)
+        return train_lib.init_state(model, optimizer)
+
+    ckpt_dir = os.path.join(io_dir, "ckpt")
+    it = data_lib.prefetch_to_mesh(((t, t) for t in tokens), mesh, "cpu")
+    try:
+        result = train_lib.fit(
+            lambda m, x: m(x), train_lib.lm_loss, optimizer, fresh(params),
+            it, steps=len(tokens), mesh=mesh, grad_accum=spec["grad_accum"],
+            checkpoint_dir=ckpt_dir, checkpoint_every=1000,
+            preemption_save=False)
+    finally:
+        it.close()
+    state = result.state
+    full = {n: p.detach().full_tensor().numpy()
+            for n, p in state["model"].named_parameters()}
+
+    # the checkpoint round trip, into a fresh state with other weights and
+    # a wrong update count
+    other = fresh({n: torch.zeros_like(t) for n, t in params.items()})
+    other, _ = train_lib.shard_train_state(other, mesh)
+    for group in other["optimizer"].param_groups:
+        group["count"] = -1
+    ck = checkpoint.Checkpointer(ckpt_dir)
+    other, next_step = ck.restore_or_init(other)
+    restored_equal = all(
+        torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+            state["model"].parameters(), other["model"].parameters()))
+    moments_equal = all(
+        torch.equal(state["optimizer"].state[a]["exp_avg_sq"].to_local(),
+                    other["optimizer"].state[b]["exp_avg_sq"].to_local())
+        for a, b in zip(state["model"].parameters(),
+                        other["model"].parameters()))
+    # the gradient at the final weights on the first batch: FSDP's
+    # reduction over the data shards, before any clip or Adam normalizes
+    # its scale away
+    model = state["model"]
+    model.zero_grad(set_to_none=True)
+    rows = data_sharding(mesh).local(torch.from_numpy(tokens[0]))
+    train_lib.lm_loss(model(rows), rows).backward()
+    grads = {f"grad/{n}": p.grad.full_tensor().numpy()
+             for n, p in model.named_parameters()}
+    # shard_params places each parameter by logical_to_spec on its axes
+    from k8s_tpu_torch.parallel import sharding
+
+    plain = fresh(params)["model"]
+    axes = sharding.infer_logical_axes(dict(plain.named_parameters()))
+    sharding.shard_params(plain, axes, mesh)
+    fsdp = mesh_shape(mesh)["fsdp"]
+
+    def want_dim(name, p):
+        spec = sharding.logical_to_spec(axes[name], shape=tuple(p.shape),
+                                        fsdp_size=fsdp)
+        return spec.index("fsdp") if "fsdp" in spec else 0  # FSDP2's default
+
+    placed = all(p.placements[-1].dim == want_dim(n, p)
+                 for n, p in plain.named_parameters())
+    # every rank checked its own shards
+    same = torch.tensor([int(restored_equal and moments_equal and placed)])
+    torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN)
+    if launch.is_chief:
+        shard = data_sharding(mesh)
+        out = {"losses": result.losses, "mesh": mesh_shape(mesh),
+               "data_shard": [shard.index, shard.count],
+               "count": [g["count"] for g in state["optimizer"].param_groups],
+               "restored_count": [g["count"] for g in
+                                  other["optimizer"].param_groups],
+               "restored_step": other["step"], "next_step": next_step,
+               "restored_equal": bool(same.item()),
+               "ckpt_steps": ck.all_steps(),
+               "ckpt_files": sorted(os.listdir(
+                   os.path.join(ckpt_dir, str(len(tokens) - 1))))}
+        with open(os.path.join(io_dir, "out.json"), "w") as f:
+            json.dump(out, f)
+        np.savez(os.path.join(io_dir, "out.npz"), **full, **grads)
+    return 0
+
+
+def ckpt_worker(io_dir: str) -> int:
+    """The sharded Checkpointer: the interval and ``max_to_keep`` policy,
+    a synchronous round trip, and an async save that keeps the state it
+    was handed while the next step changes the weights."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_tpu_torch.launcher import bootstrap
+    from k8s_tpu_torch.models import bridge
+    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch.models import transformer as tt
+    from k8s_tpu_torch.models.checkpoint import Checkpointer
+    from k8s_tpu_torch.parallel.mesh import data_sharding
+
+    torch.set_num_threads(1)
+    launch = bootstrap.initialize_distributed()
+    mesh, launch = bootstrap.make_training_mesh(config=launch)
+    cfg = tt.tiny_test()
+    optimizer = train_lib.default_optimizer(1e-2, clip_norm=1.0)
+
+    def fresh(seed):
+        model = tt.Transformer(cfg, bridge.init_params(
+            cfg, seed, "cpu", dtype=torch.float32), device="cpu",
+            trainable=True)
+        return train_lib.shard_train_state(
+            train_lib.init_state(model, optimizer), mesh)
+
+    state, shardings = fresh(0)
+    step = train_lib.make_sharded_train_step(
+        lambda m, x: m(x), train_lib.lm_loss, optimizer, mesh, shardings)
+    tokens = torch.from_numpy(__import__("numpy").random.default_rng(
+        3).integers(0, 256, (4, 16)))
+    rows = data_sharding(mesh).local(tokens)
+    state, _ = step(state, (rows, rows))
+
+    def snapshot(s):
+        return ([p.detach().to_local().clone()
+                 for p in s["model"].parameters()],
+                [s["optimizer"].state[p]["exp_avg"].to_local().clone()
+                 for p in s["model"].parameters()],
+                [g["count"] for g in s["optimizer"].param_groups],
+                s["step"])
+
+    def same(s, snap):
+        params, moments, count, step_no = snapshot(s)
+        return (all(torch.equal(a, b) for a, b in zip(params, snap[0]))
+                and all(torch.equal(a, b) for a, b in zip(moments, snap[1]))
+                and count == snap[2] and step_no == snap[3])
+
+    out = {}
+    ck = Checkpointer(os.path.join(io_dir, "sync"), max_to_keep=2,
+                      save_interval_steps=3)
+    out["saved"] = [s for s in range(8) if ck.maybe_save(s, state)]
+    out["kept"] = ck.all_steps()
+    out["resave_refused"] = not ck.save(6, state)
+    out["forced"] = ck.save(7, state, force=True)
+    snap = snapshot(state)
+    other, _ = fresh(1)
+    other, out["next_step"] = ck.restore_or_init(other)
+    ok = same(other, snap)
+
+    ack = Checkpointer(os.path.join(io_dir, "async"), async_save=True)
+    ack.save(9, state)
+    out["pending_latest"] = ack.latest_step()
+    state, _ = step(state, (rows, rows))  # the weights move on meanwhile
+    ack.wait()
+    out["async_steps"] = ack.all_steps()
+    other, _ = fresh(2)
+    other, _ = ack.restore_latest(other)
+    ok = ok and same(other, snap) and not same(state, snap)
+    flag = torch.tensor([int(ok)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    out["restored_equal"] = bool(flag.item())
+    if launch.is_chief:
+        out["async_files"] = sorted(os.listdir(os.path.join(io_dir, "async",
+                                                            "9")))
+        with open(os.path.join(io_dir, "out.json"), "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    workers = {"fsdp": fsdp_worker, "ckpt": ckpt_worker}
+    if sys.argv[1] not in workers:
+        raise SystemExit(f"unknown scenario {sys.argv[1]!r}")
+    sys.exit(workers[sys.argv[1]](sys.argv[2]))
