@@ -123,6 +123,19 @@ Phases, each fatal on failure:
    k8s_tpu_torch.e2e.rendezvous_worker`` and ``launcher.tpu_smoke`` under
    a one-worker operator env built here, and a worker preempted at
    step_2, resumed to the uninterrupted control's final loss exactly).
+10. sequence parallelism on one card (worlds of 2 and 4 over gloo are
+   CPU tests): ``sp_kernels`` drives K2-K4 inside the ring with four
+   ``ThreadRing`` ranks (threads of this process, each calling the
+   ring's forward and backward directly) at gpt2-small width (L 16384:
+   contiguous causal, zigzag, Ulysses; bert-base's non-causal at L
+   8192) and Llama-3-8B width (L 32768: contiguous, zigzag, windows
+   4096, 12288 and 16384), held against the whole-sequence kernels,
+   exact launches (the ring's call count), each rank's calls replayed
+   alone for its device ms and the max/mean balance over ranks
+   (``sp_balance``), and at L 512 against the plain ring on the CPU
+   (``sp_small``); ``sp_model``: gpt2-small at L 8192 under no_grad over
+   the same ranks (flash ring contiguous and zigzag, Ulysses) against
+   the unsharded model, exact K2 launches.
 
 Prints the card line first, one JSON object per phase and case, then a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -3720,6 +3733,433 @@ def gang_path(torch):
     return launches
 
 
+# -- phase 10: sequence parallelism on one card ---------------------------------
+
+
+SP = 4  # ThreadRing ranks: NCCL puts no two ranks on one card
+GPT2_W = (12, 12, 64)    # heads, kv heads, head_dim of gpt2-small / bert-base
+LLAMA_W = (32, 8, 128)   # of Llama-3-8B
+SP_CASES = (
+    # name, widths, L, variant, causal, window
+    ("gpt2_contiguous", GPT2_W, 16384, "contiguous", True, None),
+    ("gpt2_zigzag", GPT2_W, 16384, "zigzag", True, None),
+    ("gpt2_ulysses", GPT2_W, 16384, "ulysses", True, None),
+    ("llama_contiguous", LLAMA_W, 32768, "contiguous", True, None),
+    ("llama_zigzag", LLAMA_W, 32768, "zigzag", True, None),
+    ("llama_window_4096", LLAMA_W, 32768, "contiguous", True, 4096),
+    ("llama_window_12288", LLAMA_W, 32768, "contiguous", True, 12288),
+    ("llama_window_16384", LLAMA_W, 32768, "contiguous", True, 16384),
+    ("bert_full_8192", GPT2_W, 8192, "contiguous", False, None),
+)
+SP_SMALL_L = 512  # the size at which the plain ring on the CPU joins in
+
+
+def sp_calls(variant: str, causal: bool, window, n: int, Lc: int) -> int:
+    """Flash calls (each one K2, and in the backward one K3 and one K4) a
+    ring makes over its n ranks: contiguous causal rank r visits r + 1
+    chunks; zigzag, non-causal and Ulysses every rank the same (n steps,
+    or one whole-sequence call); windowed hop 0 on every rank plus each
+    hop whose keys are all in the window (the rest are plain band
+    blocks) on the ranks past it."""
+    if variant == "ulysses":
+        return n
+    if window is not None:
+        hops = min(n - 1, -(-(window - 1) // Lc))
+        return n + sum(n - m for m in range(1, hops + 1)
+                       if window - m * Lc >= Lc)
+    if variant == "zigzag" or not causal:
+        return n * n
+    return n * (n + 1) // 2
+
+
+class _Recorder:
+    """Each ThreadRing rank's calls of the functions the ring modules call
+    by name (the flash kernels' wrappers and the plain band blocks),
+    recorded as they happen so that a rank's calls can be replayed and
+    timed alone afterwards."""
+
+    def __init__(self, threading, modules, names):
+        self.local = threading.local()
+        self.calls: dict = {}
+        self.saved = [(m, n, getattr(m, n)) for m in modules for n in names
+                      if hasattr(m, n)]
+
+    def __enter__(self):
+        for m, n, fn in self.saved:
+            setattr(m, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+    def _wrap(self, name, fn):
+        def wrapped(*a, **kw):
+            rank = getattr(self.local, "rank", None)
+            if rank is not None:
+                self.calls.setdefault(rank, []).append((name, fn, a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+
+def events_ms(torch, fn, iters: int) -> float:
+    """One call's ms between CUDA events around ``iters`` calls, after one
+    warm-up, from an idle stream."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sp_kernels(torch, flash, ring_flash, ulysses, collectives, common):
+    """K2-K4 inside the sequence-parallel ring on one card: ``ThreadRing``
+    at sp 4 (one thread a rank, bf16), each rank calling the ring's
+    forward and backward functions directly (``ring_flash_forward`` /
+    ``ring_flash_backward``, ``ulysses_flash_forward`` / ``_backward``),
+    at gpt2-small width (H12 D64, L 16384: contiguous causal, zigzag,
+    Ulysses; bert-base's non-causal contiguous at L 8192) and Llama-3-8B
+    width (H32 Hkv8 D128, L 32768: contiguous, zigzag, windows 4096,
+    12288 and 16384).
+
+    Held against the whole-sequence kernels (K2 forward, K3 + K4
+    backward) on the same inputs.  Tolerances: o within 4 * 2^-9 *
+    max|v| (the ring rounds each partial o to bf16 and the merged o once
+    more, the whole-sequence kernel once; both round p to bf16 before
+    p.v); lse within 1e-3 (f32 sums over up to 32768 terms in another
+    grouping, as ``flash_cases``); dq, dk, dv within 4e-2 of each
+    tensor's largest |value| (each side within ``flash_bwd_cases``' 2e-2
+    of exact; the ring sums bf16-rounded partial gradients in f32).  At
+    L 512 the same rings are held against the plain ring
+    (``parallel.ring_attention``, f32 on the CPU over ``ThreadRing``,
+    autograd for the gradients) or, windowed, the whole-sequence plain
+    flash, at the same tolerances.
+
+    The launch counters, zeroed just before each case's ring run and read
+    just after, must equal ``sp_calls`` for K2, K3 and K4.  Each rank's
+    recorded calls are then replayed alone under CUDA events: its kernel
+    device ms (forward and backward) and its band blocks' ms, and the
+    max/mean ratio over ranks (the reference's balance claim for zigzag,
+    ``k8s_tpu/parallel/ring_flash.py:198-222``)."""
+    import threading
+
+    ThreadRing = collectives.ThreadRing
+    totals = dict.fromkeys(common.KERNELS, 0)
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for name, (H, Hkv, D), L, variant, causal, window in SP_CASES:
+        Lc = L // SP
+        scale = D ** -0.5
+        q, do = (torch.randn(1, H, L, D, generator=g, device="cuda"
+                             ).to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(1, Hkv, L, D, generator=g, device="cuda"
+                            ).to(torch.bfloat16) for _ in range(2))
+        if variant == "ulysses":  # Ulysses takes [B, L, H, D] chunks
+            k, v = (t.repeat_interleave(H // Hkv, 1) for t in (k, v))
+        kw = {} if variant == "ulysses" else dict(
+            causal=causal, layout=variant, window=window)
+        rec_calls = _Recorder(threading, (ring_flash, ulysses),
+                              ("flash_fwd", "flash_bwd", "_band_block",
+                               "_band_bwd"))
+
+        def body(ring, q=q, k=k, v=v, do=do, kw=kw, variant=variant,
+                 Lc=Lc, rec=rec_calls):
+            rec.local.rank = ring.rank
+            sl = slice(ring.rank * Lc, (ring.rank + 1) * Lc)
+            with torch.no_grad():
+                if variant == "ulysses":
+                    t = [x.transpose(1, 2)[:, sl] for x in (q, k, v, do)]
+                    o, saved = ulysses.ulysses_flash_forward(
+                        *t[:3], ring, causal=causal)
+                    grads = ulysses.ulysses_flash_backward(saved, t[3], ring,
+                                                           causal=causal)
+                    # this rank's head group of the whole sequence's lse
+                    return (o.transpose(1, 2), saved[4][..., 0],
+                            [x.transpose(1, 2) for x in grads])
+                o, lse, saved = ring_flash.ring_flash_forward(
+                    q[:, :, sl], k[:, :, sl], v[:, :, sl], ring, **kw)
+                grads = ring_flash.ring_flash_backward(saved, do[:, :, sl],
+                                                       ring, **kw)
+                return o, lse, list(grads)
+
+        torch.cuda.synchronize()
+        with rec_calls:
+            common.reset_launches()
+            t0 = time.perf_counter()
+            res = ThreadRing.run(SP, body)
+            torch.cuda.synchronize()
+            ring_wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = common.launches()
+        calls = sp_calls(variant, causal, window, SP, Lc)
+        want = {"flash_fwd": calls, "rms_norm": 0, "flash_bwd_dq": calls,
+                "flash_bwd_dkv": calls}
+        if launches != want:
+            fail(f"sp_kernels {name}: launches {launches}, the ring makes "
+                 f"{want}")
+        for kname, n in launches.items():
+            totals[kname] += n
+
+        # the whole-sequence kernels on the same inputs
+        o_ref, lse_ref = flash.flash_fwd(q, k, v, scale, causal, window)
+        g_ref = flash.flash_bwd(q, k, v, o_ref, lse_ref, do, scale, causal,
+                                window)
+        o = torch.cat([r[0] for r in res], dim=2)
+        if variant == "ulysses":
+            lse = torch.cat([r[1] for r in res], dim=1)
+        else:
+            lse = torch.cat([r[1] for r in res], dim=2)
+        grads = [torch.cat([r[2][i] for r in res], dim=2) for i in range(3)]
+        tol_o = 4 * 2 ** -9 * v.float().abs().max().item()
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_l = (lse - lse_ref[..., 0]).abs().max().item()
+        errs = {}
+        for gname, a, r in zip(("dq", "dk", "dv"), grads, g_ref):
+            top = r.float().abs().max().item()
+            errs[gname] = {"max_abs_err": (a.float() - r.float()).abs()
+                           .max().item(), "max_abs": top}
+            if not (a.shape == r.shape and a.dtype == r.dtype
+                    and errs[gname]["max_abs_err"] <= 4e-2 * top):
+                fail(f"sp_kernels {name} {gname}: {errs[gname]} (tol 4e-2 "
+                     f"of max), shape {tuple(a.shape)} vs {tuple(r.shape)}")
+        if not (err_o <= tol_o and err_l <= 1e-3):
+            fail(f"sp_kernels {name}: o err {err_o} (tol {tol_o}), lse err "
+                 f"{err_l} (tol 1e-3)")
+        del res, o, lse, grads
+
+        # each rank's recorded calls, replayed alone
+        per_rank = []
+        for r in range(SP):
+            mine = rec_calls.calls.get(r, [])
+            kern = [c for c in mine if c[0].startswith("flash")]
+            band = [c for c in mine if c[0].startswith("_band")]
+
+            def replay(cs):
+                return lambda: [fn(*a, **kw2) for _, fn, a, kw2 in cs]
+
+            with torch.no_grad():
+                fwd = [c for c in kern if c[0] == "flash_fwd"]
+                bwd = [c for c in kern if c[0] == "flash_bwd"]
+                t_f = time_ms(torch, replay(fwd), iters=3, warmup=1)
+                t_b = time_ms(torch, replay(bwd), iters=3, warmup=1)
+                # plain torch: hundreds of small launches, so no spin
+                # kernel in front (the events bracket any host gaps too)
+                band_ms = events_ms(torch, replay(band), iters=1) \
+                    if band else 0.0
+            per_rank.append({"rank": r, "flash_calls": len(fwd),
+                             "band_blocks": sum(c[0] == "_band_block"
+                                                for c in band),
+                             "fwd_ms": t_f["ms"], "bwd_ms": t_b["ms"],
+                             "kernel_ms": t_f["ms"] + t_b["ms"],
+                             "band_ms": band_ms})
+        rec_calls.calls.clear()
+        with torch.no_grad():
+            whole_f = time_ms(torch, lambda: flash.flash_fwd(
+                q, k, v, scale, causal, window), iters=3, warmup=1)
+            whole_b = time_ms(torch, lambda: flash.flash_bwd(
+                q, k, v, o_ref, lse_ref, do, scale, causal, window),
+                iters=3, warmup=1)
+        ks = [p["kernel_ms"] for p in per_rank]
+        rec = {"phase": "sp_kernels", "case": name, "card": REPORT["card"],
+               "sp": SP, "H": H, "Hkv": Hkv, "D": D, "L": L, "chunk": Lc,
+               "variant": variant, "causal": causal, "window": window,
+               "dtype": "torch.bfloat16", "launches": launches,
+               "expected_launches": want, "o_max_abs_err": err_o,
+               "tol_o": tol_o, "lse_max_abs_err": err_l, "tol_lse": 1e-3,
+               "grad_errors": errs, "tol_grad_share_of_max": 4e-2,
+               "per_rank": per_rank,
+               "rank_kernel_ms_max_over_mean": max(ks) / (sum(ks) / SP),
+               "ring_kernel_ms_critical_path": max(ks),
+               "whole_sequence_fwd_ms": whole_f["ms"],
+               "whole_sequence_bwd_ms": whole_b["ms"],
+               "ring_wall_ms": ring_wall_ms}
+        emit(rec)
+        REPORT.setdefault("sp_kernels", []).append(rec)
+        out[name] = rec
+        del q, k, v, do, o_ref, lse_ref, g_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    for w in ("gpt2", "llama"):
+        emit({"phase": "sp_balance", "width": w,
+              "contiguous_max_over_mean":
+                  out[f"{w}_contiguous"]["rank_kernel_ms_max_over_mean"],
+              "zigzag_max_over_mean":
+                  out[f"{w}_zigzag"]["rank_kernel_ms_max_over_mean"]})
+    sp_small(torch, ring_flash, ulysses, collectives)
+    return totals
+
+
+def sp_small(torch, ring_flash, ulysses, collectives):
+    """The sp_kernels rings at L 512 on the card against the plain ring
+    (``parallel.ring_attention``) run in f32 on the CPU over ThreadRing,
+    values and (through autograd) gradients; windowed cases against the
+    whole-sequence plain flash on the CPU.  Tolerances as sp_kernels."""
+    from k8s_tpu_torch.ops import flash_attention as flash
+    from k8s_tpu_torch.parallel import ring_attention
+
+    ThreadRing = collectives.ThreadRing
+    g = torch.Generator().manual_seed(19)
+    rows = []
+    for name, (H, Hkv, D), _, variant, causal, window in SP_CASES:
+        L, Lc = SP_SMALL_L, SP_SMALL_L // SP
+        q, do = (torch.randn(1, H, L, D, generator=g).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(1, Hkv, L, D, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        if variant == "ulysses":
+            k, v = (t.repeat_interleave(H // Hkv, 1) for t in (k, v))
+        qc, kc, vc, doc = (t.cuda() for t in (q, k, v, do))
+        kw = {} if variant == "ulysses" else dict(
+            causal=causal, layout=variant, window=window)
+
+        def card(ring, kw=kw, variant=variant, Lc=Lc):
+            sl = slice(ring.rank * Lc, (ring.rank + 1) * Lc)
+            with torch.no_grad():
+                if variant == "ulysses":
+                    t = [x.transpose(1, 2)[:, sl] for x in (qc, kc, vc, doc)]
+                    o, saved = ulysses.ulysses_flash_forward(
+                        *t[:3], ring, causal=causal)
+                    grads = ulysses.ulysses_flash_backward(
+                        saved, t[3], ring, causal=causal)
+                    return [x.transpose(1, 2).cpu() for x in (o, *grads)]
+                o, _, saved = ring_flash.ring_flash_forward(
+                    qc[:, :, sl], kc[:, :, sl], vc[:, :, sl], ring, **kw)
+                grads = ring_flash.ring_flash_backward(
+                    saved, doc[:, :, sl], ring, **kw)
+                return [x.cpu() for x in (o, *grads)]
+
+        got = ThreadRing.run(SP, card)
+        got = [torch.cat([r[i] for r in got], dim=2).float()
+               for i in range(4)]
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        if window is not None:
+            o, lse = flash.flash_fwd_plain(qf, kf, vf, D ** -0.5, causal,
+                                           window)
+            want = [o, *flash.flash_bwd_plain(qf, kf, vf, o, lse, dof,
+                                              D ** -0.5, causal, window)]
+            against = "whole-sequence plain flash (f32, CPU)"
+        else:
+            def plain(ring, Lc=Lc):
+                sl = slice(ring.rank * Lc, (ring.rank + 1) * Lc)
+                ins = [x[:, :, sl].transpose(1, 2).clone().requires_grad_()
+                       for x in (qf, kf, vf)]
+                rep = H // Hkv if variant != "ulysses" else 1
+                kk, vv = (x.repeat_interleave(rep, 2) for x in ins[1:])
+                o = ring_attention.ring_attention_local(ins[0], kk, vv, ring,
+                                                        causal=causal)
+                o.backward(dof[:, :, sl].transpose(1, 2))
+                return [x.transpose(1, 2).detach()
+                        for x in (o, *(t.grad for t in ins))]
+
+            res = ThreadRing.run(SP, plain)
+            want = [torch.cat([r[i] for r in res], dim=2) for i in range(4)]
+            against = "plain ring (parallel.ring_attention, f32, CPU)"
+        tol_o = 4 * 2 ** -9 * vf.abs().max().item()
+        err = {n: (a - b).abs().max().item()
+               for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+        tops = {n: b.abs().max().item()
+                for n, b in zip(("o", "dq", "dk", "dv"), want)}
+        if not (err["o"] <= tol_o and all(err[n] <= 4e-2 * tops[n]
+                                          for n in ("dq", "dk", "dv"))):
+            fail(f"sp_small {name}: errors {err}, largest {tops} (o tol "
+                 f"{tol_o}, gradients 4e-2 of the largest)")
+        rows.append({"case": name, "L": L, "against": against,
+                     "max_abs_err": err, "max_abs": tops, "tol_o": tol_o})
+    rec = {"phase": "sp_small", "sp": SP, "cases": rows}
+    emit(rec)
+    REPORT["sp_small"] = rec
+
+
+SP_MODEL_L = 8192
+
+
+def sp_model(torch, tlib, bridge, collectives, common):
+    """The gpt2-small Transformer (12 layers, width 768, 12 heads, vocab
+    32000, bf16, flash on, random weights from a seed) at L 8192: the
+    forward under no_grad with sp 4 over ThreadRing (each thread a rank
+    calling the model on its chunk, ``forward(mesh=MeshRings)``) for the
+    flash ring contiguous and zigzag and Ulysses, against the unsharded
+    model (K2 over the whole sequence) on the card.  Logits within 5e-2
+    of the largest (through 12 random bf16 layers a one-step bf16
+    difference in one attention output moves later activations, as
+    ``check_against_plain``); the argmax agreement is reported.  Exact
+    K2 launches: 12 layers x the ring's calls, no other kernel."""
+    ThreadRing, MeshRings = collectives.ThreadRing, collectives.MeshRings
+    cfg = tlib.TransformerConfig(
+        vocab_size=32000, hidden=768, ffn_hidden=3072, layers=12, heads=12,
+        kv_heads=12, max_seq_len=SP_MODEL_L, dtype=torch.bfloat16,
+        use_flash_attention=True, remat=False)
+    params = bridge.init_params(cfg, seed=23, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, SP_MODEL_L),
+                           generator=torch.Generator().manual_seed(24)
+                           ).cuda()
+    whole = tlib.Transformer(cfg, params, device="cuda")
+    with torch.no_grad():
+        want = whole(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole(tokens)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+    totals = dict.fromkeys(common.KERNELS, 0)
+    rows = {}
+    Lc = SP_MODEL_L // SP
+    for variant, kw in (("contiguous", {}),
+                        ("zigzag", {"ring_layout": "zigzag"}),
+                        ("ulysses", {"sp_strategy": "ulysses"})):
+        model = tlib.Transformer(dataclasses.replace(
+            cfg, use_ring_attention=True, **kw), params, device="cuda")
+
+        def body(ring, model=model):
+            with torch.no_grad():
+                sl = slice(ring.rank * Lc, (ring.rank + 1) * Lc)
+                return model(tokens[:, sl], mesh=MeshRings(sp=ring))
+
+        body_calls = sp_calls(variant, True, None, SP, Lc)
+        ThreadRing.run(SP, body)  # warm
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        res = ThreadRing.run(SP, body)
+        torch.cuda.synchronize()
+        ring_ms = (time.perf_counter() - t0) * 1e3
+        launches = common.launches()
+        expect = {"flash_fwd": cfg.layers * body_calls, "rms_norm": 0,
+                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if launches != expect:
+            fail(f"sp_model {variant}: launches {launches}, expected "
+                 f"{expect}")
+        for kname, n in launches.items():
+            totals[kname] += n
+        got = torch.cat(res, dim=1)
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"sp_model {variant}: logits {tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        if rel > 5e-2:
+            fail(f"sp_model {variant}: logits rel err {rel} (tol 5e-2)")
+        rows[variant] = {"launches": launches, "logits_rel_err": rel,
+                         "argmax_agreement": agree, "ring_wall_ms": ring_ms}
+        del model, res, got
+    rec = {"phase": "sp_model", "card": REPORT["card"],
+           "config": "gpt2-small (12 x 768, 12 heads, vocab 32000) bf16 "
+                     "flash, random weights (seed 23), B1 L8192, sp 4 over "
+                     "ThreadRing, forward under no_grad",
+           "variants": rows, "tol_rel": 5e-2,
+           "whole_sequence_wall_ms": whole_ms}
+    emit(rec)
+    REPORT["sp_model"] = rec
+    del whole, want, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3741,6 +4181,7 @@ def main() -> int:
         from k8s_tpu_torch.ops import _build, _common
         from k8s_tpu_torch.ops import flash_attention as flash
         from k8s_tpu_torch.ops import fused_norm
+        from k8s_tpu_torch.parallel import collectives, ring_flash, ulysses
     except ImportError as e:
         fail(f"k8s_tpu_torch is not beside this script ({e}); run it from "
              "a checkout of the repository")
@@ -3829,6 +4270,12 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     REPORT["dist_phases_s"] = time.perf_counter() - t0
     emit({"phase": "dist_done", "s": REPORT["dist_phases_s"]})
+    t0 = time.perf_counter()
+    sp_run = sp_kernels(torch, flash, ring_flash, ulysses, collectives,
+                        _common)
+    sp_model_run = sp_model(torch, tlib, bridge, collectives, _common)
+    REPORT["sp_phases_s"] = time.perf_counter() - t0
+    emit({"phase": "sp_done", "s": REPORT["sp_phases_s"]})
     # last: its profiler session slows every later host clock
     moe_served = moe_serve(torch, tlib, bridge, server, _common, requestlog,
                            moe, trace)
@@ -3865,6 +4312,8 @@ def main() -> int:
                    "dist_mnist": mnist_run[kname],
                    "train_gpt2_small_fsdp_nccl_world1": fsdp_run[kname],
                    "rendezvous_worker": gang_run[kname],
+                   "sp_kernels_thread_ring_sp4": sp_run[kname],
+                   "sp_model_gpt2_small_l8192": sp_model_run[kname],
                    **{f"serve_lm_{mode}_gpt2_small": r[kname]
                       for mode, r in lm_runs.items()}}
         kernels.append({"name": kname, "route": route, "source": source,

@@ -14,7 +14,9 @@ port's train state ``{"model", "optimizer", "step"}`` (``models/train.py``):
   every rank writes its own shards, process 0 commits the step by writing
   ``.metadata`` last, and a restore reads each rank's shards back onto
   its own device.  The optimizer's param groups (the schedule's update
-  count) travel with the moments.  Every rank calls ``save`` and
+  count) travel with the moments.  Over an (sp, tp) mesh the shards
+  are replicated on every sp and tp rank of a data position; the
+  planner's dedup writes each once.  Every rank calls ``save`` and
   ``restore`` (they are collectives); process 0 alone prunes;
 - ``async_save``: the state is copied off the device, then written on a
   background thread while training goes on; ``wait()`` (or the next

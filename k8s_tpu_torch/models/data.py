@@ -9,10 +9,11 @@ batches is queued while the device computes on the current one.  It keeps
 the reference's contract: producer exceptions surface at the consumer's
 next ``__next__``, ``close()`` stops the producer, and ``skip(n)`` before
 the first batch fast-forwards the source (checkpoint resume).
-``prefetch_to_mesh`` stages only this rank's rows of each global batch:
+``prefetch_to_mesh`` stages only this rank's part of each global batch:
 every process draws the same seeded global batches and keeps its block
-over the mesh's (dp, fsdp) axes, as the reference's ``device_put`` of a
-global batch keeps each process's rows.
+of rows over the mesh's (dp, fsdp) axes and, with sp > 1, its chunk of
+the sequence, as the reference's ``device_put`` of a global batch keeps
+each process's shards.
 """
 
 from __future__ import annotations
@@ -188,8 +189,9 @@ def prefetch_to_mesh(it: Iterable, mesh, device, *,
                      axes: Sequence[str] = ("dp", "fsdp"),
                      buffer_size: int = 2) -> PrefetchIterator:
     """The one-call path for a sharded fit(): from each global batch of
-    ``it``, stage this rank's rows over ``axes`` of ``mesh``
-    (``parallel.mesh.data_sharding``) on ``device``, ``buffer_size``
+    ``it``, stage this rank's rows over ``axes`` of ``mesh`` and its
+    chunk of the sequence over sp, inputs and targets alike
+    (``parallel.mesh.data_sharding``), on ``device``, ``buffer_size``
     batches ahead.  ``skip(n)`` still skips n global batches."""
     from k8s_tpu_torch.parallel.mesh import data_sharding
 

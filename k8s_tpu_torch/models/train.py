@@ -28,8 +28,18 @@ mixed-precision policy, so the f32 masters are gathered and the model
 casts where it casts unsharded.  Each rank runs its rows of the global
 batch; FSDP2 averages the gradients over the data axes, the clip reduces
 the norm across the shards, and the step returns the global mean loss.
-Tensor, sequence, pipeline and expert parallelism come with the parallel
-slice of the port (ROADMAP.md Queue 1 item 8b).
+
+Sequence and tensor parallelism ride the same step, as in the reference,
+whose parameter rule is fsdp-only: parameters are replicated over the
+``sp`` and ``tp`` axes, each FSDP2 group spans the (dp, fsdp) ranks of
+one (sp, tp) position, and the model gets the mesh (``apply_fn`` passes
+it on: ``m(x, mesh=mesh)``).  Each rank runs its rows and its chunk of
+the sequence; :func:`make_lm_loss` takes each chunk's next-token loss
+over the global token count, so the gradients summed over ``sp`` (after
+FSDP2's average over the data axes) are the unsharded step's.  Every tp
+rank runs the same rows and ends with the same gradients (the attention's
+tp pair gathers them), so nothing is summed over tp.  Pipeline and
+expert parallelism come with ROADMAP.md Queue 1 item 8b.
 """
 
 from __future__ import annotations
@@ -48,8 +58,8 @@ import torch
 
 log = logging.getLogger(__name__)
 
-_PARALLEL = ("comes with the parallel slice of the port "
-             "(ROADMAP.md Queue 1 item 8b)")
+_PARALLEL = ("comes with the pipeline- and expert-parallel slice of the "
+             "port (ROADMAP.md Queue 1 item 8b)")
 
 
 def cross_entropy_loss(logits, labels):
@@ -72,6 +82,45 @@ def lm_loss(logits, tokens):
     """Next-token prediction loss over ``[B, L, V]`` logits and ``[B, L]``
     tokens."""
     return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+
+
+def _sp_ring(mesh):
+    """The mesh's sp ring when sp > 1, else None."""
+    from k8s_tpu_torch.parallel.collectives import mesh_rings
+
+    rings = mesh_rings(mesh)
+    return rings.sp if rings is not None and rings.sp.size > 1 else None
+
+
+def sp_next_tokens(tokens, ring):
+    """The next-token labels of this rank's chunk ``[B, Lc]`` of the
+    sequence: the chunk shifted by one, its last column the next rank's
+    first token (-1, no label, after the global last position)."""
+    nxt = ring.sendrecv(tokens[:, :1].contiguous(),
+                        (ring.rank - 1) % ring.size,
+                        (ring.rank + 1) % ring.size)
+    if ring.rank == ring.size - 1:
+        nxt = torch.full_like(nxt, -1)
+    return torch.cat([tokens[:, 1:], nxt], dim=1)
+
+
+def make_lm_loss(mesh=None) -> Callable:
+    """:func:`lm_loss`, or over a mesh with sp > 1 its sequence-parallel
+    form: ``loss(logits, tokens)`` on this rank's chunk is the chunk's
+    summed next-token loss (labels from :func:`sp_next_tokens`) over the
+    rows' global count, ``B * (L - 1)``, so the losses of a row's chunks
+    sum to the reference's mean over the whole sequence."""
+    ring = _sp_ring(mesh)
+    if ring is None:
+        return lm_loss
+
+    def loss(logits, tokens):
+        labels = sp_next_tokens(tokens, ring)
+        Lc = tokens.shape[1]
+        return cross_entropy_loss(logits, labels) * (
+            Lc / (Lc * ring.size - 1))
+
+    return loss
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -223,14 +272,17 @@ def _combined_loss(apply_fn: Callable, loss_fn: Callable, model, batch):
 
 
 def make_train_step(apply_fn: Callable, loss_fn: Callable,
-                    optimizer: Optimizer, grad_accum: int = 1) -> Callable:
+                    optimizer: Optimizer, grad_accum: int = 1,
+                    reduce_grads: Optional[Callable] = None) -> Callable:
     """``step(state, batch) -> (state, loss)``: gradients, then the
     optimizer update, in place.  The loss is returned as a device tensor.
 
     ``grad_accum > 1`` splits the batch into that many microbatches and
     sums their gradients before one update (then divides by
     ``grad_accum``, as the reference does): activation memory of one
-    microbatch, the update of the full batch."""
+    microbatch, the update of the full batch.  ``reduce_grads(model)``
+    runs after the backward, before the update (the sharded step's sum
+    over sp)."""
 
     def step(state, batch):
         model, opt = state["model"], state["optimizer"]
@@ -253,6 +305,8 @@ def make_train_step(apply_fn: Callable, loss_fn: Callable,
             loss = _combined_loss(apply_fn, loss_fn, model, batch)
             loss.backward()
             loss = loss.detach()
+        if reduce_grads is not None:
+            reduce_grads(model)
         optimizer.update(opt)
         state["step"] += 1
         return state, loss
@@ -281,12 +335,27 @@ def _check_data_parallel(mesh) -> None:
     from k8s_tpu_torch.parallel.mesh import mesh_shape
 
     shape = mesh_shape(mesh)
-    other = {a: n for a, n in shape.items() if a not in ("dp", "fsdp")
-             and n > 1}
+    other = {a: n for a, n in shape.items() if a in ("pp", "ep") and n > 1}
     if other:
         raise NotImplementedError(
-            f"mesh axes {other}: tensor, sequence, pipeline and expert "
-            f"parallelism {_PARALLEL}")
+            f"mesh axes {other}: pipeline and expert parallelism "
+            f"{_PARALLEL}")
+
+
+@torch.no_grad()
+def sum_grads_over_sp(model: torch.nn.Module, mesh) -> None:
+    """Sum the gradients of an FSDP-sharded model over the mesh's sp axis,
+    in place: the chunks of a row each gave their part (one flat
+    all-reduce of the local shards, which are laid out alike on every sp
+    rank).  A no-op at sp 1."""
+    ring = _sp_ring(mesh)
+    if ring is None:
+        return
+    local = [p.grad.to_local() for p in model.parameters()
+             if p.grad is not None]
+    flat = ring.all_reduce(torch.cat([g.reshape(-1) for g in local]))
+    for g, part in zip(local, flat.split([g.numel() for g in local])):
+        g.copy_(part.view_as(g))
 
 
 def shard_train_state(state: dict, mesh) -> tuple[dict, StateShardings]:
@@ -330,11 +399,14 @@ def make_sharded_train_step(apply_fn: Callable, loss_fn: Callable,
                             batch_axes: tuple = ("dp", "fsdp"),
                             grad_accum: int = 1) -> Callable:
     """The train step over a state from :func:`shard_train_state`.  The
-    batch is this rank's rows of the global batch (``parallel.mesh.
-    data_sharding``; ``models.data.prefetch_to_mesh`` hands them out);
-    FSDP2 gathers each layer's parameters around its use and averages the
-    gradients over ``batch_axes``.  Returns the global batch's mean loss,
-    on the device."""
+    batch is this rank's rows of the global batch, and with sp > 1 its
+    chunk of the sequence (``parallel.mesh.data_sharding``;
+    ``models.data.prefetch_to_mesh`` hands them out); FSDP2 gathers each
+    layer's parameters around its use and averages the gradients over
+    ``batch_axes``, and then the gradients are summed over sp (``loss_fn``
+    over a mesh with sp > 1 is :func:`make_lm_loss`'s, whose chunk losses
+    sum to a row's mean).  Returns the global batch's mean loss, on the
+    device."""
     import torch.distributed as dist
 
     from k8s_tpu_torch.parallel.mesh import mesh_shape
@@ -345,9 +417,20 @@ def make_sharded_train_step(apply_fn: Callable, loss_fn: Callable,
                          "over (dp, fsdp)")
     if state_shardings.mesh is not mesh:
         raise ValueError("state_shardings are of another mesh")
-    shards = mesh_shape(mesh)["dp"] * mesh_shape(mesh)["fsdp"]
-    step = make_train_step(apply_fn, loss_fn, optimizer,
-                           grad_accum=grad_accum)
+    shape = mesh_shape(mesh)
+    sp_ring = _sp_ring(mesh)
+    if sp_ring is not None and loss_fn is lm_loss:
+        # lm_loss on a chunk would drop the label across each boundary
+        # and average over the chunk, not the row
+        raise ValueError("over a mesh with sp > 1 the loss is "
+                         "make_lm_loss(mesh)'s, not lm_loss")
+    # the world's sum counts each row's mean once per (dp, fsdp, tp) rank
+    copies = shape["dp"] * shape["fsdp"] * shape["tp"]
+
+    step = make_train_step(
+        apply_fn, loss_fn, optimizer, grad_accum=grad_accum,
+        reduce_grads=(lambda m: sum_grads_over_sp(m, mesh)) if sp_ring
+        else None)
 
     def sharded_step(state, batch):
         if not is_sharded(state["model"]):
@@ -357,7 +440,7 @@ def make_sharded_train_step(apply_fn: Callable, loss_fn: Callable,
         # every data shard holds as many rows: the global mean is the
         # mean of the shards' means (gloo has no AVG)
         dist.all_reduce(loss)
-        return state, loss / shards
+        return state, loss / copies
 
     return sharded_step
 
@@ -409,9 +492,28 @@ class MetricsWriter:
 
 
 def make_eval_fn(apply_fn: Callable, loss_fn: Callable,
-                 eval_iter_factory: Callable, *, batches: int = 8):
+                 eval_iter_factory: Callable, *, batches: int = 8,
+                 mesh=None):
     """Held-out evaluation for fit(): mean loss over ``batches`` batches of
-    a fresh ``eval_iter_factory()`` stream, without gradients."""
+    a fresh ``eval_iter_factory()`` stream, without gradients.  With
+    ``mesh`` the stream yields this rank's part of each batch
+    (``prefetch_to_mesh``) and each batch's loss is reduced over the
+    mesh as the sharded step reduces it."""
+    from k8s_tpu_torch.parallel.mesh import mesh_shape
+
+    copies = None
+    if mesh is not None:
+        shape = mesh_shape(mesh)
+        copies = shape["dp"] * shape["fsdp"] * shape["tp"]
+
+    def batch_loss(model, batch):
+        loss = _combined_loss(apply_fn, loss_fn, model, batch).detach()
+        if copies is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(loss)
+            loss = loss / copies
+        return float(loss)
 
     def eval_fn(state) -> float:
         it = eval_iter_factory()
@@ -419,8 +521,7 @@ def make_eval_fn(apply_fn: Callable, loss_fn: Callable,
             total, n = 0.0, 0
             with torch.no_grad():
                 for batch in itertools.islice(it, batches):
-                    total += float(_combined_loss(apply_fn, loss_fn,
-                                                  state["model"], batch))
+                    total += batch_loss(state["model"], batch)
                     n += 1
         finally:
             close = getattr(it, "close", None)
@@ -584,11 +685,13 @@ def fit(apply_fn: Callable, loss_fn: Callable, optimizer: Optimizer,
 
 
 def make_fused_lm_apply_fn(model, *, vocab_chunk: int = 8192,
-                           z_loss: float = 0.0):
+                           z_loss: float = 0.0, mesh=None):
     """apply_fn computing the LM loss without materializing logits: the
     model returns pre-head hidden states and ``ops.fused_ce`` folds the
     tied-embedding product into a chunked online-softmax loss.  Use with
-    ``fused_loss_passthrough`` as the loss_fn."""
+    ``fused_loss_passthrough`` as the loss_fn.  Over a ``mesh`` the model
+    gets it, and with sp > 1 the loss is :func:`make_lm_loss`'s form: the
+    chunk's next-token loss over the rows' global count."""
     from k8s_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 
     if getattr(getattr(model, "config", None), "num_experts", 0) > 0:
@@ -596,12 +699,20 @@ def make_fused_lm_apply_fn(model, *, vocab_chunk: int = 8192,
             "make_fused_lm_apply_fn does not collect the MoE aux loss; "
             "use make_moe_apply_fn for expert models")
 
+    ring = _sp_ring(mesh)
+
     def apply_fn(m, tokens):
-        hidden = m(tokens, return_hidden=True)
-        # next-token shift, as lm_loss does on logits
+        hidden = m(tokens, return_hidden=True, mesh=mesh)
+        if ring is None:
+            # next-token shift, as lm_loss does on logits
+            return fused_linear_cross_entropy(
+                hidden[:, :-1], m.embedding, tokens[:, 1:],
+                vocab_chunk=vocab_chunk, z_loss=z_loss)
+        Lc = tokens.shape[1]
         return fused_linear_cross_entropy(
-            hidden[:, :-1], m.embedding, tokens[:, 1:],
-            vocab_chunk=vocab_chunk, z_loss=z_loss)
+            hidden, m.embedding, sp_next_tokens(tokens, ring),
+            vocab_chunk=vocab_chunk, z_loss=z_loss) * (
+            Lc / (Lc * ring.size - 1))
 
     return apply_fn
 

@@ -42,8 +42,12 @@ the served weights (the reference serves it f32), the expert stacks are
 held in ``config.dtype`` like every projection, and
 ``forward(aux_losses=[...])`` gathers each layer's load-balance loss.
 
-Not in this port yet (each raises ``NotImplementedError``): the sp ring
-and ulysses (``parallel/``, ROADMAP.md Queue 1 item 8b).
+Sequence parallelism (``use_ring_attention``, training only): with
+``forward(mesh=...)`` each rank runs its chunk of the sequence (RoPE at
+the chunk's global positions) and attention goes through the ``sp``
+ring of ``parallel/``: Ulysses, the flash ring (windowed, or contiguous
+or zigzag) or the plain ring, heads split over ``tp`` where the
+reference's ``shard_map`` splits them.
 """
 
 from __future__ import annotations
@@ -344,7 +348,54 @@ class Attention(nn.Module):
         self._kv_cache_write(cache, "v", b, slots, v[:, L - keep:])
         cache["pos"][b, slots] = last_pos
 
-    def forward(self, x, positions, mode: str = "train", cache=None):
+    def _sp_attention(self, q, k, v, rings):
+        """The reference's sequence-parallel dispatch over this rank's
+        chunk (``k8s_tpu/models/transformer.py:427-495``)."""
+        from k8s_tpu_torch.parallel import ring_attention, ring_flash, ulysses
+
+        cfg = self.config
+        if cfg.window_size is not None and not (
+                cfg.sp_strategy == "ring" and cfg.use_flash_attention):
+            raise ValueError(
+                "window_size under sequence parallelism needs the flash "
+                "ring (sp_strategy='ring' + use_flash_attention); the "
+                "plain ring and ulysses paths would silently ignore it")
+        if cfg.window_size is not None and not cfg.causal:
+            raise ValueError(
+                "window_size requires causal=True (the windowed ring is "
+                "a causal construction); matching flash_attention's "
+                "single-device contract")
+        if cfg.sp_strategy not in ("ring", "ulysses"):
+            raise ValueError(
+                f"unknown sp_strategy {cfg.sp_strategy!r} "
+                "(expected 'ring' or 'ulysses')")
+        kv_heads = k.shape[2]
+        # the flash ring takes GQA natively (K/V ride the ring at Hkv
+        # heads); everything else wants the repeat first, as does a tp
+        # size the kv heads do not divide over
+        ring_flash_path = (cfg.sp_strategy == "ring"
+                           and cfg.use_flash_attention)
+        if kv_heads != cfg.heads and not (
+                ring_flash_path and kv_heads % rings.tp.size == 0):
+            rep = cfg.heads // kv_heads
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        if cfg.sp_strategy == "ulysses":
+            return ulysses.ulysses_attention(
+                rings, q, k, v, causal=cfg.causal,
+                use_flash=cfg.use_flash_attention)
+        if cfg.use_flash_attention:
+            # a window visits only the ceil((window-1)/chunk) preceding
+            # chunks (the windowed ring, causal by the check above)
+            return ring_flash.ring_flash_attention(
+                rings, q, k, v, causal=cfg.causal,
+                layout=cfg.ring_layout if cfg.causal else "contiguous",
+                window=cfg.window_size)
+        return ring_attention.ring_attention(rings, q, k, v,
+                                             causal=cfg.causal)
+
+    def forward(self, x, positions, mode: str = "train", cache=None,
+                rings=None):
         cfg = self.config
         B, L = x.shape[:2]
         D = cfg.dims_per_head
@@ -357,6 +408,8 @@ class Attention(nn.Module):
 
         if mode == "decode":
             out = self._decode_step(q, k, v, positions, cache)
+        elif rings is not None:
+            out = self._sp_attention(q, k, v, rings)
         else:
             if mode == "prefill":
                 # prompt attention is the ordinary causal (+window) pass
@@ -414,8 +467,9 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(config)
 
-    def forward(self, x, positions, mode: str = "train", cache=None):
-        x = x + self.attn(self.attn_norm(x), positions, mode, cache)
+    def forward(self, x, positions, mode: str = "train", cache=None,
+                rings=None):
+        x = x + self.attn(self.attn_norm(x), positions, mode, cache, rings)
         h = self.mlp_norm(x)
         if hasattr(self, "moe_mlp"):
             y, aux = self.moe_mlp(h)
@@ -477,7 +531,7 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, positions=None, mode: str = "train",
                 cache: Optional[list] = None, return_hidden: bool = False,
-                aux_losses: Optional[list] = None):
+                aux_losses: Optional[list] = None, mesh=None):
         """``mode``: "train" (the full teacher-forced pass), "prefill" (the
         same pass plus K/V-cache population) or "decode" (cached steps;
         ``positions`` carries absolute positions).  Prefill and decode
@@ -486,6 +540,13 @@ class Transformer(nn.Module):
         hidden states ``[B, L, hidden]`` in ``config.dtype`` (the fused
         cross-entropy head's input).  A list passed as ``aux_losses``
         receives each MoE layer's load-balance loss.
+
+        ``mesh`` (a ``DeviceMesh``, or one rank's ``parallel.collectives.
+        MeshRings``) with ``use_ring_attention``, in training: ``tokens``
+        are this rank's chunk of the sequence, at global positions from
+        ``sp rank * chunk`` unless ``positions`` says otherwise, and the
+        attention runs over the mesh's sp ring (heads over tp).  Without a
+        mesh the ring setting is inert, as in the reference.
 
         MoE configs decode: routing is per token, so a cached decode
         matches the teacher-forced pass exactly whenever no (token,
@@ -505,22 +566,33 @@ class Transformer(nn.Module):
                     "(use_ring_attention); decode on the unsharded mesh")
             if cache is None:
                 raise ValueError(f"mode {mode!r} needs cache=model.new_cache()")
-        elif cfg.use_ring_attention:
-            raise NotImplementedError(
-                "sequence parallelism (ring / ulysses) comes with the "
-                "parallel/ slice of the port (ROADMAP.md Queue 1 item 8b)")
+        rings = None
+        if mesh is not None and mode == "train":
+            from k8s_tpu_torch.parallel.collectives import mesh_rings
+
+            rings = mesh_rings(mesh)
+            if rings.sp.size > 1 and not cfg.use_ring_attention:
+                raise ValueError(
+                    f"a mesh with sp {rings.sp.size} needs "
+                    "use_ring_attention: each rank holds only its chunk of "
+                    "the sequence")
+            if not cfg.use_ring_attention:
+                rings = None
         if positions is None:
-            positions = torch.arange(L, device=tokens.device).expand(B, L)
+            start = rings.sp.rank * L if rings is not None else 0
+            positions = torch.arange(start, start + L,
+                                     device=tokens.device).expand(B, L)
         x = F.embedding(tokens, self.embedding).to(cfg.dtype)
         remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             if remat:
                 # recompute the block in the backward: HBM for FLOPs
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    block, x, positions, use_reentrant=False)
+                    block, x, positions, mode, None, rings,
+                    use_reentrant=False)
             else:
                 x, aux = block(x, positions, mode,
-                               None if cache is None else cache[i])
+                               None if cache is None else cache[i], rings)
             if aux is not None and aux_losses is not None:
                 aux_losses.append(aux)
         x = self.final_norm(x).to(cfg.dtype)

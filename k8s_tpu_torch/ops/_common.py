@@ -3,6 +3,8 @@ dispatch rule, and the per-kernel launch counters."""
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 # streaming multiprocessors of one H100 SXM, for the kernels' launch plans
@@ -18,6 +20,8 @@ KERNELS = ("flash_fwd", "rms_norm", "flash_bwd_dq", "flash_bwd_dkv")
 # it drove went through the kernels.  A backward kernel's count appears
 # here at its first launch.
 LAUNCHES: dict[str, int] = {"flash_fwd": 0, "rms_norm": 0}
+# the ranks of a ThreadRing launch from threads of one process
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -28,12 +32,32 @@ def reset_launches() -> None:
 def count_launch(name: str) -> None:
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}")
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def launches() -> dict[str, int]:
     """Every kernel's count since the last reset."""
     return {name: LAUNCHES.get(name, 0) for name in KERNELS}
+
+
+_THREAD = threading.local()
+
+
+def bind_context(device: torch.device) -> None:
+    """Make ``device``'s primary CUDA context current in this thread, once
+    per thread, before a kernel wrapper's own driver calls.  A thread
+    whose first CUDA work is a hand-written kernel (a ThreadRing rank
+    whose tensors all come from the caching allocator) has no current
+    context, and the tensor-map encoder then fails with
+    CUDA_ERROR_INVALID_CONTEXT; a device synchronize binds it."""
+    if device.type != "cuda":
+        return
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if getattr(_THREAD, "bound", None) != index:
+        torch.cuda.synchronize(index)
+        _THREAD.bound = index
 
 
 def pick_block(length: int, preferred: int) -> int:

@@ -39,7 +39,9 @@ import dataclasses
 import torch
 
 from k8s_tpu_torch.ops import _build
-from k8s_tpu_torch.ops._common import N_SMS, count_launch, use_plain
+from k8s_tpu_torch.ops._common import (
+    N_SMS, bind_context, count_launch, use_plain,
+)
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -225,6 +227,7 @@ def _launch(q, k, v, o, lse, scale: float, causal: bool, window) -> None:
     B, H, L, D = q.shape
     code = _check_launch(q, k, v, o)
     strides = _strides(q, k, v, o)
+    bind_context(q.device)
     with torch.cuda.device(q.device):
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), lse.data_ptr(), code, B, H, k.shape[1],
@@ -382,6 +385,7 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
     ins = (q, k, v, do, o) if name == "bwd_dq" else (q, k, v, do)
     code = _check_launch(*ins, *(outs if nsplit == 1 else ()))
     extra = (nsplit,) if name == "bwd_dkv" else ()
+    bind_context(q.device)
     with torch.cuda.device(q.device):
         err = _kernel(name)(
             *(t.data_ptr() for t in (*ins, lse, delta, *outs)), code,

@@ -1,8 +1,26 @@
 """Parallelism layer of the port: the device mesh over the processes of a
-``torch.distributed`` world and the FSDP sharding rules (the port of
-``k8s_tpu/parallel/mesh.py`` and ``sharding.py``).  Sequence, tensor and
-pipeline parallelism come with ROADMAP.md Queue 1 item 8b."""
+``torch.distributed`` world, the FSDP sharding rules, the ring
+collectives and the sequence-parallel attention (ring, ring-flash,
+Ulysses) with heads on the ``tp`` axis — the port of
+``k8s_tpu/parallel/``.  (``ring_attention`` the function is not
+re-exported: the name is its module's.)  Pipeline parallelism comes with ROADMAP.md Queue
+1 item 8b."""
 
+from k8s_tpu_torch.parallel.collectives import (  # noqa: F401
+    MeshRings,
+    ProcessGroupRing,
+    Ring,
+    ThreadRing,
+    all_to_all,
+    collective_matmul,
+    host_local_array_to_global,
+    mesh_rings,
+    ring_all_gather,
+    ring_reduce_scatter,
+    ring_shift,
+    tp_enter,
+    tp_exit,
+)
 from k8s_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
     DcnConfig,
@@ -11,7 +29,23 @@ from k8s_tpu_torch.parallel.mesh import (  # noqa: F401
     make_hybrid_mesh,
     make_mesh,
 )
+from k8s_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    reference_attention,
+    ring_attention_local,
+)
+from k8s_tpu_torch.parallel.ring_flash import (  # noqa: F401
+    ring_flash_attention,
+    ring_flash_attention_local,
+    ring_flash_backward,
+    ring_flash_forward,
+)
 from k8s_tpu_torch.parallel.sharding import (  # noqa: F401
     fsdp_sharding,
     logical_to_spec,
+)
+from k8s_tpu_torch.parallel.ulysses import (  # noqa: F401
+    ulysses_attention,
+    ulysses_attention_local,
+    ulysses_flash_backward,
+    ulysses_flash_forward,
 )

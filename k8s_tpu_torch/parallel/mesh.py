@@ -194,13 +194,18 @@ def mesh_shape(mesh) -> dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class DataSharding:
-    """Which rows of a global batch a rank holds: the batch dim is split
+    """Which part of a global batch a rank holds: the batch dim is split
     into ``count`` equal blocks over the (dp, fsdp) data axes, dp major,
     and this rank holds block ``index`` — what ``P(("dp", "fsdp"))``
-    gives each device in the reference."""
+    gives each device in the reference.  With ``seq_count`` > 1 the
+    sequence dim (dim 1) is split too, over sp, and the rank holds chunk
+    ``seq_index`` of each of its rows: ``P(("dp", "fsdp"), "sp")``.  The
+    tp ranks of a position hold the same part."""
 
     index: int
     count: int
+    seq_index: int = 0
+    seq_count: int = 1
 
     def rows(self, batch: int) -> slice:
         if batch % self.count:
@@ -211,8 +216,17 @@ class DataSharding:
         return slice(self.index * per, (self.index + 1) * per)
 
     def local(self, x):
-        """This rank's rows of a global array or tensor."""
-        return x[self.rows(len(x))]
+        """This rank's rows (and sequence chunk) of a global array or
+        tensor."""
+        x = x[self.rows(len(x))]
+        if self.seq_count == 1:
+            return x
+        L = x.shape[1]
+        if L % self.seq_count:
+            raise ValueError(f"sequence length {L} not divisible over "
+                             f"{self.seq_count} sequence shards (sp)")
+        per = L // self.seq_count
+        return x[:, self.seq_index * per:(self.seq_index + 1) * per]
 
 
 def batch_spec() -> tuple[str, ...]:
@@ -220,15 +234,17 @@ def batch_spec() -> tuple[str, ...]:
     return ("dp", "fsdp")
 
 
-def data_sharding(mesh, axes: Sequence[str] = ("dp", "fsdp")
-                  ) -> DataSharding:
-    """This rank's block of the batch over ``axes`` of ``mesh``."""
+def data_sharding(mesh, axes: Sequence[str] = ("dp", "fsdp"),
+                  seq_axis: Optional[str] = "sp") -> DataSharding:
+    """This rank's block of the batch over ``axes`` of ``mesh``, and its
+    chunk of the sequence over ``seq_axis``."""
     shape = mesh_shape(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     index = 0
     for a in axes:
         index = index * shape[a] + coord[a]
-    return DataSharding(index, math.prod(shape[a] for a in axes))
+    seq = (coord[seq_axis], shape[seq_axis]) if seq_axis else (0, 1)
+    return DataSharding(index, math.prod(shape[a] for a in axes), *seq)
 
 
 def parse_topology(topology: str) -> tuple[int, ...]:

@@ -27,9 +27,15 @@ shards under ``<train_dir>/<step>/``.  The serving export and
 ``--generate`` stay with one process, as in the reference.  One process
 keeps the unsharded step.
 
-Flags whose machinery a later slice of the port brings exit non-zero with
-a message saying so: ``--tp``, ``--sp`` and ``--pp`` above 1 (the
-parallel slice, ROADMAP.md Queue 1 item 8b).
+``--sp N`` (N processes or more) turns on sequence parallelism with the
+reference's semantics: each rank trains its chunk of every sequence, and
+attention runs over the sp ring: the flash ring on the card (contiguous,
+or ``--ring_layout zigzag`` on an even ring), the plain ring on the CPU,
+or ``--sp_strategy ulysses``.  ``--tp N`` splits the heads of that
+attention over N ranks; the rest of the model is replicated over tp, as
+the reference's fsdp-only parameter rule leaves it.  ``--pp`` above 1
+exits non-zero with a message: pipeline parallelism comes with a later
+slice of the port (ROADMAP.md Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -114,6 +120,28 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _effective_ring_layout(args, on_gpu: bool) -> str:
+    """zigzag only reaches the flash-ring path; warn when the flag would
+    be inert (an A/B run measuring nothing is worse than a message)."""
+    if args.ring_layout != "zigzag":
+        return args.ring_layout
+    if args.sp_strategy != "ring":
+        log.warning("--ring_layout zigzag is ignored with --sp_strategy "
+                    "ulysses (no ring to balance); using contiguous")
+        return "contiguous"
+    if args.sp < 2 or args.sp % 2:
+        log.warning("--ring_layout zigzag needs an even --sp >= 2 to pair "
+                    "early/late blocks (got --sp %d); using contiguous",
+                    args.sp)
+        return "contiguous"
+    if not on_gpu:
+        log.warning("--ring_layout zigzag needs the flash ring, which runs "
+                    "on the card; this host runs plain ring attention "
+                    "with contiguous layout")
+        return "contiguous"
+    return "zigzag"
+
+
 def build_config(args, on_gpu: bool):
     import torch
 
@@ -121,19 +149,36 @@ def build_config(args, on_gpu: bool):
         TransformerConfig, bert_base, llama_8b, tiny_test,
     )
 
-    if args.tp > 1 or args.sp > 1 or args.pp > 1:
-        raise SystemExit(
-            f"--tp {args.tp} --sp {args.sp} --pp {args.pp}: tensor, "
-            "sequence and pipeline parallelism come with the parallel "
-            "slice of the port (ROADMAP.md Queue 1 item 8b); use --tp 1 "
-            "--sp 1 --pp 1")
+    if args.pp > 1 and args.sp > 1:
+        raise SystemExit("--pp composes with flash attention, not the sp "
+                         "ring (collectives can't nest inside the pp "
+                         "shard_map); use --sp 1 with --pp")
+    if args.pp > 1 and args.tp > 1:
+        raise SystemExit("--tp does nothing under --pp yet (stage compute "
+                         "is replicated over tp inside the pp shard_map, "
+                         "wasting those devices); use --tp 1 with --pp")
+    if args.pp > 1 and args.fused_ce == "on":
+        raise SystemExit("--fused_ce on does not reach the pipeline step "
+                         "(pp uses its own fused-loss step_fn); use "
+                         "--fused_ce off with --pp")
+    if args.pp > 1 and args.grad_accum > 1:
+        raise SystemExit("--grad_accum does not reach the pipeline step "
+                         "(pp already microbatches via "
+                         "--num_microbatches); use --grad_accum 1 with "
+                         "--pp")
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise SystemExit(
             f"--batch_size {args.batch_size} is not divisible into "
             f"--grad_accum {args.grad_accum} microbatches")
-    if args.ring_layout == "zigzag":
-        log.warning("--ring_layout zigzag needs --sp >= 2 to pair "
-                    "early/late blocks; using contiguous")
+    if args.pp > 1 and args.eval_every > 0:
+        raise SystemExit("--eval_every does not reach the pipeline step "
+                         "(eval drives the plain apply_fn, which --pp "
+                         "bypasses); use --eval_every 0 with --pp")
+    if args.pp > 1:
+        raise SystemExit(
+            f"--pp {args.pp}: pipeline parallelism comes with the "
+            "pipeline-parallel slice of the port (ROADMAP.md Queue 1 item "
+            "8b); use --pp 1")
     if args.preset == "tiny":
         cfg = tiny_test()
     elif args.preset == "bert-base":
@@ -149,8 +194,12 @@ def build_config(args, on_gpu: bool):
         cfg,
         max_seq_len=max(cfg.max_seq_len, args.seq_len),
         remat=args.remat,
+        use_ring_attention=args.sp > 1,
+        sp_strategy=args.sp_strategy,
+        ring_layout=_effective_ring_layout(args, on_gpu),
         # the hand-written kernels run on the card, as the reference turns
-        # its Pallas kernels on for a TPU
+        # its Pallas kernels on for a TPU; with sp > 1 they run inside the
+        # ring (parallel.ring_flash)
         use_flash_attention=on_gpu,
     )
 
@@ -172,7 +221,8 @@ def main(argv=None) -> int:
     from k8s_tpu_torch.launcher import bootstrap
 
     cfg_launch = bootstrap.initialize_distributed(device=args.device)
-    sharded = cfg_launch.is_distributed or cfg_launch.num_slices > 1
+    sharded = (cfg_launch.is_distributed or cfg_launch.num_slices > 1
+               or args.sp > 1 or args.tp > 1)
 
     import torch
 
@@ -184,8 +234,15 @@ def main(argv=None) -> int:
     device = bootstrap.process_device()
     cfg = build_config(args, device.type == "cuda")
     mesh = None
+    if cfg_launch.num_processes % (args.sp * args.tp):
+        raise SystemExit(
+            f"--sp {args.sp} --tp {args.tp}: each sequence chunk and head "
+            f"group runs on its own process, so the job needs a multiple "
+            f"of {args.sp * args.tp} processes (got "
+            f"{cfg_launch.num_processes})")
     if sharded:
-        mesh, _ = bootstrap.make_training_mesh(config=cfg_launch)
+        mesh, _ = bootstrap.make_training_mesh(tp=args.tp, sp=args.sp,
+                                               config=cfg_launch)
     log.info("preset %s: layers=%d hidden=%d seq=%d flash=%s ring=%s",
              args.preset, cfg.layers, cfg.hidden, args.seq_len,
              cfg.use_flash_attention, cfg.use_ring_attention)
@@ -205,6 +262,15 @@ def main(argv=None) -> int:
         # decay spans whatever budget this run has; a resumed run restores
         # the schedule's update count from the checkpoint
         decay_steps=max(1, args.train_steps - args.warmup_steps))
+
+    # eval under sp stages each rank's chunk and reduces over the mesh;
+    # otherwise every rank scores the whole eval batch
+    eval_mesh = mesh if args.sp > 1 else None
+
+    def stage_eval(stream):
+        if eval_mesh is not None:
+            return data_lib.prefetch_to_mesh(stream, eval_mesh, device)
+        return data_lib.prefetch_to_device(stream, device)
 
     if args.data_dir:
         from k8s_tpu_torch.models.dataset import TokenDataset
@@ -241,7 +307,7 @@ def main(argv=None) -> int:
                     "--batch_size so the holdout covers one batch)")
 
             def eval_iter_factory():
-                return data_lib.prefetch_to_device(eval_stream(), device)
+                return stage_eval(eval_stream())
         else:
             batches = ds.batches(args.batch_size, args.seq_len, seed=0)
     else:
@@ -256,9 +322,9 @@ def main(argv=None) -> int:
                 args.seq_len, seed=2)  # disjoint fixed eval draw
 
             def eval_iter_factory():
-                return data_lib.prefetch_to_device(
-                    ((b, b) for (b,) in data_lib.array_batches(
-                        (eval_corpus,), args.batch_size, seed=0)), device)
+                return stage_eval(
+                    (b, b) for (b,) in data_lib.array_batches(
+                        (eval_corpus,), args.batch_size, seed=0))
     data_iter = data_lib.prefetch_to_mesh(batches, mesh, device) if sharded \
         else data_lib.prefetch_to_device(batches, device)
 
@@ -266,18 +332,19 @@ def main(argv=None) -> int:
     fused = args.fused_ce == "on" or (args.fused_ce == "auto"
                                       and _FUSED_CE_AUTO)
     if fused:
-        apply_fn = train_lib.make_fused_lm_apply_fn(model)
+        apply_fn = train_lib.make_fused_lm_apply_fn(model, mesh=mesh)
         loss_fn = train_lib.fused_loss_passthrough
         log.info("fused linear+cross-entropy head (logits never materialize)")
     else:
         def apply_fn(m, tokens):
-            return m(tokens)
+            return m(tokens, mesh=mesh)
 
-        loss_fn = train_lib.lm_loss
+        loss_fn = train_lib.make_lm_loss(mesh)
     eval_fn = None
     if args.eval_every > 0:
         eval_fn = train_lib.make_eval_fn(apply_fn, loss_fn, eval_iter_factory,
-                                         batches=args.eval_batches)
+                                         batches=args.eval_batches,
+                                         mesh=eval_mesh)
     try:
         result = train_lib.fit(
             apply_fn, loss_fn, optimizer, state, data_iter,
@@ -334,9 +401,11 @@ def main(argv=None) -> int:
              args.train_steps, final)
     maybe_export_serving()
     if args.generate > 0:
-        if not cfg.causal or sharded:
+        if args.sp > 1 or not cfg.causal or sharded:
+            # decode cannot serve the sp ring, bidirectional presets or a
+            # gang's sharded weights; a finished run's exit code stays 0
             log.warning("--generate skipped: KV-cached decode serves "
-                        "causal single-process configs")
+                        "causal single-process configs (no sp/pp)")
         else:
             from k8s_tpu_torch.models import decode as decode_lib
 

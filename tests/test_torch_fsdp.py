@@ -157,7 +157,7 @@ def test_shard_train_state_refuses_model_axes_and_resharding():
         mesh_dim_names = ("dp", "pp", "fsdp", "ep", "sp", "tp")
 
         class mesh:  # noqa: N801 - the DeviceMesh attribute
-            shape = (1, 1, 1, 1, 1, 2)
+            shape = (1, 2, 1, 1, 1, 1)  # pp: sp and tp are ported
 
     model = tt.Transformer(tt.tiny_test(), bridge.init_params(
         tt.tiny_test(), 0, "cpu", dtype=torch.float32), device="cpu",

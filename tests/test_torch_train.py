@@ -330,11 +330,12 @@ def test_prefetch_contract():
 
 
 def test_parallel_pieces_name_their_slice():
-    # the FSDP step is ported (tests/test_torch_fsdp.py); a mesh with a
-    # model axis (tensor parallelism here) names the slice that brings it
+    # the FSDP step, sp and tp are ported (tests/test_torch_fsdp.py,
+    # test_torch_sp_train.py); a mesh with a pipeline axis names the
+    # slice that brings it
     class TpMesh:
         mesh_dim_names = ("dp", "pp", "fsdp", "ep", "sp", "tp")
-        mesh = np.zeros((1, 1, 1, 1, 1, 2))
+        mesh = np.zeros((1, 2, 1, 1, 1, 1))
 
     with pytest.raises(NotImplementedError, match="parallel slice.*8b"):
         ttrain.shard_train_state({"model": None}, TpMesh())

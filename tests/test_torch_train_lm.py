@@ -93,8 +93,10 @@ def test_sigterm_exits_143_with_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--sp=2"], "parallel slice"),
-    (["--tp=2"], "parallel slice"),
+    # sp and tp are ported (tests/test_torch_sp_train.py): one process
+    # cannot hold the mesh they ask for
+    (["--sp=2"], "processes"),
+    (["--tp=2"], "processes"),
     (["--pp=2"], "parallel slice"),
     (["--data_dir=tests/fixtures/tokens"], "TokenDataset"),
 ])

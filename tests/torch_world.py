@@ -9,7 +9,8 @@ loopback), adds ``K8S_TPU_PLATFORM=cpu`` as ``run_gang`` does, and runs
 any command line, so the port's entry points run with their own flags.
 The pytest process itself never joins a process group.
 
-The ``fsdp`` worker reads ``IO_DIR/in.json`` (config overrides of
+The ``sp`` worker trains sequence- and tensor-parallel cases the same
+way (``sp_worker``).  The ``fsdp`` worker reads ``IO_DIR/in.json`` (config overrides of
 ``tiny_test``, optimizer, steps, grad_accum) and ``IO_DIR/in.npz``
 (``param/<name>`` weights, ``tokens`` ``[steps, B, L]``), trains through
 ``train.fit(mesh=...)`` on the mesh ``make_training_mesh`` builds from the
@@ -256,8 +257,115 @@ def ckpt_worker(io_dir: str) -> int:
     return 0
 
 
+def sp_worker(io_dir: str) -> int:
+    """Sequence- and tensor-parallel training: each case of
+    ``IO_DIR/in.json`` (``tiny_test`` overrides, sp, tp, grad_accum,
+    fused) trains the ``param/<name>`` weights of ``in.npz`` on its
+    ``tokens`` through ``train.fit(mesh=...)`` on an (sp, tp) mesh, then
+    takes the gradient at the final weights on the first batch (summed
+    over sp) and checks that the tp ranks hold the same weights.  With
+    ``train_lm`` in the spec, ``train_lm.main`` runs with those flags for
+    4 steps, and for 2 then 4 steps in another directory (a resume from
+    the step-2 DCP checkpoint).  Process 0 writes ``out.json`` and
+    ``out.npz``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from k8s_tpu_torch import train_lm
+    from k8s_tpu_torch.launcher import bootstrap
+    from k8s_tpu_torch.models import data as data_lib
+    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch.models import transformer as tt
+    from k8s_tpu_torch.parallel.mesh import data_sharding, mesh_shape
+
+    torch.set_num_threads(1)
+    spec = json.load(open(os.path.join(io_dir, "in.json")))
+    arrays = np.load(os.path.join(io_dir, "in.npz"))
+    params = {k[len("param/"):]: torch.from_numpy(arrays[k])
+              for k in arrays.files if k.startswith("param/")}
+    tokens = arrays["tokens"]
+    launch = bootstrap.initialize_distributed()
+    out, npz = {}, {}
+    for case in spec["cases"]:
+        name = case["name"]
+        cfg = dataclasses.replace(tt.tiny_test(), **case["config"])
+        mesh, _ = bootstrap.make_training_mesh(tp=case["tp"], sp=case["sp"],
+                                               config=launch)
+        optimizer = train_lib.default_optimizer(**spec["opt"])
+        model = tt.Transformer(cfg, params, device="cpu", trainable=True)
+        if case["fused"]:
+            apply_fn = train_lib.make_fused_lm_apply_fn(model, mesh=mesh)
+            loss_fn = train_lib.fused_loss_passthrough
+        else:
+            def apply_fn(m, x, mesh=mesh):
+                return m(x, mesh=mesh)
+
+            loss_fn = train_lib.make_lm_loss(mesh)
+        it = data_lib.prefetch_to_mesh(((t, t) for t in tokens), mesh, "cpu")
+        try:
+            result = train_lib.fit(
+                apply_fn, loss_fn, optimizer,
+                train_lib.init_state(model, optimizer), it,
+                steps=len(tokens), mesh=mesh, grad_accum=case["grad_accum"],
+                preemption_save=False)
+        finally:
+            it.close()
+        model = result.state["model"]
+        full = {n: p.detach().full_tensor()
+                for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        part = data_sharding(mesh).local(torch.from_numpy(tokens[0]))
+        loss = (loss_fn(apply_fn(model, part), part)
+                if not case["fused"] else apply_fn(model, part))
+        loss.backward()
+        train_lib.sum_grads_over_sp(model, mesh)
+        grads = {n: p.grad.full_tensor() for n, p in model.named_parameters()}
+        # every rank's weights, summed: the tp ranks must hold the same
+        sums = torch.stack([t.double().sum() for t in full.values()])
+        every = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, sums)
+        shape = mesh_shape(mesh)
+        grid = torch.stack(every).view(-1, shape["sp"], shape["tp"],
+                                       len(sums))
+        out[name] = {"losses": result.losses, "mesh": shape,
+                     "tp_ranks_equal": bool((grid == grid[..., :1, :]).all())}
+        npz.update({f"{name}/param/{n}": t.numpy() for n, t in full.items()})
+        npz.update({f"{name}/grad/{n}": t.numpy() for n, t in grads.items()})
+    if spec.get("train_lm"):
+        def run(train_dir, steps):
+            argv = [*spec["train_lm"], f"--train_dir={train_dir}",
+                    f"--train_steps={steps}"]
+            rc = train_lm.main(argv)
+            path = os.path.join(train_dir, "metrics.jsonl")
+            recs = [json.loads(x) for x in open(path)] \
+                if launch.is_chief else []
+            return rc, recs
+
+        whole = run(os.path.join(io_dir, "lm_whole"), 4)
+        first = run(os.path.join(io_dir, "lm_resumed"), 2)
+        resumed = run(os.path.join(io_dir, "lm_resumed"), 4)
+        ckpts = sorted(os.listdir(os.path.join(io_dir, "lm_resumed")))
+        last = os.path.join(io_dir, "lm_whole", "3")
+        out["train_lm"] = {
+            "whole": whole, "first": first, "resumed": resumed,
+            "files": ckpts,
+            # the DCP shards of the last step: replicated over sp, so
+            # written once, not once a rank
+            "distcp_bytes": sum(os.path.getsize(os.path.join(last, f))
+                                for f in os.listdir(last)
+                                if f.endswith(".distcp"))}
+    if launch.is_chief:
+        with open(os.path.join(io_dir, "out.json"), "w") as f:
+            json.dump(out, f)
+        np.savez(os.path.join(io_dir, "out.npz"), **npz)
+    return 0
+
+
 if __name__ == "__main__":
-    workers = {"fsdp": fsdp_worker, "ckpt": ckpt_worker}
+    workers = {"fsdp": fsdp_worker, "ckpt": ckpt_worker, "sp": sp_worker}
     if sys.argv[1] not in workers:
         raise SystemExit(f"unknown scenario {sys.argv[1]!r}")
     sys.exit(workers[sys.argv[1]](sys.argv[2]))
