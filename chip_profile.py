@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's main paths, on one card.
 
-    python3 chip_profile.py [--path serve|train|engine|spec|resnet|vit|fsdp|both]
-                            [--prompt_len 509] [--new_tokens 32] [--seed 0]
+    python3 chip_profile.py [--path PATH] [--prompt_len 509]
+                            [--new_tokens 32] [--seed 0]
+
+PATH is serve, train, engine, spec, resnet, vit, fsdp, pp or both (the
+default: serve and train).
 
 ``serve``: builds the model chip_smoke.py serves (llama_8b widths, bf16,
 all 32 layers, the flash-attention and RMSNorm kernels on, random weights
@@ -73,6 +76,16 @@ FSDP2-sharded over the one-rank NCCL mesh
   class (``collective`` for NCCL's kernels), the device-busy share, and
   the host time inside the profiler's ranges (FSDP2's ``FSDP::`` hooks,
   ``Optimizer.step``).
+
+``pp``: chip_smoke.py's ``pp_train`` 1F1B step (gpt2-small, four pp
+``ThreadRing`` ranks, M 8, AdamW clip 0.1, built by its own
+``_stage_states`` / ``_pp_step``) and the unpipelined step from the same
+weights:
+
+- host clock around steps that end in ``torch.cuda.synchronize()``,
+  median of 3 after a warm-up, in turns plain / pp / pp / plain;
+- ``torch.profiler`` over one step of each: device time by kernel and by
+  class, device ops, and the device-busy share of the step's wall.
 
 Prints JSON lines; everything also goes to
 ``chip_reports/chip_profile.json``.
@@ -594,11 +607,67 @@ def profile_fsdp(torch, args, report) -> int:
     return 0
 
 
+def profile_pp(torch, args, report) -> int:
+    import chip_smoke as smoke
+    from k8s_tpu_torch import train_lm
+    from k8s_tpu_torch.models import bridge, pp_lm
+    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch.models.transformer import Transformer
+    from k8s_tpu_torch.parallel import collectives
+
+    cfg = train_lm.build_config(train_lm.parse_args(smoke.TRAIN_ARGS), True)
+    params = bridge.init_params(cfg, args.seed, "cuda", dtype=torch.float32)
+    opt = train_lib.default_optimizer(1e-4, weight_decay=0.01,
+                                      clip_norm=0.1)
+    plain = train_lib.init_state(Transformer(cfg, params, device="cuda",
+                                             trainable=True), opt)
+    plain_step = train_lib.make_train_step(lambda m, x: m(x),
+                                           train_lib.lm_loss, opt)
+    states = smoke._stage_states(torch, pp_lm, train_lib, cfg, params, opt,
+                                 1)
+    stats = [{} for _ in range(smoke.PP)]
+    del params
+    tokens = torch.randint(
+        0, cfg.vocab_size, (8, 1024),
+        generator=torch.Generator().manual_seed(args.seed + 2)).cuda()
+    steps = {
+        "plain": lambda: plain_step(plain, (tokens, tokens)),
+        "pp": lambda: smoke._pp_step(torch, pp_lm, collectives, cfg, opt,
+                                     states, stats, (tokens, tokens),
+                                     smoke.PP_M, 1)}
+
+    def run(name):
+        t0 = time.perf_counter()
+        steps[name]()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name in steps:
+        run(name)
+    clocks: dict = {"plain": [], "pp": []}
+    for name in ("plain", "pp", "pp", "plain"):
+        clocks[name].append(median([run(name) for _ in range(3)]))
+    wall = {"turns": ["plain", "pp", "pp", "plain"], "step_s": clocks,
+            "pp_over_plain": sum(clocks["pp"]) / sum(clocks["plain"])}
+    report["pp_wall"] = wall
+    emit({"phase": "pp_wall", **wall})
+    for name in steps:
+        by_name, traced_s, kernels = profile_device(torch, lambda: run(name))
+        if not kernels:
+            print("FAIL: the profiler saw no device work", file=sys.stderr)
+            return 1
+        rec = summary(f"profile_pp_{name}", by_name, traced_s, kernels, 12)
+        rec["classes"] = op_classes(by_name)
+        report[rec["phase"]] = rec
+        emit(rec)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--path",
                    choices=["serve", "train", "engine", "spec", "resnet",
-                            "vit", "fsdp", "both"],
+                            "vit", "fsdp", "pp", "both"],
                    default="both")
     p.add_argument("--prompt_len", type=int, default=509)
     p.add_argument("--new_tokens", type=int, default=32)
@@ -633,6 +702,8 @@ def main(argv=None) -> int:
         rc = rc or profile_vision(torch, args, report, args.path)
     if args.path == "fsdp":
         rc = rc or profile_fsdp(torch, args, report)
+    if args.path == "pp":
+        rc = rc or profile_pp(torch, args, report)
 
     os.makedirs(os.path.join(REPO, "chip_reports"), exist_ok=True)
     with open(os.path.join(REPO, "chip_reports", "chip_profile.json"),

@@ -136,6 +136,17 @@ Phases, each fatal on failure:
    (``sp_small``); ``sp_model``: gpt2-small at L 8192 under no_grad over
    the same ranks (flash ring contiguous and zigzag, Ulysses) against
    the unsharded model, exact K2 launches.
+11. pipeline and expert parallelism on one card (worlds of 2 and 4 over
+   gloo are CPU tests): ``pp_train`` trains gpt2-small at full width and
+   depth on four pp ``ThreadRing`` ranks, 1F1B and interleaved (v 3), M
+   8, in turns with the unpipelined step from the same weights (losses,
+   exact launches: K2 twice K3 for the recompute, peak memory and the
+   stashed inputs, each rank's kernel device ms replayed alone);
+   ``pp_llama`` at Llama-3-8B widths cut to 4 layers (B4 L2048, M 4, K2-K4
+   at D128/GQA inside stages); ``ep_moe``: the 2-layer MoE cut at Llama
+   width, 8 experts over four ep ranks, forward against the unsharded
+   model (logits, kept pairs, exact K1 and K2), and a probe of the ep
+   backward on the card.
 
 Prints the card line first, one JSON object per phase and case, then a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -4160,6 +4171,492 @@ def sp_model(torch, tlib, bridge, collectives, common):
     return totals
 
 
+# -- phase 11: pipeline and expert parallelism -----------------------------
+
+
+PP = 4  # ThreadRing pp and ep ranks on the one card
+PP_M = 8
+PP_WARM, PP_TIMED = 2, 3
+PP_SCHEDULES = (("1f1b", 1), ("interleaved", 3))
+PP_LOSS_BOUND = 1e-2
+PP_LLAMA_M, PP_LLAMA_STEPS = 4, 2
+EP_ARGMAX = 0.9
+
+
+class _StageCalls:
+    """Each pp rank's flash calls, recorded as they happen so that a
+    rank's calls can be replayed and timed alone afterwards: the forward
+    (``_launch``, K2) from the rank's own thread, and the backward
+    (``flash_bwd``, K3 + K4), which CUDA's autograd engine runs on its
+    device thread, by the rank whose forward made its saved q (the
+    storage stays that forward's until its backward has run)."""
+
+    def __init__(self, threading, flash):
+        self.local = threading.local()
+        self.flash = flash
+        self.owner: dict = {}
+        self.calls: dict = {}
+        self.saved = [(n, getattr(flash, n)) for n in ("_launch",
+                                                       "flash_bwd")]
+
+    def __enter__(self):
+        for n, fn in self.saved:
+            setattr(self.flash, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved:
+            setattr(self.flash, n, fn)
+
+    def _wrap(self, name, fn):
+        def wrapped(*a, **kw):
+            q = a[0]
+            if name == "_launch":
+                rank = getattr(self.local, "rank", None)
+                self.owner[q.data_ptr()] = rank
+            else:
+                rank = self.owner.get(q.data_ptr())
+            if rank is not None:
+                self.calls.setdefault(rank, []).append((fn, a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    def device_ms(self, torch) -> list:
+        """Each rank's recorded calls replayed alone, queued behind the
+        spin kernel (``time_ms``): kernel device ms.  (From an idle
+        stream these small calls would time the host's launches.)"""
+        out = []
+        for rank in sorted(self.calls):
+            calls = self.calls[rank]
+            out.append(time_ms(torch, lambda calls=calls: [
+                fn(*a, **kw) for fn, a, kw in calls], iters=2,
+                warmup=1)["ms"])
+        return out
+
+
+def _stage_states(torch, pp_lm, train_lib, cfg, params, opt, v):
+    return [train_lib.init_state(pp_lm.LmStage(
+        cfg, params, rank=r, num_stages=PP, num_virtual=v, device="cuda"),
+        opt) for r in range(PP)]
+
+
+def _pp_step(torch, pp_lm, collectives, cfg, opt, states, stats, batch, M,
+             v, calls=None):
+    """One pp train step over ThreadRing ranks (each thread a rank calling
+    ``make_pp_train_step``'s step on its state); returns the loss."""
+
+    def body(rings):
+        r = rings.pp.rank
+        if calls is not None:
+            calls.local.rank = r
+        step = pp_lm.make_pp_train_step(cfg, opt, rings, num_microbatches=M,
+                                        num_virtual=v, stats=stats[r])
+        states[r], loss = step(states[r], batch)
+        return loss
+
+    losses = collectives.ThreadRing.run_mesh(1, 1, body, pp=PP)
+    return losses[0]
+
+
+def pp_train(torch, tlib, bridge, train_lib, train_lm, pp_lm, pipeline,
+             collectives, flash, common):
+    """gpt2-small at full width and depth (12 layers, bf16 over f32
+    masters, flash on, B8 L1024, AdamW 1e-4 wd 0.01, clip 0.1: active)
+    on four pp ``ThreadRing`` ranks (threads of this process, each
+    running ``pp_lm.make_pp_train_step`` on its ``LmStage``): 1F1B (3
+    blocks a stage) and interleaved at v 3 (1 block a chunk), M 8, each
+    2 warm-up and 3 timed steps, in turns with the unpipelined
+    ``train.make_train_step`` from the same weights and batches (plain,
+    1F1B, interleaved each step).  Each step's loss against the plain
+    step's (bound ``PP_LOSS_BOUND``); exact launches a step, zeroed just
+    before it: K2 12 x M x 2 (the forward stream and the recompute), K3 =
+    K4 12 x M, the plain step 12 each; peak memory and each rank's most
+    stashed inputs against ``peak_activation_microbatches``; then one
+    more step with each rank's flash calls recorded and replayed alone
+    (kernel device ms a rank, max/mean).  Four threads on one card
+    measure neither the bubble nor pp throughput: the ranks' kernels
+    serialize on the one device and one host issues for all four."""
+    import threading
+
+    cfg = train_lm.build_config(train_lm.parse_args(TRAIN_ARGS), True)
+    params = bridge.init_params(cfg, 0, "cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(33)
+    n_steps = PP_WARM + PP_TIMED
+    batches = [torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen
+                             ).cuda() for _ in range(n_steps + 1)]
+    opt = train_lib.default_optimizer(1e-4, weight_decay=0.01,
+                                      clip_norm=0.1)
+    plain = train_lib.init_state(tlib.Transformer(
+        cfg, params, device="cuda", trainable=True), opt)
+    plain_step = train_lib.make_train_step(lambda m, x: m(x),
+                                           train_lib.lm_loss, opt)
+    runs = {name: {"states": _stage_states(torch, pp_lm, train_lib, cfg,
+                                           params, opt, v),
+                   "stats": [{} for _ in range(PP)], "v": v}
+            for name, v in PP_SCHEDULES}
+    del params
+    per = 12 * PP_M
+    want = {"flash_fwd": 2 * per, "rms_norm": 0, "flash_bwd_dq": per,
+            "flash_bwd_dkv": per}
+    want_plain = {"flash_fwd": 12, "rms_norm": 0, "flash_bwd_dq": 12,
+                  "flash_bwd_dkv": 12}
+    rec = {name: {"losses": [], "step_ms": [], "peak_gib": [],
+                  "extra_gib": [], "grad_norm": [], "launches": None}
+           for name in ("plain", *runs)}
+    totals = dict.fromkeys(common.KERNELS, 0)
+    for i in range(n_steps):
+        b = (batches[i], batches[i])
+        for name in ("plain", *runs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            common.reset_launches()
+            t0 = time.perf_counter()
+            if name == "plain":
+                plain, loss = plain_step(plain, b)
+            else:
+                run = runs[name]
+                loss = _pp_step(torch, pp_lm, collectives, cfg, opt,
+                                run["states"], run["stats"], b, PP_M,
+                                run["v"])
+            loss = loss.item()  # syncs
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = common.launches()
+            r = rec[name]
+            r["losses"].append(loss)
+            r["step_ms"].append(ms)
+            r["peak_gib"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            r["extra_gib"].append(
+                (torch.cuda.max_memory_allocated() - before) / 2 ** 30)
+            expect = want_plain if name == "plain" else want
+            if launches != expect:
+                fail(f"pp_train {name} step {i}: launches {launches}, "
+                     f"expected {expect}")
+            r["launches"] = launches
+            if name != "plain":
+                r["grad_norm"].append(
+                    float(runs[name]["stats"][0]["grad_norm"]))
+                for k, n in launches.items():
+                    totals[k] += n
+    for name, run in runs.items():
+        r = rec[name]
+        diffs = [abs(a - b) for a, b in zip(r["losses"],
+                                            rec["plain"]["losses"])]
+        r["max_loss_diff"] = max(diffs)
+        if not all(map(math.isfinite, r["losses"])) \
+                or r["max_loss_diff"] > PP_LOSS_BOUND:
+            fail(f"pp_train {name}: losses {r['losses']} against plain "
+                 f"{rec['plain']['losses']} (bound {PP_LOSS_BOUND})")
+        if min(r["grad_norm"]) < 0.1:
+            fail(f"pp_train {name}: the clip at 0.1 was not active "
+                 f"(norms {r['grad_norm']})")
+        sched = "interleaved" if run["v"] > 1 else "1f1b"
+        r["peak_stashed_by_rank"] = [s["peak_stashed"] for s in run["stats"]]
+        r["peak_activation_microbatches"] = \
+            pipeline.peak_activation_microbatches(sched, PP_M, PP, run["v"])
+        if max(r["peak_stashed_by_rank"]) > r["peak_activation_microbatches"]:
+            fail(f"pp_train {name}: stashed {r['peak_stashed_by_rank']} "
+                 f"past the schedule's {r['peak_activation_microbatches']}")
+        r["stash_bytes_a_microbatch"] = 1024 * cfg.hidden * 2
+        r["bubble_fraction"] = pipeline.bubble_fraction(sched, PP_M, PP,
+                                                        run["v"])
+        with _StageCalls(threading, flash) as calls:
+            b = (batches[n_steps], batches[n_steps])
+            _pp_step(torch, pp_lm, collectives, cfg, opt, run["states"],
+                     run["stats"], b, PP_M, run["v"], calls)
+            torch.cuda.synchronize()
+        ms = calls.device_ms(torch)
+        # each rank's 12 / PP blocks: two forwards and a backward a
+        # microbatch
+        if len(ms) != PP or any(len(c) != 3 * (12 // PP) * PP_M
+                                for c in calls.calls.values()):
+            fail(f"pp_train {name}: recorded calls by rank "
+                 f"{ {k: len(c) for k, c in calls.calls.items()} }")
+        r["rank_kernel_ms"] = ms
+        r["rank_max_over_mean"] = max(ms) / (sum(ms) / len(ms))
+        del calls
+    for name in ("plain", *runs):
+        r = rec[name]
+        r["median_timed_step_ms"] = sorted(r["step_ms"][PP_WARM:])[
+            PP_TIMED // 2]
+    out = {"phase": "pp_train", "card": REPORT["card"],
+           "config": "gpt2-small (12 x 768, 12 heads, vocab 32000) bf16 "
+                     "over f32 masters, flash on, B8 L1024, AdamW 1e-4 wd "
+                     "0.01 clip 0.1, random weights (seed 0); 4 pp "
+                     "ThreadRing ranks, M 8: 1F1B and interleaved v 3, in "
+                     "turns with the unpipelined step",
+           "warm_steps": PP_WARM, "timed_steps": PP_TIMED,
+           "loss_bound": PP_LOSS_BOUND, "runs": rec,
+           "expected_launches": {"pp": want, "plain": want_plain}}
+    emit(out)
+    REPORT["pp_train"] = out
+    del runs, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def pp_llama(torch, tlib, bridge, train_lib, pp_lm, pipeline, collectives,
+             flash, common):
+    """``llama_8b()`` widths (H32, Hkv8, D128, vocab 128256, bf16 over f32
+    masters, flash on), ``reduced`` to 4 layers (one a stage), B4 L2048,
+    1F1B with M 4 over four pp ``ThreadRing`` ranks, AdamW 1e-4, clip
+    1.0, 2 steps: exact launches a step (K2 4 x M x 2, K3 = K4 4 x M),
+    finite losses, peak memory, each rank's most stashed inputs, and the
+    second step's flash calls replayed alone by rank.  Ranks 0 and 3 each
+    hold the tied 525M-parameter embedding with its moments."""
+    import threading
+
+    cfg = dataclasses.replace(tlib.llama_8b(), layers=4, remat=False,
+                              use_flash_attention=True, max_seq_len=2048)
+    gen = torch.Generator().manual_seed(34)
+    batches = [torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen
+                             ).cuda() for _ in range(PP_LLAMA_STEPS)]
+    opt = train_lib.default_optimizer(1e-4, weight_decay=0.01, clip_norm=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = bridge.init_params(cfg, 0, "cuda", dtype=torch.float32)
+    n_params = sum(t.numel() for t in params.values())
+    states = _stage_states(torch, pp_lm, train_lib, cfg, params, opt, 1)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = [{} for _ in range(PP)]
+    want = {"flash_fwd": 2 * cfg.layers * PP_LLAMA_M, "rms_norm": 0,
+            "flash_bwd_dq": cfg.layers * PP_LLAMA_M,
+            "flash_bwd_dkv": cfg.layers * PP_LLAMA_M}
+    totals = dict.fromkeys(common.KERNELS, 0)
+    losses, step_ms, peaks = [], [], []
+    calls = _StageCalls(threading, flash)
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        if i == len(batches) - 1:
+            with calls:
+                loss = _pp_step(torch, pp_lm, collectives, cfg, opt, states,
+                                stats, (b, b), PP_LLAMA_M, 1, calls)
+        else:
+            loss = _pp_step(torch, pp_lm, collectives, cfg, opt, states,
+                            stats, (b, b), PP_LLAMA_M, 1)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = common.launches()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        if launches != want:
+            fail(f"pp_llama step {i}: launches {launches}, expected {want}")
+        for k, n in launches.items():
+            totals[k] += n
+    if not all(map(math.isfinite, losses)):
+        fail(f"pp_llama: losses {losses}")
+    ms = calls.device_ms(torch)
+    del calls
+    out = {"phase": "pp_llama", "card": REPORT["card"],
+           "config": "llama_8b widths (32/8 heads, D128, vocab 128256) bf16 "
+                     "over f32 masters, flash on, random weights (seed 0); "
+                     "4 pp ThreadRing ranks, 1F1B M 4, B4 L2048, AdamW 1e-4 "
+                     "clip 1.0",
+           "reduced": {"layers": [32, 4]}, "params": n_params,
+           "losses": losses, "step_ms": step_ms, "peak_gib": peaks,
+           "grad_norm": [float(stats[0]["grad_norm"])],
+           "peak_stashed_by_rank": [s["peak_stashed"] for s in stats],
+           "peak_activation_microbatches":
+               pipeline.peak_activation_microbatches("1f1b", PP_LLAMA_M, PP),
+           "stash_bytes_a_microbatch": 2048 * cfg.hidden * 2,
+           "rank_kernel_ms": ms,
+           "rank_max_over_mean": max(ms) / (sum(ms) / len(ms)),
+           "launches": want}
+    emit(out)
+    REPORT["pp_llama"] = out
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+class _RankOf(object):
+    """A rank's place on a ring, without its links: what ``MoeMLP.place_``
+    slices the experts by (the ring itself is bound in the rank's
+    thread)."""
+
+    def __init__(self, rank, size):
+        self.rank, self.size = rank, size
+
+
+def ep_moe(torch, tlib, bridge, common, moe, collectives):
+    """Llama-3-8B widths with Mixtral-8x7B's 8 experts, top-2 (``moe_config``:
+    bf16, flash and fused norm on), ``reduced`` to the 2 layers of
+    ``moe_train``, B1 L2048, served weights from a seed, with four ep
+    ``ThreadRing`` ranks of 2 experts each (``MoeMLP.place_``):
+
+    - each MoE layer on the unsharded model's own input to it: the ep
+      ranks' output within 2 bf16 steps (2^-7) of the largest against
+      the unsharded layer's (only the f32 sum over the ranks' experts is
+      reassociated), and every rank's kept pairs by expert
+      (``RouteStats``) equal to the unsharded router's;
+    - the whole forward under no_grad: exact launches (K1 4 x (2*2+1),
+      K2 4 x 2), the four ranks' logits bit-equal (the replicated part
+      runs alike everywhere), and against the unsharded model's logits
+      the argmax agreement (at least ``EP_ARGMAX``) and the largest
+      difference.  No tight bound holds there: a last-bit difference
+      in a layer's output can move a near tie of the next layer's
+      router, and with it which tokens its capacity drops.
+
+    Then a probe of the ep backward on the card (``ep_backward_probe``)."""
+    MeshRings = collectives.MeshRings
+    cfg = moe_config(tlib, torch, layers=2, remat=False)
+    params = bridge.init_params(cfg, 41, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048),
+                           generator=torch.Generator().manual_seed(42)
+                           ).cuda()
+    whole = tlib.Transformer(cfg, params, device="cuda")
+    seen = []
+
+    def keep_io(m, a, out):
+        seen.append((a[0], out[0]))
+
+    hooks = [b.moe_mlp.register_forward_hook(keep_io) for b in whole.layers]
+    with torch.no_grad():
+        want = whole(tokens)
+    for h in hooks:
+        h.remove()
+    routing_whole = []
+    for i, (x, _) in enumerate(seen):
+        with torch.no_grad(), RouteStats(torch, moe, whole) as rs:
+            whole.layers[i].moe_mlp(x)
+        routing_whole.append(rs.result()["kept_by_expert"])
+    del whole
+    models = []
+    for r in range(PP):
+        m = tlib.Transformer(cfg, params, device="cuda")
+        for block in m.layers:
+            block.moe_mlp.place_(MeshRings(ep=_RankOf(r, PP)))
+        models.append(m)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def bind(rings):
+        m = models[rings.ep.rank]
+        for block in m.layers:
+            block.moe_mlp.ep = rings.ep
+        return m
+
+    def layers(rings):
+        m, out = bind(rings), []
+        for i, (x, _) in enumerate(seen):
+            with torch.no_grad(), RouteStats(torch, moe, m) as rs:
+                y, _ = m.layers[i].moe_mlp(x)
+            out.append((y, rs.result()["kept_by_expert"]))
+        return out
+
+    layer_errs = []
+    for r, res in enumerate(collectives.ThreadRing.run_mesh(1, 1, layers,
+                                                            ep=PP)):
+        for i, (y, kept) in enumerate(res):
+            y_want = seen[i][1]
+            err = ((y.float() - y_want.float()).abs().max()
+                   / y_want.float().abs().max()).item()
+            layer_errs.append(err)
+            if err > 2 ** -7 or kept != routing_whole[i]:
+                fail(f"ep_moe rank {r} layer {i}: rel err {err} (tol "
+                     f"2^-7), kept {kept} against {routing_whole[i]}")
+
+    def body(rings):
+        with torch.no_grad():
+            return bind(rings)(tokens)
+
+    collectives.ThreadRing.run_mesh(1, 1, body, ep=PP)  # warm
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    got = collectives.ThreadRing.run_mesh(1, 1, body, ep=PP)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = common.launches()
+    expect = {"flash_fwd": PP * cfg.layers, "rms_norm":
+              PP * (2 * cfg.layers + 1), "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
+    if launches != expect:
+        fail(f"ep_moe: launches {launches}, expected {expect}")
+    logits = got[0]
+    if logits.shape != want.shape or not bool(torch.isfinite(logits).all()) \
+            or any(not torch.equal(g, logits) for g in got[1:]):
+        fail(f"ep_moe: logits {tuple(logits.shape)}, finite, equal on "
+             "every rank?")
+    err = ((logits - want).abs().max() / want.abs().max()).item()
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean().item()
+    if agree < EP_ARGMAX:
+        fail(f"ep_moe: argmax agreement {agree} (at least {EP_ARGMAX})")
+    del models, got, want, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "ep_moe", "card": REPORT["card"],
+           "config": "llama_8b width + 8 experts top-2 cf 1.25, bf16, flash "
+                     "+ fused norm, served weights (seed 41), B1 L2048, 4 ep "
+                     "ThreadRing ranks x 2 experts, forward under no_grad",
+           "reduced": {"layers": [32, 2]},
+           "layer_rel_err_by_rank": layer_errs, "layer_tol_rel": 2 ** -7,
+           "kept_by_expert_unsharded": routing_whole,
+           "kept_equal_on_every_rank": True,
+           "logits_rel_err": err, "argmax_agreement": agree,
+           "argmax_bound": EP_ARGMAX, "ranks_bit_equal": True,
+           "ep_wall_ms": wall_ms, "launches": launches,
+           "backward_probe": ep_backward_probe(torch, tlib, bridge, moe,
+                                               collectives)}
+    emit(out)
+    REPORT["ep_moe"] = out
+    return launches
+
+
+def ep_backward_probe(torch, tlib, bridge, moe, collectives) -> dict:
+    """The tiny MoE Transformer (4 experts, f32) at ep 2 over ThreadRing
+    on the card, forward and backward in each rank's thread with a 10 s
+    ring timeout.  Finishing, its gradients must equal the unsharded
+    model's (2e-5 of each tensor's largest); a timeout is the engine's
+    one device thread serializing the ranks' backward (recorded, not a
+    failure: the ep train step is held against JAX over gloo processes
+    on the CPU, tests/test_torch_moe_ep.py)."""
+    cfg = dataclasses.replace(tlib.tiny_test(), num_experts=4)
+    sd = bridge.init_params(cfg, 43, "cuda", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(44)
+                           ).cuda()
+    whole = tlib.Transformer(cfg, sd, device="cuda", trainable=True)
+    aux: list = []
+    (whole(tokens, aux_losses=aux).square().mean() + sum(aux)).backward()
+    want = {n: p.grad for n, p in whole.named_parameters()}
+
+    def body(rings):
+        m = tlib.Transformer(cfg, sd, device="cuda", trainable=True)
+        for block in m.layers:
+            block.moe_mlp.place_(rings)
+        a: list = []
+        (m(tokens, aux_losses=a).square().mean() + sum(a)).backward()
+        return {n: p.grad for n, p in m.named_parameters()}
+
+    t0 = time.perf_counter()
+    try:
+        got = collectives.ThreadRing.run_mesh(1, 1, body, ep=2, timeout=10.0)
+    except (TimeoutError, RuntimeError) as e:
+        if "ThreadRing rank" not in str(e):
+            raise
+        torch.cuda.synchronize()
+        return {"finished": False, "s": time.perf_counter() - t0,
+                "error": str(e)}
+    worst = 0.0
+    for r, grads in enumerate(got):
+        for n, g in grads.items():
+            w = moe.expert_slice(n, _RankOf(r, 2))(want[n])
+            worst = max(worst, ((g - w).abs().max()
+                                / w.abs().max().clamp_min(1e-30)).item())
+    if worst > 2e-5:
+        fail(f"ep backward probe: gradients {worst} off the unsharded")
+    return {"finished": True, "s": time.perf_counter() - t0,
+            "max_grad_rel_err": worst}
+
+
 def main() -> int:
     import torch
 
@@ -4171,7 +4668,7 @@ def main() -> int:
         from k8s_tpu_torch import dist_mnist, trace, train_lm
         from k8s_tpu_torch.launcher import bootstrap
         from k8s_tpu_torch.models import bridge, checkpoint, dataset, decode
-        from k8s_tpu_torch.models import moe
+        from k8s_tpu_torch.models import moe, pp_lm
         from k8s_tpu_torch.models import mnist, mnist_data, resnet, vit
         from k8s_tpu_torch.models import server, serving
         from k8s_tpu_torch.models import engine as engine_lib
@@ -4181,7 +4678,8 @@ def main() -> int:
         from k8s_tpu_torch.ops import _build, _common
         from k8s_tpu_torch.ops import flash_attention as flash
         from k8s_tpu_torch.ops import fused_norm
-        from k8s_tpu_torch.parallel import collectives, ring_flash, ulysses
+        from k8s_tpu_torch.parallel import collectives, pipeline
+        from k8s_tpu_torch.parallel import ring_flash, ulysses
     except ImportError as e:
         fail(f"k8s_tpu_torch is not beside this script ({e}); run it from "
              "a checkout of the repository")
@@ -4276,6 +4774,16 @@ def main() -> int:
     sp_model_run = sp_model(torch, tlib, bridge, collectives, _common)
     REPORT["sp_phases_s"] = time.perf_counter() - t0
     emit({"phase": "sp_done", "s": REPORT["sp_phases_s"]})
+    t0 = time.perf_counter()
+    pp_run = pp_train(torch, tlib, bridge, train_lib, train_lm, pp_lm,
+                      pipeline, collectives, flash, _common)
+    pp_llama_run = pp_llama(torch, tlib, bridge, train_lib, pp_lm, pipeline,
+                            collectives, flash, _common)
+    ep_run = ep_moe(torch, tlib, bridge, _common, moe, collectives)
+    gc.collect()
+    torch.cuda.empty_cache()
+    REPORT["pp_ep_phases_s"] = time.perf_counter() - t0
+    emit({"phase": "pp_ep_done", "s": REPORT["pp_ep_phases_s"]})
     # last: its profiler session slows every later host clock
     moe_served = moe_serve(torch, tlib, bridge, server, _common, requestlog,
                            moe, trace)
@@ -4314,6 +4822,9 @@ def main() -> int:
                    "rendezvous_worker": gang_run[kname],
                    "sp_kernels_thread_ring_sp4": sp_run[kname],
                    "sp_model_gpt2_small_l8192": sp_model_run[kname],
+                   "pp_train_gpt2_small_4_ranks": pp_run[kname],
+                   "pp_llama_8b_width_4_layers": pp_llama_run[kname],
+                   "ep_moe_llama_width_e8_2_layers": ep_run[kname],
                    **{f"serve_lm_{mode}_gpt2_small": r[kname]
                       for mode, r in lm_runs.items()}}
         kernels.append({"name": kname, "route": route, "source": source,

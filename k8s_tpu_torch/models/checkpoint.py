@@ -16,7 +16,13 @@ port's train state ``{"model", "optimizer", "step"}`` (``models/train.py``):
   its own device.  The optimizer's param groups (the schedule's update
   count) travel with the moments.  Over an (sp, tp) mesh the shards
   are replicated on every sp and tp rank of a data position; the
-  planner's dedup writes each once.  Every rank calls ``save`` and
+  planner's dedup writes each once.  A pipeline stage
+  (``models.pp_lm.LmStage``) is saved the same way: each pp rank writes
+  its own blocks under their global names and its optimizer state
+  flattened per parameter name, and the embedding the two end ranks
+  hold alike is written once.  Over ep > 1 each ep rank's experts are
+  saved under names of their own (``layers.0.moe_mlp.w_gate@ep1of2``),
+  the rest once.  Every rank calls ``save`` and
   ``restore`` (they are collectives); process 0 alone prunes;
 - ``async_save``: the state is copied off the device, then written on a
   background thread while training goes on; ``wait()`` (or the next
@@ -49,18 +55,57 @@ _DIR = re.compile(r"^(\d+)$")
 _COMMITTED = ".metadata"  # written last by torch.distributed.checkpoint
 
 
+def _options(model):
+    """A pipeline stage's optimizer state is flattened to per-name keys:
+    each rank's param groups list only its own parameters."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions
+
+    return StateDictOptions(flatten_optimizer_state_dict=bool(
+        getattr(model, "pipeline_stage", False)))
+
+
+def _ep_suffix(model) -> str:
+    """The key suffix of this rank's experts over ep > 1 (``@ep1of4``):
+    the ep ranks hold different experts under one parameter name, so
+    each rank's are saved under names of their own.  Empty at ep 1."""
+    for m in model.modules():
+        ring = getattr(m, "ep", None)
+        if getattr(ring, "size", 1) > 1:
+            return f"@ep{ring.rank}of{ring.size}"
+    return ""
+
+
+def _ep_rename(entries: dict, suffix: str, back: bool = False) -> dict:
+    """``entries`` with every expert stack's key given ``suffix`` (or,
+    ``back``, the suffix taken off)."""
+    from k8s_tpu_torch.models.moe import is_expert_param
+
+    if not suffix:
+        return entries
+    if back:
+        return {k[:-len(suffix)] if k.endswith(suffix) else k: v
+                for k, v in entries.items()}
+    return {k + suffix if is_expert_param(k) else k: v
+            for k, v in entries.items()}
+
+
 def _dcp_state(state: dict) -> dict:
     """The sharded train state as ``torch.distributed.checkpoint`` takes
     it: the model's and the optimizer's state dicts (DTensors, keyed by
-    parameter name) and the step."""
+    parameter name; an ep rank's experts by ``_ep_suffix``) and the
+    step."""
     from torch.distributed.checkpoint.state_dict import (
         get_model_state_dict, get_optimizer_state_dict,
     )
 
     model = state["model"]
-    return {"model": get_model_state_dict(model),
-            "optimizer": get_optimizer_state_dict(model, state["optimizer"]),
-            "step": int(state["step"])}
+    suffix = _ep_suffix(model)
+    params = _ep_rename(get_model_state_dict(model), suffix)
+    opt = get_optimizer_state_dict(model, state["optimizer"],
+                                   options=_options(model))
+    if suffix:
+        opt = {**opt, "state": _ep_rename(opt["state"], suffix)}
+    return {"model": params, "optimizer": opt, "step": int(state["step"])}
 
 
 def _host_copy(obj):
@@ -232,8 +277,14 @@ class Checkpointer:
         sd = _dcp_state(target_state)
         dcp.load(sd, checkpoint_id=self._dir(step))
         model, opt = target_state["model"], target_state["optimizer"]
-        set_model_state_dict(model, sd["model"])
-        set_optimizer_state_dict(model, opt, sd["optimizer"])
+        suffix = _ep_suffix(model)
+        opt_sd = sd["optimizer"]
+        if suffix:
+            opt_sd = {**opt_sd, "state": _ep_rename(opt_sd["state"], suffix,
+                                                    back=True)}
+        set_model_state_dict(model, _ep_rename(sd["model"], suffix,
+                                               back=True))
+        set_optimizer_state_dict(model, opt, opt_sd, options=_options(model))
         target_state["step"] = int(sd["step"])
         return target_state
 

@@ -38,8 +38,19 @@ the sequence; :func:`make_lm_loss` takes each chunk's next-token loss
 over the global token count, so the gradients summed over ``sp`` (after
 FSDP2's average over the data axes) are the unsharded step's.  Every tp
 rank runs the same rows and ends with the same gradients (the attention's
-tp pair gathers them), so nothing is summed over tp.  Pipeline and
-expert parallelism come with ROADMAP.md Queue 1 item 8b.
+tp pair gathers them), so nothing is summed over tp.
+
+Expert parallelism rides it too: over a mesh with ep > 1,
+:func:`shard_train_state` leaves each rank its ``E/ep`` experts of every
+MoE layer (``MoeMLP.place_``, the reference's
+``expert_sharding_rule``) and FSDP-shards them over fsdp like every other
+parameter.  An ep group holds the same rows (the batch is split over dp
+and fsdp only), routes them alike and sums its experts' outputs with the
+ep pair of ``parallel.collectives``, whose backward hands every rank the
+whole gradient of the replicated parameters, so none is summed over ep;
+the clip's norm counts each expert once.  Pipeline parallelism trains
+through ``models.pp_lm.make_pp_train_step``; this step treats a pp axis
+as replicas.
 """
 
 from __future__ import annotations
@@ -57,9 +68,6 @@ from typing import Callable, Optional
 import torch
 
 log = logging.getLogger(__name__)
-
-_PARALLEL = ("comes with the pipeline- and expert-parallel slice of the "
-             "port (ROADMAP.md Queue 1 item 8b)")
 
 
 def cross_entropy_loss(logits, labels):
@@ -183,6 +191,18 @@ def _sharded_sq_norm(grads: list) -> tuple[list, torch.Tensor]:
 
 
 @torch.no_grad()
+def clip_to_norm_(grads: list, norm: torch.Tensor, max_norm: float) -> None:
+    """Scale ``grads`` in place as optax.clip_by_global_norm does, given
+    their global ``norm``: ``(g / norm) * max_norm`` when ``norm`` reaches
+    ``max_norm``.  No host sync."""
+    clip = norm >= max_norm
+    div = torch.where(clip, norm, 1.0)
+    mul = torch.where(clip, max_norm, 1.0).to(norm.dtype)
+    for g in grads:
+        g.div_(div).mul_(mul)
+
+
+@torch.no_grad()
 def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: when the global norm reaches
     ``max_norm`` every gradient becomes ``(g / g_norm) * max_norm``.  No
@@ -196,12 +216,25 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     else:
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
-    clip = norm >= max_norm
-    div = torch.where(clip, norm, 1.0)
-    mul = torch.where(clip, max_norm, 1.0).to(norm.dtype)
-    for g in grads:
-        g.div_(div).mul_(mul)
+    clip_to_norm_(grads, norm, max_norm)
     return norm
+
+
+@torch.no_grad()
+def clip_over_ep_(model: torch.nn.Module, max_norm: float, ring) -> None:
+    """clip_by_global_norm_ over an FSDP-sharded model whose experts are
+    split over the ep ring: the experts' squares summed over ep, every
+    other gradient (replicated over ep) counted once."""
+    from k8s_tpu_torch.models.moe import is_expert_param
+
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None]
+    experts = [g for n, g in named if is_expert_param(n)]
+    local, sq = _sharded_sq_norm([g for n, g in named
+                                  if not is_expert_param(n)])
+    local_e, sq_e = _sharded_sq_norm(experts)
+    norm = (sq + ring.all_reduce(sq_e)).sqrt()
+    clip_to_norm_(local + local_e, norm, max_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,21 +358,30 @@ class StateShardings:
 
 
 def is_sharded(model: torch.nn.Module) -> bool:
-    """True when FSDP holds ``model``'s parameters as shards."""
+    """True when each rank holds a part of ``model``: FSDP holds its
+    parameters as shards, or it is one pp rank's stage
+    (``models.pp_lm.LmStage``)."""
     from torch.distributed.tensor import DTensor
 
-    return any(isinstance(p, DTensor) for p in model.parameters())
+    return getattr(model, "pipeline_stage", False) or any(
+        isinstance(p, DTensor) for p in model.parameters())
 
 
-def _check_data_parallel(mesh) -> None:
+def _replicas(mesh) -> int:
+    """How many ranks hold each row's loss: every rank but the sp chunks
+    of a row (dp x fsdp rows, each on its tp, pp and ep ranks alike)."""
     from k8s_tpu_torch.parallel.mesh import mesh_shape
 
     shape = mesh_shape(mesh)
-    other = {a: n for a, n in shape.items() if a in ("pp", "ep") and n > 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other}: pipeline and expert parallelism "
-            f"{_PARALLEL}")
+    return math.prod(shape.values()) // shape["sp"]
+
+
+def _ep_ring(mesh):
+    """The mesh's ep ring when ep > 1, else None."""
+    from k8s_tpu_torch.parallel.collectives import mesh_rings
+
+    ring = mesh_rings(mesh).ep
+    return ring if ring.size > 1 else None
 
 
 @torch.no_grad()
@@ -362,33 +404,46 @@ def shard_train_state(state: dict, mesh) -> tuple[dict, StateShardings]:
     """FSDP-shard the model over the mesh's (dp, fsdp) axes, in place:
     ``fully_shard`` on each ``Block`` (``model.layers``) and then on the
     root, each parameter placed by ``parallel.sharding.fsdp_sharding``
-    (HSDP over a dp > 1 mesh).  The optimizer is rebuilt over the sharded
-    parameters with its param groups (the schedule's ``count``) and any
-    moments it holds, sharded like their parameter.  Returns ``(state,
-    shardings)``."""
+    (HSDP over a dp > 1 mesh).  Each MoE layer is first put on the mesh
+    (``MoeMLP.place_``: over ep > 1 it keeps only this rank's experts,
+    whose spec leads with ``ep``; it routes the global batch).  The
+    optimizer is rebuilt over the sharded parameters with its param
+    groups (the schedule's ``count``) and any moments it holds, sharded
+    like their parameter.  Returns ``(state, shardings)``."""
     from torch.distributed.tensor import distribute_tensor
 
+    from k8s_tpu_torch.models import moe
     from k8s_tpu_torch.parallel import sharding
 
-    _check_data_parallel(mesh)
     model, opt = state["model"], state["optimizer"]
     if is_sharded(model):
         raise ValueError("the train state is sharded already")
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    ep = _ep_ring(mesh)
+    for m in model.modules():
+        if isinstance(m, moe.MoeMLP):
+            m.place_(mesh)
     old = dict(model.named_parameters())
-    specs = sharding.fsdp_sharding(old, mesh)
+    specs = sharding.fsdp_sharding(
+        old, mesh, rules=(moe.expert_sharding_rule,) if ep else ())
     sharding.apply_fsdp(model, specs, mesh)
     new = dict(model.named_parameters())
-    name_of = {id(p): n for n, p in old.items()}
     groups = [{**{k: v for k, v in g.items() if k != "params"},
                "params": [new[name_of[id(p)]] for p in g["params"]]}
               for g in opt.param_groups]
     sharded_opt = type(opt)(groups)
     for p_old, moments in opt.state.items():
-        p = new[name_of[id(p_old)]]
-        sharded_opt.state[p] = {
-            k: distribute_tensor(v.detach(), p.device_mesh, p.placements)
-            if torch.is_tensor(v) and v.shape == p_old.shape else v
-            for k, v in moments.items()}
+        name = name_of[id(p_old)]
+        p = new[name]
+        local = moe.expert_slice(name, ep)
+
+        def place(v):
+            if not torch.is_tensor(v) or v.shape != p_old.shape:
+                return v
+            return distribute_tensor(local(v.detach()), p.device_mesh,
+                                     p.placements)
+
+        sharded_opt.state[p] = {k: place(v) for k, v in moments.items()}
     state["optimizer"] = sharded_opt
     return state, StateShardings(mesh, specs)
 
@@ -409,28 +464,33 @@ def make_sharded_train_step(apply_fn: Callable, loss_fn: Callable,
     device."""
     import torch.distributed as dist
 
-    from k8s_tpu_torch.parallel.mesh import mesh_shape
-
-    _check_data_parallel(mesh)
     if tuple(batch_axes) != ("dp", "fsdp"):
         raise ValueError(f"batch_axes {batch_axes}: the batch is split "
                          "over (dp, fsdp)")
     if state_shardings.mesh is not mesh:
         raise ValueError("state_shardings are of another mesh")
-    shape = mesh_shape(mesh)
     sp_ring = _sp_ring(mesh)
     if sp_ring is not None and loss_fn is lm_loss:
         # lm_loss on a chunk would drop the label across each boundary
         # and average over the chunk, not the row
         raise ValueError("over a mesh with sp > 1 the loss is "
                          "make_lm_loss(mesh)'s, not lm_loss")
-    # the world's sum counts each row's mean once per (dp, fsdp, tp) rank
-    copies = shape["dp"] * shape["fsdp"] * shape["tp"]
+    # the world's sum counts each row's mean once per rank but its sp
+    # chunks
+    copies = _replicas(mesh)
+    ep = _ep_ring(mesh)
+    clip = optimizer.clip_norm if ep is not None else 0.0
+
+    def reduce_grads(m):
+        sum_grads_over_sp(m, mesh)
+        if clip:
+            clip_over_ep_(m, clip, ep)
 
     step = make_train_step(
-        apply_fn, loss_fn, optimizer, grad_accum=grad_accum,
-        reduce_grads=(lambda m: sum_grads_over_sp(m, mesh)) if sp_ring
-        else None)
+        apply_fn, loss_fn,
+        dataclasses.replace(optimizer, clip_norm=0.0) if clip else optimizer,
+        grad_accum=grad_accum,
+        reduce_grads=reduce_grads if sp_ring or clip else None)
 
     def sharded_step(state, batch):
         if not is_sharded(state["model"]):
@@ -451,14 +511,14 @@ def make_moe_apply_fn(model, *, aux_loss_weight: float = 0.01, mesh=None):
     ``(logits, aux_loss_weight * sum)``, which the train step adds to the
     task loss.  Without it the routers get no balancing gradient,
     collapse onto a few experts, and capacity-bounded dispatch drops most
-    tokens.  ``mesh`` (expert parallelism) is refused."""
+    tokens.  ``mesh`` is passed to the model (expert parallelism needs
+    nothing more: ``shard_train_state`` gave each MoE layer its experts
+    and its ep ring)."""
     del model  # the apply_fn takes the model it runs, as every apply_fn
-    if mesh is not None:
-        raise NotImplementedError(f"MoE training over a mesh {_PARALLEL}")
 
     def apply_fn(m, inputs):
         aux: list = []
-        logits = m(inputs, aux_losses=aux)
+        logits = m(inputs, aux_losses=aux, mesh=mesh)
         total = sum(aux) if aux else logits.new_zeros(())
         return logits, aux_loss_weight * total
 
@@ -499,12 +559,7 @@ def make_eval_fn(apply_fn: Callable, loss_fn: Callable,
     ``mesh`` the stream yields this rank's part of each batch
     (``prefetch_to_mesh``) and each batch's loss is reduced over the
     mesh as the sharded step reduces it."""
-    from k8s_tpu_torch.parallel.mesh import mesh_shape
-
-    copies = None
-    if mesh is not None:
-        shape = mesh_shape(mesh)
-        copies = shape["dp"] * shape["fsdp"] * shape["tp"]
+    copies = None if mesh is None else _replicas(mesh)
 
     def batch_loss(model, batch):
         loss = _combined_loss(apply_fn, loss_fn, model, batch).detach()

@@ -1,10 +1,10 @@
 """Parallelism layer of the port: the device mesh over the processes of a
 ``torch.distributed`` world, the FSDP sharding rules, the ring
-collectives and the sequence-parallel attention (ring, ring-flash,
-Ulysses) with heads on the ``tp`` axis — the port of
+collectives, the sequence-parallel attention (ring, ring-flash,
+Ulysses) with heads on the ``tp`` axis and the pipeline schedules
+(GPipe, 1F1B, interleaved) over ``pp`` — the port of
 ``k8s_tpu/parallel/``.  (``ring_attention`` the function is not
-re-exported: the name is its module's.)  Pipeline parallelism comes with ROADMAP.md Queue
-1 item 8b."""
+re-exported: the name is its module's.)"""
 
 from k8s_tpu_torch.parallel.collectives import (  # noqa: F401
     MeshRings,
@@ -13,8 +13,11 @@ from k8s_tpu_torch.parallel.collectives import (  # noqa: F401
     ThreadRing,
     all_to_all,
     collective_matmul,
+    ep_enter,
+    ep_exit,
     host_local_array_to_global,
     mesh_rings,
+    psum,
     ring_all_gather,
     ring_reduce_scatter,
     ring_shift,
@@ -28,6 +31,14 @@ from k8s_tpu_torch.parallel.mesh import (  # noqa: F401
     data_sharding,
     make_hybrid_mesh,
     make_mesh,
+)
+from k8s_tpu_torch.parallel.pipeline import (  # noqa: F401
+    bubble_fraction,
+    interleave_chunks,
+    peak_activation_microbatches,
+    pipeline_apply,
+    pipeline_train_step_1f1b,
+    pipeline_train_step_interleaved,
 )
 from k8s_tpu_torch.parallel.ring_attention import (  # noqa: F401
     reference_attention,

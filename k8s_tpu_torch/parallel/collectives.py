@@ -19,26 +19,29 @@ collective is the identity); :class:`ProcessGroupRing` runs over a
 ``torch.distributed`` group (``batch_isend_irecv`` and
 ``all_to_all_single``: NCCL on CUDA, gloo on the CPU); :class:`ThreadRing`
 runs the ranks of one ring as threads of one process, with queues in
-place of the links.  ``ThreadRing`` is how the checks run sp ranks on one
-device (the counterpart of the reference tests' fake XLA devices); no
-entry point selects it.
+place of the links.  ``ThreadRing`` is how the checks run sp, tp, pp and
+ep ranks on one device (the counterpart of the reference tests' fake XLA
+devices); no entry point selects it.
 
 The differentiable pieces are autograd Functions: :func:`ring_shift`
 (its backward is the reverse shift, the transpose of ppermute),
-:func:`all_to_all` (its own transpose), and the Megatron pair
-:func:`tp_enter` / :func:`tp_exit` that puts heads on the ``tp`` axis.
+:func:`all_to_all` (its own transpose), the Megatron pair
+:func:`tp_enter` / :func:`tp_exit` that puts heads on the ``tp`` axis, and
+its twin over ``ep``, :func:`ep_enter` / :func:`ep_exit`, around the
+experts a rank holds.
 :func:`ring_all_gather`, :func:`ring_reduce_scatter` and
 :func:`collective_matmul` are built on :func:`ring_shift` as in the
 reference, so they are differentiable too.
 
-:class:`MeshRings` holds one rank's ``sp`` and ``tp`` rings;
+:class:`MeshRings` holds one rank's rings over the mesh's six axes;
 :func:`mesh_rings` makes it from a ``DeviceMesh`` (process-group rings
-over the mesh's ``sp`` and ``tp`` dims) or passes one through.
+over its dims) or passes one through.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import queue
 import threading
 import time
@@ -214,29 +217,44 @@ class ThreadRing(Ring):
                                    timeout=timeout)
 
     @staticmethod
-    def run_mesh(sp: int, tp: int, fn: Callable, *,
-                 timeout: float = 600.0) -> list:
-        """Run ``fn(MeshRings)`` on ``sp * tp`` threads, the ranks of an
-        (sp, tp) grid with tp innermost; returns the results in that
-        order.  Errors as :meth:`run`."""
+    def run_mesh(sp: int, tp: int, fn: Callable, *, pp: int = 1,
+                 ep: int = 1, timeout: float = 600.0) -> list:
+        """Run ``fn(MeshRings)`` on ``pp * ep * sp * tp`` threads, the
+        ranks of a (pp, ep, sp, tp) grid laid out in the mesh's axis order
+        (tp innermost); returns the results in that order.  Errors as
+        :meth:`run`."""
+        import numpy as np
+
+        sizes = {"pp": pp, "ep": ep, "sp": sp, "tp": tp}
+        shape = tuple(sizes.values())
+        n = math.prod(shape)
         failed = threading.Event()
-        sp_hubs = [_Hub(sp, timeout, failed) for _ in range(tp)]
-        tp_hubs = [_Hub(tp, timeout, failed) for _ in range(sp)]
-        results: list = [None] * (sp * tp)
-        errors: list = [None] * (sp * tp)
+        # one hub for each line of the grid along an axis: keyed by the
+        # rank's coordinates with that axis left out
+        hubs = {a: {} for a in sizes}
+        for i in range(n):
+            coord = np.unravel_index(i, shape)
+            for k, a in enumerate(sizes):
+                key = coord[:k] + coord[k + 1:]
+                if key not in hubs[a]:
+                    hubs[a][key] = _Hub(sizes[a], timeout, failed)
+        results: list = [None] * n
+        errors: list = [None] * n
 
         def body(i):
-            s, t = divmod(i, tp)
+            coord = np.unravel_index(i, shape)
+            rings = {a: ThreadRing(hubs[a][coord[:k] + coord[k + 1:]],
+                                   int(coord[k]))
+                     for k, a in enumerate(sizes)}
             try:
-                results[i] = fn(MeshRings(sp=ThreadRing(sp_hubs[t], s),
-                                          tp=ThreadRing(tp_hubs[s], t)))
+                results[i] = fn(MeshRings(**rings))
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 errors[i] = e
                 failed.set()
 
         threads = [threading.Thread(target=body, args=(i,), daemon=True,
                                     name=f"thread-ring-{i}")
-                   for i in range(sp * tp)]
+                   for i in range(n)]
         for t in threads:
             t.start()
         for t in threads:
@@ -345,7 +363,10 @@ def collective_matmul(x_shard: torch.Tensor, w: torch.Tensor,
     return ring_all_gather(x_shard, ring, fold_fn=fold)
 
 
-class _TpEnter(torch.autograd.Function):
+class _Copy(torch.autograd.Function):
+    """The identity forward; the gradient summed over the ring backward
+    (Megatron's f)."""
+
     @staticmethod
     def forward(ctx, x, ring):
         ctx.ring = ring
@@ -354,6 +375,44 @@ class _TpEnter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.ring.all_reduce(g), None
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum over the ring forward; the identity backward (Megatron's
+    g)."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        return ring.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Psum(torch.autograd.Function):
+    """The sum over the ring forward and backward (JAX's ``psum``, whose
+    transpose is itself)."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring = ring
+        return ring.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ring.all_reduce(g.contiguous()), None
+
+
+def psum(x: torch.Tensor, rings) -> torch.Tensor:
+    """``x`` summed over each ring of ``rings``, differentiably: the
+    backward sums the gradient over them too, as the transpose of the
+    reference's ``psum`` does (every rank's use of the sum reaches every
+    rank's part)."""
+    for ring in rings:
+        if ring.size > 1:
+            x = _Psum.apply(x, ring)
+    return x
 
 
 class _TpExit(torch.autograd.Function):
@@ -380,7 +439,7 @@ def tp_enter(x: torch.Tensor, ring: Ring, dim: int) -> torch.Tensor:
         raise ValueError(f"{x.shape[dim]} heads do not divide over tp "
                          f"{ring.size}")
     n = x.shape[dim] // ring.size
-    return _TpEnter.apply(x, ring).narrow(dim, ring.rank * n, n)
+    return _Copy.apply(x, ring).narrow(dim, ring.rank * n, n)
 
 
 def tp_exit(x: torch.Tensor, ring: Ring, dim: int) -> torch.Tensor:
@@ -392,18 +451,42 @@ def tp_exit(x: torch.Tensor, ring: Ring, dim: int) -> torch.Tensor:
     return _TpExit.apply(x, ring, dim)
 
 
+def ep_enter(x: torch.Tensor, ring: Ring) -> torch.Tensor:
+    """``x`` (equal on every ep rank) into this rank's share of an
+    expert-parallel sum.  Forward: the identity; backward: the gradient
+    summed over the ep ranks, each of which holds the part its own
+    experts give, so every rank gets the gradient of the whole sum."""
+    if ring.size == 1:
+        return x
+    return _Copy.apply(x, ring)
+
+
+def ep_exit(x: torch.Tensor, ring: Ring) -> torch.Tensor:
+    """The ep ranks' partial results summed.  Backward: the identity (the
+    gradient of the sum is equal on every ep rank and is each part's
+    gradient whole)."""
+    if ring.size == 1:
+        return x
+    return _Reduce.apply(x, ring)
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshRings:
-    """One rank's rings over the ``sp`` and ``tp`` axes of its mesh."""
+    """One rank's rings over the axes of its mesh (``Ring()``, one rank,
+    on an axis it does not span)."""
 
     sp: Ring = dataclasses.field(default_factory=Ring)
     tp: Ring = dataclasses.field(default_factory=Ring)
+    pp: Ring = dataclasses.field(default_factory=Ring)
+    ep: Ring = dataclasses.field(default_factory=Ring)
+    dp: Ring = dataclasses.field(default_factory=Ring)
+    fsdp: Ring = dataclasses.field(default_factory=Ring)
 
 
 def mesh_rings(mesh) -> Optional[MeshRings]:
     """``MeshRings`` for ``mesh``: None for None, itself for a
-    ``MeshRings``, and for a ``DeviceMesh`` process-group rings over its
-    ``sp`` and ``tp`` dims."""
+    ``MeshRings``, and for a ``DeviceMesh`` process-group rings over each
+    of its dims."""
     if mesh is None or isinstance(mesh, MeshRings):
         return mesh
 
@@ -412,7 +495,8 @@ def mesh_rings(mesh) -> Optional[MeshRings]:
             return Ring()
         return ProcessGroupRing(mesh.get_group(axis))
 
-    return MeshRings(sp=ring("sp"), tp=ring("tp"))
+    return MeshRings(**{f.name: ring(f.name)
+                        for f in dataclasses.fields(MeshRings)})
 
 
 def host_local_array_to_global(mesh, arrays, placements):

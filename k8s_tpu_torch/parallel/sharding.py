@@ -84,12 +84,24 @@ def _fsdp_size(mesh) -> int:
     return sizes["fsdp"]
 
 
-def fsdp_sharding(params: Mapping, mesh) -> dict:
+def fsdp_sharding(params: Mapping, mesh, rules=()) -> dict:
     """``{name: spec}`` of :func:`fsdp_spec` for each tensor of
     ``params``; ``mesh`` is a ``DeviceMesh`` or a ``{axis: size}``
-    mapping."""
+    mapping.  ``rules``: param-path rules (``rule(name, mesh)`` -> a
+    leading spec or None, e.g. ``models.moe.expert_sharding_rule``); the
+    first that names a parameter places its leading dims, and the fsdp
+    rule the rest (a local expert stack ``[E/ep, d, f]``: ``("ep", None,
+    "fsdp")``)."""
     n = _fsdp_size(mesh)
-    return {name: fsdp_spec(tuple(t.shape), n) for name, t in params.items()}
+    out = {}
+    for name, t in params.items():
+        shape = tuple(t.shape)
+        lead = next((spec for spec in (r(name, mesh) for r in rules)
+                     if spec), ())
+        rest = fsdp_spec(shape[len(lead):], n)
+        out[name] = tuple(lead) + (rest or (None,) * (len(shape) - len(lead))
+                                   if lead else rest)
+    return out
 
 
 def infer_logical_axes(params: Mapping) -> dict:

@@ -33,9 +33,17 @@ attention runs over the sp ring: the flash ring on the card (contiguous,
 or ``--ring_layout zigzag`` on an even ring), the plain ring on the CPU,
 or ``--sp_strategy ulysses``.  ``--tp N`` splits the heads of that
 attention over N ranks; the rest of the model is replicated over tp, as
-the reference's fsdp-only parameter rule leaves it.  ``--pp`` above 1
-exits non-zero with a message: pipeline parallelism comes with a later
-slice of the port (ROADMAP.md Queue 1 item 8b).
+the reference's fsdp-only parameter rule leaves it.
+
+``--pp N`` (a multiple of N processes) trains pipeline-parallel with the
+reference's 1F1B schedule (``--pp_virtual V > 1``: interleaved, V chunks a
+rank) over ``--num_microbatches`` (default 2N): each rank builds its
+stage of the same seeded weights (``models.pp_lm.LmStage``), the data
+axes average the loss and gradients, ``--clip_norm`` clips by the norm
+over every stage, and checkpoints hold each rank's blocks under their
+global layer names.  It refuses what the reference refuses with it
+(``--sp``, ``--tp``, ``--fused_ce on``, ``--grad_accum``,
+``--eval_every``) and skips ``--generate``.
 """
 
 from __future__ import annotations
@@ -174,11 +182,6 @@ def build_config(args, on_gpu: bool):
         raise SystemExit("--eval_every does not reach the pipeline step "
                          "(eval drives the plain apply_fn, which --pp "
                          "bypasses); use --eval_every 0 with --pp")
-    if args.pp > 1:
-        raise SystemExit(
-            f"--pp {args.pp}: pipeline parallelism comes with the "
-            "pipeline-parallel slice of the port (ROADMAP.md Queue 1 item "
-            "8b); use --pp 1")
     if args.preset == "tiny":
         cfg = tiny_test()
     elif args.preset == "bert-base":
@@ -214,6 +217,40 @@ def synthetic_corpus(vocab_size: int, tokens_total: int, seq_len: int,
     return rng.integers(0, vocab_size, size=(n_seqs, seq_len), dtype=np.int32)
 
 
+def pipeline_stage(args, cfg, params, mesh, device, optimizer):
+    """This rank's ``LmStage`` of ``params`` and the pp train step, after
+    the reference's checks; logs the schedule and its bubble."""
+    from k8s_tpu_torch.models import pp_lm
+    from k8s_tpu_torch.parallel.collectives import mesh_rings
+    from k8s_tpu_torch.parallel.pipeline import bubble_fraction
+
+    vp = args.pp_virtual
+    if cfg.layers % (args.pp * vp):
+        raise SystemExit(
+            f"{cfg.layers} layers not divisible into {args.pp * vp} pp "
+            f"chunks ({args.pp} stages x {vp} virtual)")
+    micro = args.num_microbatches or 2 * args.pp
+    if args.batch_size % micro:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} not divisible into "
+            f"{micro} microbatches (--num_microbatches)")
+    if vp > 1 and micro % args.pp:
+        raise SystemExit(
+            f"interleaved schedule ingests microbatches in groups of "
+            f"{args.pp} (=pp); --num_microbatches {micro} is not a "
+            f"multiple")
+    rank = mesh_rings(mesh).pp.rank
+    stage = pp_lm.LmStage(cfg, params, rank=rank, num_stages=args.pp,
+                          num_virtual=vp, device=device)
+    step_fn = pp_lm.make_pp_train_step(
+        cfg, optimizer, mesh, num_microbatches=micro, num_virtual=vp)
+    schedule = "interleaved" if vp > 1 else "1f1b"
+    log.info("pipeline: %d stages x %d virtual, %d microbatches, %s "
+             "(bubble %.1f%%)", args.pp, vp, micro, schedule,
+             100 * bubble_fraction(schedule, micro, args.pp, vp))
+    return stage, step_fn
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
@@ -222,7 +259,7 @@ def main(argv=None) -> int:
 
     cfg_launch = bootstrap.initialize_distributed(device=args.device)
     sharded = (cfg_launch.is_distributed or cfg_launch.num_slices > 1
-               or args.sp > 1 or args.tp > 1)
+               or args.sp > 1 or args.tp > 1 or args.pp > 1)
 
     import torch
 
@@ -234,27 +271,22 @@ def main(argv=None) -> int:
     device = bootstrap.process_device()
     cfg = build_config(args, device.type == "cuda")
     mesh = None
-    if cfg_launch.num_processes % (args.sp * args.tp):
+    model_ranks = args.sp * args.tp * args.pp
+    if cfg_launch.num_processes % model_ranks:
         raise SystemExit(
-            f"--sp {args.sp} --tp {args.tp}: each sequence chunk and head "
-            f"group runs on its own process, so the job needs a multiple "
-            f"of {args.sp * args.tp} processes (got "
-            f"{cfg_launch.num_processes})")
+            f"--sp {args.sp} --tp {args.tp} --pp {args.pp}: each sequence "
+            f"chunk, head group and pipeline stage runs on its own "
+            f"process, so the job needs a multiple of {model_ranks} "
+            f"processes (got {cfg_launch.num_processes})")
     if sharded:
         mesh, _ = bootstrap.make_training_mesh(tp=args.tp, sp=args.sp,
-                                               config=cfg_launch)
+                                               pp=args.pp, config=cfg_launch)
     log.info("preset %s: layers=%d hidden=%d seq=%d flash=%s ring=%s",
              args.preset, cfg.layers, cfg.hidden, args.seq_len,
              cfg.use_flash_attention, cfg.use_ring_attention)
 
     tokens0 = synthetic_corpus(cfg.vocab_size, args.batch_size * args.seq_len,
                                args.seq_len, seed=0)
-    model = Transformer(cfg, bridge.init_params(cfg, 0, device,
-                                                dtype=torch.float32),
-                        device=device, trainable=True)
-    n_params = sum(p.numel() for p in model.parameters())
-    log.info("%.1fM params", n_params / 1e6)
-
     optimizer = train_lib.default_optimizer(
         args.learning_rate, weight_decay=args.weight_decay,
         clip_norm=args.clip_norm, schedule=args.lr_schedule,
@@ -262,6 +294,16 @@ def main(argv=None) -> int:
         # decay spans whatever budget this run has; a resumed run restores
         # the schedule's update count from the checkpoint
         decay_steps=max(1, args.train_steps - args.warmup_steps))
+    params = bridge.init_params(cfg, 0, device, dtype=torch.float32)
+    n_params = sum(t.numel() for t in params.values())
+    log.info("%.1fM params", n_params / 1e6)
+    step_fn = None
+    if args.pp > 1:
+        model, step_fn = pipeline_stage(args, cfg, params, mesh, device,
+                                        optimizer)
+    else:
+        model = Transformer(cfg, params, device=device, trainable=True)
+    del params
 
     # eval under sp stages each rank's chunk and reduces over the mesh;
     # otherwise every rank scores the whole eval batch
@@ -329,8 +371,9 @@ def main(argv=None) -> int:
         else data_lib.prefetch_to_device(batches, device)
 
     state = train_lib.init_state(model, optimizer)
-    fused = args.fused_ce == "on" or (args.fused_ce == "auto"
-                                      and _FUSED_CE_AUTO)
+    # pp runs its own step (apply_fn unused): auto demotes the fused head
+    fused = args.pp == 1 and (args.fused_ce == "on" or (
+        args.fused_ce == "auto" and _FUSED_CE_AUTO))
     if fused:
         apply_fn = train_lib.make_fused_lm_apply_fn(model, mesh=mesh)
         loss_fn = train_lib.fused_loss_passthrough
@@ -359,6 +402,7 @@ def main(argv=None) -> int:
                 os.path.join(args.train_dir, "metrics.jsonl")
                 if args.train_dir else ""),
             mesh=mesh,
+            step_fn=step_fn,
         )
     finally:
         data_iter.close()
@@ -401,7 +445,7 @@ def main(argv=None) -> int:
              args.train_steps, final)
     maybe_export_serving()
     if args.generate > 0:
-        if args.sp > 1 or not cfg.causal or sharded:
+        if args.sp > 1 or args.pp > 1 or not cfg.causal or sharded:
             # decode cannot serve the sp ring, bidirectional presets or a
             # gang's sharded weights; a finished run's exit code stays 0
             log.warning("--generate skipped: KV-cached decode serves "

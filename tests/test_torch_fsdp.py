@@ -153,18 +153,22 @@ def test_sharded_step_matches_jax_and_unsharded(tmp_path, inputs, world,
 
 
 def test_shard_train_state_refuses_model_axes_and_resharding():
-    class FakeMesh:
-        mesh_dim_names = ("dp", "pp", "fsdp", "ep", "sp", "tp")
+    # pp and ep meshes are accepted since pipeline and expert parallelism
+    # are ported (tests/test_torch_pp_lm.py, test_torch_moe_ep.py); what
+    # stays refused is sharding a state twice, and a pipeline stage
+    # counts as sharded (each rank holds its own part)
+    from k8s_tpu_torch.models import pp_lm
 
-        class mesh:  # noqa: N801 - the DeviceMesh attribute
-            shape = (1, 2, 1, 1, 1, 1)  # pp: sp and tp are ported
-
-    model = tt.Transformer(tt.tiny_test(), bridge.init_params(
-        tt.tiny_test(), 0, "cpu", dtype=torch.float32), device="cpu",
-        trainable=True)
-    state = ttrain.init_state(model, ttrain.default_optimizer(1e-3))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ttrain.shard_train_state(state, FakeMesh())
+    cfg = tt.tiny_test()
+    stage = pp_lm.LmStage(cfg, bridge.init_params(
+        cfg, 0, "cpu", dtype=torch.float32), rank=0, num_stages=2,
+        device="cpu")
+    state = ttrain.init_state(stage, ttrain.default_optimizer(1e-3))
+    assert ttrain.is_sharded(stage)
+    with pytest.raises(ValueError, match="sharded already"):
+        ttrain.shard_train_state(state, object())
+    model = tt.Transformer(cfg, bridge.init_params(
+        cfg, 0, "cpu", dtype=torch.float32), device="cpu", trainable=True)
     assert not ttrain.is_sharded(model)
 
 

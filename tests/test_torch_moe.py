@@ -245,10 +245,12 @@ def test_make_moe_apply_fn_matches_reference():
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
                                atol=TOL, rtol=TOL)
     np.testing.assert_allclose(aux.item(), float(jaux), atol=TOL, rtol=TOL)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        ttrain.make_moe_apply_fn(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        moe.expert_sharding_rule(("w_gate",), object())
+    # expert parallelism is ported (tests/test_torch_moe_ep.py): the
+    # rule shards the expert stacks' leading dim over ep, nothing else
+    assert moe.expert_sharding_rule(("w_gate",), object()) == ("ep",)
+    assert moe.expert_sharding_rule("layers.0.moe_mlp.w_down", None) == \
+        ("ep",)
+    assert moe.expert_sharding_rule("layers.0.moe_mlp.router", None) is None
 
 
 def test_fit_loss_curve_matches_jax():

@@ -193,22 +193,24 @@ def test_world_of_four_zigzag_window_and_tp(tmp_path, inputs):
 
 
 def test_pp_is_refused_by_name(tmp_path):
+    # --pp is ported (tests/test_torch_pp_lm.py): one process cannot hold
+    # two stages, and pp still refuses the sp ring, as the reference does
     flags = [f for f in LM_FLAGS if not f.startswith("--eval")]
-    with pytest.raises(SystemExit, match="pipeline.*item 8b"):
+    with pytest.raises(SystemExit, match="multiple of 2 processes"):
         train_lm.main([*flags, f"--train_dir={tmp_path}", "--pp=2"])
     with pytest.raises(SystemExit, match="nest inside the pp"):
         train_lm.main([*flags, f"--train_dir={tmp_path}", "--pp=2",
                        "--sp=2"])
     with pytest.raises(SystemExit, match="multiple of 2 processes"):
         train_lm.main([*LM_FLAGS, f"--train_dir={tmp_path}", "--sp=2"])
-    from k8s_tpu_torch.models import train as ttrain
+    import dataclasses
 
-    class PpMesh:
-        mesh_dim_names = ("dp", "pp", "fsdp", "ep", "sp", "tp")
-        mesh = np.zeros((1, 2, 1, 1, 2, 2))
+    from k8s_tpu_torch.models import pp_lm
+    from k8s_tpu_torch.models import transformer as tt
 
-    with pytest.raises(NotImplementedError, match="pp.*item 8b"):
-        ttrain.shard_train_state({"model": None}, PpMesh())
+    with pytest.raises(ValueError, match="nest inside the pp"):
+        pp_lm.make_stage_fn(dataclasses.replace(tt.tiny_test(),
+                                                use_ring_attention=True))
 
 
 def test_zigzag_layout_falls_back_as_the_reference_does():

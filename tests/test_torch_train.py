@@ -330,19 +330,17 @@ def test_prefetch_contract():
 
 
 def test_parallel_pieces_name_their_slice():
-    # the FSDP step, sp and tp are ported (tests/test_torch_fsdp.py,
-    # test_torch_sp_train.py); a mesh with a pipeline axis names the
-    # slice that brings it
-    class TpMesh:
+    # the FSDP step, sp, tp, pp and ep are ported (tests/test_torch_fsdp.py,
+    # test_torch_sp_train.py, test_torch_pp_lm.py, test_torch_moe_ep.py):
+    # the sharded step counts pp and ep ranks as replicas of a row's loss
+    class PpMesh:
         mesh_dim_names = ("dp", "pp", "fsdp", "ep", "sp", "tp")
-        mesh = np.zeros((1, 2, 1, 1, 1, 1))
+        mesh = np.zeros((1, 2, 1, 2, 2, 1))
 
-    with pytest.raises(NotImplementedError, match="parallel slice.*8b"):
-        ttrain.shard_train_state({"model": None}, TpMesh())
-    # MoE training is ported; only its mesh (expert parallelism) waits
+    assert ttrain._replicas(PpMesh()) == 4
+    # MoE training over a mesh (expert parallelism) is ported too
     assert callable(ttrain.make_moe_apply_fn(None))
-    with pytest.raises(NotImplementedError, match="parallel slice.*8b"):
-        ttrain.make_moe_apply_fn(None, mesh=object())
+    assert callable(ttrain.make_moe_apply_fn(None, mesh=object()))
     from k8s_tpu_torch.launcher import bootstrap
 
     cfg = bootstrap.LauncherConfig.from_env(

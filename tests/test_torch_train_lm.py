@@ -93,11 +93,11 @@ def test_sigterm_exits_143_with_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("args,match", [
-    # sp and tp are ported (tests/test_torch_sp_train.py): one process
-    # cannot hold the mesh they ask for
+    # sp, tp and pp are ported (tests/test_torch_sp_train.py,
+    # test_torch_pp_lm.py): one process cannot hold the mesh they ask for
     (["--sp=2"], "processes"),
     (["--tp=2"], "processes"),
-    (["--pp=2"], "parallel slice"),
+    (["--pp=2"], "processes"),
     (["--data_dir=tests/fixtures/tokens"], "TokenDataset"),
 ])
 def test_later_slice_flags_are_refused(tmp_path, args, match):

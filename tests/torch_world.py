@@ -17,7 +17,10 @@ way (``sp_worker``).  The ``fsdp`` worker reads ``IO_DIR/in.json`` (config overr
 env, with a checkpoint at the end, then restores that checkpoint into a
 fresh sharded state, and takes the gradient at the final weights on the
 first batch.  Process 0 writes ``out.json`` and ``out.npz``.  The
-``ckpt`` worker drives the sharded ``Checkpointer`` the same way.
+``ckpt`` worker drives the sharded ``Checkpointer`` the same way, the
+``pp`` worker trains pipeline-parallel cases and ``train_lm --pp`` runs
+(``pp_worker``), and the ``moe`` worker trains the MoE Transformer on an
+(fsdp, ep) mesh (``moe_worker``).
 """
 
 from __future__ import annotations
@@ -364,8 +367,187 @@ def sp_worker(io_dir: str) -> int:
     return 0
 
 
+def _train_lm_runs(io_dir: str, name: str, flags: list, is_chief: bool):
+    """``train_lm.main`` with ``flags`` for 4 steps, and for 2 then 4
+    steps in another directory (a resume from the step-2 checkpoint):
+    each run's exit code and metrics records (process 0's)."""
+    from k8s_tpu_torch import train_lm
+
+    def run(train_dir, steps):
+        rc = train_lm.main([*flags, f"--train_dir={train_dir}",
+                            f"--train_steps={steps}"])
+        path = os.path.join(train_dir, "metrics.jsonl")
+        recs = [json.loads(x) for x in open(path)] if is_chief else []
+        return rc, recs
+
+    whole = run(os.path.join(io_dir, f"{name}_whole"), 4)
+    first = run(os.path.join(io_dir, f"{name}_resumed"), 2)
+    resumed = run(os.path.join(io_dir, f"{name}_resumed"), 4)
+    return {"whole": whole, "first": first, "resumed": resumed,
+            "files": sorted(os.listdir(os.path.join(io_dir,
+                                                    f"{name}_resumed")))}
+
+
+def pp_worker(io_dir: str) -> int:
+    """Pipeline-parallel training: each case of ``IO_DIR/in.json``
+    (``tiny_test`` overrides, num_virtual, num_microbatches) trains the
+    ``param/<name>`` weights of ``in.npz`` on its ``tokens`` through
+    ``pp_lm.make_pp_train_step`` over the pp ranks ``make_training_mesh``
+    makes from the env, then takes ``pp_loss_and_grads`` at the final
+    weights on the first batch.  Each rank writes its stage's weights and
+    gradients to ``out_<case>_<rank>.npz``.  Each ``train_lm`` flag set
+    of the spec runs through :func:`_train_lm_runs` (with
+    ``train_lm_layers``, on ``tiny_test`` at that many layers).  Process 0
+    writes ``out.json``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from k8s_tpu_torch.launcher import bootstrap
+    from k8s_tpu_torch.models import pp_lm
+    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch.models import transformer as tt
+    from k8s_tpu_torch.parallel.collectives import mesh_rings
+
+    torch.set_num_threads(1)
+    spec = json.load(open(os.path.join(io_dir, "in.json")))
+    arrays = np.load(os.path.join(io_dir, "in.npz"))
+    params = {k[len("param/"):]: torch.from_numpy(arrays[k])
+              for k in arrays.files if k.startswith("param/")}
+    tokens = torch.from_numpy(arrays["tokens"]).long()
+    launch = bootstrap.initialize_distributed()
+    out = {}
+    for case in spec["cases"]:
+        name, v, M = case["name"], case["num_virtual"], case["M"]
+        cfg = dataclasses.replace(tt.tiny_test(), **case["config"])
+        mesh, _ = bootstrap.make_training_mesh(pp=case["pp"], config=launch)
+        rank = mesh_rings(mesh).pp.rank
+        stage = pp_lm.LmStage(cfg, params, rank=rank,
+                              num_stages=case["pp"], num_virtual=v,
+                              device="cpu")
+        optimizer = train_lib.default_optimizer(**spec["opt"])
+        state = train_lib.init_state(stage, optimizer)
+        stats: dict = {}
+        step = pp_lm.make_pp_train_step(cfg, optimizer, mesh,
+                                        num_microbatches=M, num_virtual=v,
+                                        stats=stats)
+        losses = []
+        for t in tokens:
+            state, loss = step(state, (t, t))
+            losses.append(float(loss))
+        _, grads = pp_lm.pp_loss_and_grads(
+            mesh, cfg, stage, tokens[0], tokens[0], num_microbatches=M,
+            num_virtual=v)
+        np.savez(os.path.join(io_dir, f"out_{name}_{rank}.npz"),
+                 **{f"param/{n}": p.detach().numpy()
+                    for n, p in stage.named_parameters()},
+                 **{f"grad/{n}": g.numpy() for n, g in grads.items()})
+        out[name] = {"losses": losses,
+                     "peak_stashed": stats["peak_stashed"],
+                     "count": [g["count"] for g in
+                               state["optimizer"].param_groups]}
+    if spec.get("train_lm_layers"):  # the tiny preset at more layers
+        tiny = tt.tiny_test
+        tt.tiny_test = lambda: dataclasses.replace(
+            tiny(), layers=spec["train_lm_layers"])
+    for name, flags in spec.get("train_lm", {}).items():
+        out[name] = _train_lm_runs(io_dir, name, flags, launch.is_chief)
+    if launch.is_chief:
+        with open(os.path.join(io_dir, "out.json"), "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+def moe_worker(io_dir: str) -> int:
+    """The MoE Transformer (``tiny_test`` overrides of ``in.json``) on the
+    (fsdp, ep) mesh of ``in.json``: 3 steps of the sharded step through
+    ``make_moe_apply_fn(mesh=)`` on ``in.npz``'s ``tokens`` (each rank
+    its rows), then the gradient at the final weights on the first batch,
+    and a DCP save restored into a fresh sharded state.  Each rank writes
+    its local parameters and gradients (its experts' slice, whole after
+    FSDP's gather) to ``out_<rank>.npz``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed
+
+    from k8s_tpu_torch.launcher import bootstrap
+    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch.models import transformer as tt
+    from k8s_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.set_num_threads(1)
+    spec = json.load(open(os.path.join(io_dir, "in.json")))
+    arrays = np.load(os.path.join(io_dir, "in.npz"))
+    params = {k[len("param/"):]: torch.from_numpy(arrays[k])
+              for k in arrays.files if k.startswith("param/")}
+    tokens = torch.from_numpy(arrays["tokens"]).long()
+    launch = bootstrap.initialize_distributed()
+    cfg = dataclasses.replace(tt.tiny_test(), **spec["config"])
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**spec["mesh"]),
+                              device_type="cpu")
+    optimizer = train_lib.default_optimizer(**spec["opt"])
+    model = tt.Transformer(cfg, params, device="cpu", trainable=True)
+    state, shardings = train_lib.shard_train_state(
+        train_lib.init_state(model, optimizer), mesh)
+    apply_fn = train_lib.make_moe_apply_fn(model, mesh=mesh)
+    step = train_lib.make_sharded_train_step(
+        apply_fn, train_lib.lm_loss, optimizer, mesh, shardings)
+    shard = mesh_lib.data_sharding(mesh)
+    losses = []
+    for t in tokens:
+        rows = shard.local(t)
+        state, loss = step(state, (rows, rows))
+        losses.append(float(loss))
+    model = state["model"]
+    full = {n: p.detach().full_tensor() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    rows = shard.local(tokens[0])
+    # the step's gradient: FSDP averages over the data shards
+    train_lib._combined_loss(apply_fn, train_lib.lm_loss, model,
+                             (rows, rows)).backward()
+    grads = {n: p.grad.full_tensor() for n, p in model.named_parameters()}
+    # the DCP round trip into a fresh sharded state: each ep rank's
+    # experts under names of their own, the rest written once
+    from k8s_tpu_torch.models.checkpoint import Checkpointer
+
+    ck = Checkpointer(os.path.join(io_dir, "ckpt"))
+    ck.save(len(tokens) - 1, state, force=True)
+    other, _ = train_lib.shard_train_state(train_lib.init_state(
+        tt.Transformer(cfg, {n: torch.zeros_like(t)
+                             for n, t in params.items()}, device="cpu",
+                       trainable=True), optimizer), mesh)
+    other, next_step = ck.restore_or_init(other)
+    pairs = list(zip(model.parameters(), other["model"].parameters()))
+    same = all(torch.equal(a.to_local(), b.to_local()) for a, b in pairs) \
+        and all(torch.equal(
+            state["optimizer"].state[a]["exp_avg_sq"].to_local(),
+            other["optimizer"].state[b]["exp_avg_sq"].to_local())
+            for a, b in pairs) and next_step == len(tokens)
+    flag = torch.tensor([int(same)])
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    np.savez(os.path.join(io_dir, f"out_{launch.process_id}.npz"),
+             **{f"param/{n}": t.numpy() for n, t in full.items()},
+             **{f"grad/{n}": t.numpy() for n, t in grads.items()})
+    if launch.is_chief:
+        with open(os.path.join(io_dir, "out.json"), "w") as f:
+            json.dump({"losses": losses, "ep_rank": coord["ep"],
+                       "mesh": mesh_lib.mesh_shape(mesh),
+                       "restored_equal": bool(flag.item()),
+                       "ckpt_files": sorted(os.listdir(os.path.join(
+                           io_dir, "ckpt", str(len(tokens) - 1))))}, f)
+    with open(os.path.join(io_dir, f"coord_{launch.process_id}.json"),
+              "w") as f:
+        json.dump(coord, f)
+    return 0
+
+
 if __name__ == "__main__":
-    workers = {"fsdp": fsdp_worker, "ckpt": ckpt_worker, "sp": sp_worker}
+    workers = {"fsdp": fsdp_worker, "ckpt": ckpt_worker, "sp": sp_worker,
+               "pp": pp_worker, "moe": moe_worker}
     if sys.argv[1] not in workers:
         raise SystemExit(f"unknown scenario {sys.argv[1]!r}")
     sys.exit(workers[sys.argv[1]](sys.argv[2]))
