@@ -4,8 +4,8 @@
     python3 chip_profile.py [--path PATH] [--prompt_len 509]
                             [--new_tokens 32] [--seed 0]
 
-PATH is serve, train, engine, spec, resnet, vit, fsdp, pp or both (the
-default: serve and train).
+PATH is serve, train, engine, spec, resnet, vit, fsdp, pp, mesh or both
+(the default: serve and train).
 
 ``serve``: builds the model chip_smoke.py serves (llama_8b widths, bf16,
 all 32 layers, the flash-attention and RMSNorm kernels on, random weights
@@ -86,6 +86,14 @@ weights:
   median of 3 after a warm-up, in turns plain / pp / pp / plain;
 - ``torch.profiler`` over one step of each: device time by kernel and by
   class, device ops, and the device-busy share of the step's wall.
+
+``mesh``: chip_smoke.py's ``mesh_serve`` mesh (the ``engine`` model at
+tp 4 over ``ThreadRing`` ranks, plan bus on loopback) against the local
+engine on the same weights, four ``--prompt_len`` requests of 8 new
+tokens decoding together: seconds a model call for each; for the mesh,
+each rank's host seconds inside its ring collectives and plan receives,
+a 2 ms stack sample of the rank and engine threads, and the batch again
+at a 0.5 ms interpreter switch interval.
 
 Prints JSON lines; everything also goes to
 ``chip_reports/chip_profile.json``.
@@ -663,11 +671,179 @@ def profile_pp(torch, args, report) -> int:
     return 0
 
 
+class StackSampler:
+    """Where a set of threads spend their host time: every ``period``
+    seconds, each watched thread's innermost frame in this repo (or its
+    innermost frame when none is), counted by thread and by
+    ``file:function:line``."""
+
+    def __init__(self, prefixes, period: float = 0.002):
+        import threading
+
+        self.prefixes = tuple(prefixes)
+        self.period = period
+        self.counts: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="stack-sampler")
+
+    def _where(self, frame) -> str:
+        inner = None
+        while frame is not None:
+            code = frame.f_code
+            name = f"{os.path.basename(code.co_filename)}:{code.co_name}:" \
+                   f"{frame.f_lineno}"
+            inner = inner or name
+            if code.co_filename.startswith(REPO):
+                return name
+            frame = frame.f_back
+        return inner or "?"
+
+    def _run(self):
+        import threading
+
+        while not self._stop.wait(self.period):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                name = names.get(ident, "")
+                if name.startswith(self.prefixes):
+                    c = self.counts.setdefault(name, {})
+                    where = self._where(frame)
+                    c[where] = c.get(where, 0) + 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def top(self, n: int = 8) -> dict:
+        out = {}
+        for name, c in sorted(self.counts.items()):
+            total = sum(c.values())
+            out[name] = {"samples": total, "top": [
+                [w, k / total] for w, k in
+                sorted(c.items(), key=lambda kv: -kv[1])[:n]]}
+        return out
+
+
+def profile_mesh(torch, args, report) -> int:
+    """chip_smoke.py's ``mesh_serve`` mesh (llama_8b, bf16, tp 4 over
+    ``ThreadRing`` ranks on the one card, the plan bus on loopback, slots
+    4) against the local engine on the same weights: four requests of
+    ``--prompt_len`` tokens and 8 new tokens each, decoding together.
+    For each, the host clock around the batch over its model calls; for
+    the mesh, each rank's host time inside its ring collectives and plan
+    receives, and a stack sample (every 2 ms) of the rank threads and
+    the engine thread; then the mesh batch again at a 0.5 ms interpreter
+    switch interval (``sys.setswitchinterval``, default 5 ms)."""
+    import collections
+    import threading
+
+    from k8s_tpu_torch.models import bridge, mesh_serve, mp_plan
+    from k8s_tpu_torch.models import engine as engine_lib
+    from k8s_tpu_torch.models import transformer as tlib
+    from k8s_tpu_torch.parallel import collectives
+
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    params = bridge.init_params(cfg, args.seed, "cuda")
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (args.prompt_len,),
+                             generator=gen).tolist() for _ in range(4)]
+    new = 8
+    waits = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def inner(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                waits[(name, threading.current_thread().name)] += \
+                    time.perf_counter() - t0
+        return inner
+
+    patched = {(collectives.ThreadRing, "all_reduce"),
+               (collectives.ThreadRing, "broadcast"),
+               (mp_plan.PlanFollower, "recv")}
+    saved = {(c, m): getattr(c, m) for c, m in patched}
+    for (c, m), fn in saved.items():
+        setattr(c, m, timed(f"{c.__name__}.{m}", fn))
+
+    def batch(eng):
+        eng.submit(prompts[0][:8], 1, timeout=600)  # warm-up
+        calls0 = eng.stats()["model_calls"]
+        threads = [threading.Thread(target=eng.submit, args=(p, new),
+                                    kwargs={"timeout": 900})
+                   for p in prompts]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        calls = eng.stats()["model_calls"] - calls0
+        return {"batch_s": wall, "model_calls": calls,
+                "s_per_model_call": wall / calls}
+
+    def local():
+        eng = engine_lib.Engine(cfg, params, slots=4, queue_limit=32,
+                                device="cuda")
+        try:
+            return batch(eng)
+        finally:
+            eng.shutdown()
+
+    def mesh(sample: bool):
+        def chief(placement):
+            eng = engine_lib.Engine(cfg, params, slots=4, queue_limit=32,
+                                    placement=placement)
+            try:
+                waits.clear()
+                if not sample:
+                    return batch(eng), None
+                with StackSampler(("thread-ring-", "lm-engine",
+                                   "planbus-sender")) as s:
+                    rec = batch(eng)
+                return rec, s.top()
+            finally:
+                eng.shutdown()
+
+        (rec, stacks), _ = mesh_serve.run_in_threads(4, cfg, params, chief,
+                                                     device="cuda",
+                                                     timeout=900)
+        rec["host_s_in"] = {f"{n} @ {t}": s for (n, t), s in
+                            sorted(waits.items())}
+        if stacks is not None:
+            rec["stacks"] = stacks
+        return rec
+
+    out = {"phase": "profile_mesh", "prompt_len": args.prompt_len,
+           "new_tokens": new, "local": local()}
+    torch.cuda.empty_cache()
+    out["mesh"] = mesh(sample=False)
+    out["mesh_sampled"] = mesh(sample=True)
+    default = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    try:
+        out["mesh_switch_0.5ms"] = mesh(sample=False)
+    finally:
+        sys.setswitchinterval(default)
+    for (c, m), fn in saved.items():
+        setattr(c, m, fn)
+    report["profile_mesh"] = out
+    emit(out)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--path",
                    choices=["serve", "train", "engine", "spec", "resnet",
-                            "vit", "fsdp", "pp", "both"],
+                            "vit", "fsdp", "pp", "mesh", "both"],
                    default="both")
     p.add_argument("--prompt_len", type=int, default=509)
     p.add_argument("--new_tokens", type=int, default=32)
@@ -704,6 +880,8 @@ def main(argv=None) -> int:
         rc = rc or profile_fsdp(torch, args, report)
     if args.path == "pp":
         rc = rc or profile_pp(torch, args, report)
+    if args.path == "mesh":
+        rc = rc or profile_mesh(torch, args, report)
 
     os.makedirs(os.path.join(REPO, "chip_reports"), exist_ok=True)
     with open(os.path.join(REPO, "chip_reports", "chip_profile.json"),

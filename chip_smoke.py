@@ -147,6 +147,26 @@ Phases, each fatal on failure:
    width, 8 experts over four ep ranks, forward against the unsharded
    model (logits, kept pairs, exact K1 and K2), and a probe of the ep
    backward on the card.
+12. tensor-parallel mesh serving (worlds of 2 over gloo are CPU tests):
+   ``mesh_parity`` (the tiny model, f32, K1 on: the engine on a
+   ``MeshPlacement`` at tp 2 and tp 4, ``ThreadRing`` ranks with the
+   followers replaying the plan over the real plan bus, against the
+   local engine on all three lanes and the CPU plain engine on greedy;
+   exact K1 launches on every rank, pool shares 1/tp); ``mesh_serve``
+   (after ``beam``, on ``serve_engine``'s weights: Llama-3-8B width and
+   depth at tp 4, 4 slots, its prompts with 8 greedy tokens plus a
+   speculative request; K1 exactly 65 launches a chief model call on
+   each rank, every rank's measured pool share 0.25, tokens held against
+   ``serve_engine``'s by ``token_check``, one prefill's logits through
+   the mesh within a bound of the whole model's, and a fault planted in
+   one rank's all-reduce caught by the same bound, the plan
+   bus's counters, peak memory, decode tokens/s beside
+   ``serve_engine``'s); ``mesh_nccl`` (in the world-1 block: the engine
+   on a ``MeshPlacement`` over the one-rank NCCL group against the local
+   engine on the train phase's gpt2-small export, K1 on; then ``python
+   -m k8s_tpu_torch.models.server`` with ``K8S_TPU_SERVE_MESH=1`` in a
+   process of its own under ``gang_env``, its HTTP tokens against a
+   local server's, exit 0 on SIGINT).
 
 Prints the card line first, one JSON object per phase and case, then a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -163,9 +183,12 @@ import json
 import logging
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -181,6 +204,10 @@ PEAK_BYTES = 3.35e12
 L2_BYTES = 50 * 2 ** 20  # the H100 SXM's L2 cache
 
 REPORT: dict = {"cases": []}
+# what later phases reuse: serve_engine's prompts and tokens (mesh_serve
+# holds its tp 4 tokens against them), the train phase's gpt2-small
+# serving export (mesh_nccl serves it)
+KEPT: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -1319,6 +1346,9 @@ def serve_engine(torch, tlib, bridge, server, common, requestlog):
                      if k != "occupancy_timeline"}}
     emit(rec)
     REPORT["serve_engine"] = rec
+    KEPT["serve_engine"] = {
+        "prompts": prompts, "buckets": eng.buckets,
+        "tokens": {n: results[i][0] for i, n in enumerate(batch)}}
     requestlog.set_active(None)
     os.environ.pop("K8S_TPU_REQUEST_LOG", None)
     return launches, lm.model.state_dict()
@@ -2145,6 +2175,10 @@ def train_main_path(torch, train_lm, server, serving, common, tlib):
         if len(toks) != 8 or not all(0 <= x < cfg.vocab_size for x in toks):
             fail(f"the exported artifact answered {out}")
         lm_runs = serve_lm_runs(torch, tlib, common, train_dir, cfg)
+        # the export mesh_nccl serves later, after this directory is gone
+        KEPT["gpt2_export"] = tempfile.mkdtemp(prefix="gpt2_export_")
+        shutil.copytree(os.path.join(train_dir, "serving"),
+                        os.path.join(KEPT["gpt2_export"], "serving"))
     tokens_per_step = 8 * 1024
     rec = {"phase": "train", "config": "gpt2-small bf16 flash, train_lm.main",
            "args": TRAIN_ARGS, "layers": cfg.layers, "steps": TRAIN_STEPS,
@@ -4657,6 +4691,457 @@ def ep_backward_probe(torch, tlib, bridge, moe, collectives) -> dict:
             "max_grad_rel_err": worst}
 
 
+# -- phase 12: tensor-parallel mesh serving ------------------------------------
+
+
+def mesh_parity(torch, tlib, bridge, engine_lib, mesh_serve, common):
+    """The engine on a ``MeshPlacement`` at tp 2 and tp 4 (``ThreadRing``
+    ranks on the one card, followers replaying the chief's plan over the
+    real plan bus on loopback) against the ``LocalPlacement`` engine on
+    the same weights, on the tiny model in f32 with the RMSNorm kernel on:
+    greedy, fixed-seed sampled and speculative (greedy and sampled)
+    requests give the same tokens; the greedy ones also equal the CPU
+    plain engine's.  The counters, zeroed just before the two mesh runs
+    and read just after, must show K1 at 2·layers+1 launches a model call
+    on every rank (the chief's ``model_calls`` times tp) and no flash
+    launch; every rank's pool share must be 1/tp."""
+    import numpy as np
+
+    cfg = dataclasses.replace(tlib.tiny_test(), use_flash_attention=True,
+                              use_fused_norm=True)
+    params = bridge.init_params(cfg, seed=13, device="cpu")
+    rng = torch.Generator().manual_seed(15)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    rep = [3, 9, 4, 1, 7] * 4
+    reqs = [dict(ids=prompt(5), max_new_tokens=8),
+            dict(ids=prompt(13), max_new_tokens=6),
+            dict(ids=prompt(9), max_new_tokens=8, temperature=0.8, top_k=5,
+                 seed=3),
+            dict(ids=prompt(7), max_new_tokens=6, temperature=1.0, seed=4),
+            dict(ids=rep[:18], max_new_tokens=8, speculative=3),
+            dict(ids=rep[:14], max_new_tokens=8, speculative=4,
+                 temperature=0.9, seed=21)]
+    greedy = [i for i, r in enumerate(reqs) if not r.get("temperature")]
+    kw = dict(slots=2, queue_limit=32)
+
+    def run(placement=None, device="cuda", which=range(len(reqs))):
+        eng = engine_lib.Engine(cfg, params, placement=placement,
+                                device=device, **kw)
+        try:
+            return [eng.submit(np.asarray(reqs[i]["ids"]),
+                               **{k: v for k, v in reqs[i].items()
+                                  if k != "ids"}, timeout=300)
+                    for i in which], eng.stats()
+        finally:
+            eng.shutdown()
+
+    t0 = time.perf_counter()
+    want, _ = run()
+    plain, _ = run(device="cpu", which=greedy)
+    if plain != [want[i] for i in greedy]:
+        fail(f"mesh_parity: the card's local engine {want} and the CPU "
+             f"plain engine {plain} disagree on the greedy requests")
+    rec = {"phase": "mesh_parity", "card": REPORT["card"],
+           "config": "tiny_test f32 flash+fused", "slots": 2,
+           "requests": len(reqs), "tp": {}}
+    common.reset_launches()
+    calls = {}
+    for tp in (2, 4):
+        def chief(placement):
+            toks, st = run(placement)
+            return toks, st, placement.pool_local_fraction
+        (toks, st, frac0), reports = mesh_serve.run_in_threads(
+            tp, cfg, params, chief, device="cuda", timeout=300)
+        if toks != want:
+            fail(f"mesh_parity tp {tp}: tokens {toks}, local {want}")
+        fracs = [frac0] + [r["pool_local_fraction"] for r in reports]
+        if any(f != round(1 / tp, 4) for f in fracs) or \
+                (st["placement"], st["tp_degree"]) != ("mesh", tp):
+            fail(f"mesh_parity tp {tp}: pool shares {fracs}, stats "
+                 f"{st['placement']} tp {st['tp_degree']}")
+        calls[tp] = st["model_calls"]
+        rec["tp"][str(tp)] = {"model_calls": st["model_calls"],
+                              "pool_local_fraction": fracs,
+                              "follower_ops": [r["ops"] for r in reports]}
+    torch.cuda.synchronize()
+    launches = common.launches()
+    want_l = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "rms_norm": (2 * cfg.layers + 1) * sum(
+                  tp * c for tp, c in calls.items())}
+    if launches != want_l:
+        fail(f"mesh_parity launches {launches}, expected {want_l}")
+    rec.update(tokens_equal=True, greedy_equal_cpu_plain=True,
+               launches=launches, s=time.perf_counter() - t0)
+    emit(rec)
+    REPORT["mesh_parity"] = rec
+    return launches
+
+
+# the largest |logit| difference a sound tp 4 mesh may show against the
+# whole model on the same prefill (bf16 at Llama-3-8B width: the ranks'
+# partial sums round apart from the whole model's products).  On an H100
+# a sound mesh read 0.138 (the whole model's own decode paths spread
+# 0.139) and a fault planted in rank 0's last o_proj all-reduce 0.836,
+# which must exceed it
+MESH_LOGIT_BOUND = 0.35
+
+
+class _SkippedSum:
+    """A planted fault: a tp ring whose ``all_reduce`` takes part in the
+    collective, so no other rank waits, but returns this rank's own
+    partial sum, as a rank that skipped the sum would."""
+
+    def __init__(self, ring):
+        self.ring, self.rank, self.size = ring, ring.rank, ring.size
+
+    def all_reduce(self, x):
+        self.ring.all_reduce(x)
+        return x
+
+
+def mesh_prefill_logits(torch, eng, ids):
+    """A cold prefill of ``ids`` through the mesh engine's own prefill
+    body, bucket chunk by chunk, on the engine thread: each chunk goes
+    over the plan bus first, so every follower rank replays it.  It
+    writes into free blocks of the served pool, which go back to the
+    free list after.  Returns the last position's f32 logits ``[V]``."""
+    import numpy as np
+
+    from k8s_tpu_torch.models.decode import split_prefill
+
+    bs = eng.block_size
+
+    def run():
+        blocks = [eng._alloc_block() for _ in range(-(-len(ids) // bs))]
+        try:
+            table = np.asarray(blocks, dtype=np.int32)
+            off = 0
+            for c in split_prefill(len(ids), eng.buckets):
+                last = eng._prefill_fn(c)(
+                    eng._pool, table[:-(-(off + c) // bs)],
+                    np.asarray([ids[off:off + c]], dtype=np.int64),
+                    (off + np.arange(c, dtype=np.int64))[None, :])
+                off += c
+            return last[0].float()
+        finally:
+            for b in blocks:
+                eng._pool_alloc.release(b)
+    return eng.submit_exclusive(run, timeout=600)
+
+
+def mesh_serve_llama(torch, tlib, engine_lib, mesh_serve, common, weights):
+    """Tensor-parallel serving at the served width: llama_8b (32 layers,
+    bf16, both forward kernels on) on the weights ``serve_engine`` served,
+    at tp 4 over ``ThreadRing`` ranks on the one card (rank 0 the engine
+    with 4 slots, three followers replaying its plan over the plan bus),
+    each rank's model built from its Megatron shard of those weights.
+    ``serve_engine``'s 17/64/128/509-token prompts with 8 greedy tokens
+    each and one speculative request (draft_k 4, its 128-token prompt),
+    submitted together after a one-call warm-up; then its 128-token
+    prompt once more through the mesh engine's prefill body, whose
+    last-position logits must lie within :data:`MESH_LOGIT_BOUND` of the
+    whole model's over the same paged chunks, and once with a fault
+    planted in rank 0's last ``o_proj`` all-reduce, whose logits must
+    not.  The counters, zeroed just before the ranks start and read once
+    all have ended (a follower may launch a call's last norm after the
+    chief's last all-reduce), must show K1 at 2·32+1 launches a chief
+    model call on each of the 4 ranks and no flash launch.  The greedy
+    and speculative tokens are held against ``serve_engine``'s first 8
+    for the same prompts by ``token_check``; every rank's measured pool
+    share must be 0.25.  Reports each rank's pool and params shares, the
+    plan bus's counters, peak memory and the aggregate decode tokens/s
+    beside ``serve_engine``'s (context only: four ranks on one card are
+    not faster; each rank's host ops are the bound, chip_profile.py
+    --path mesh)."""
+    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    kept = KEPT["serve_engine"]
+    prompts = kept["prompts"]
+    whole = tlib.Transformer(cfg, weights, device="cuda")
+    new = 8
+    reqs = {f"greedy_{n}": dict(ids=prompts[n], max_new_tokens=new)
+            for n in (17, 64, 128, 509)}
+    reqs["spec_128"] = dict(ids=prompts[128], max_new_tokens=new,
+                            speculative=4)
+    check_ids = list(prompts[128])
+    # one model call: each rank thread's cuBLAS handle and allocator
+    # warm before the timed batch
+    warm = torch.randint(0, cfg.vocab_size, (1,),
+                         generator=torch.Generator().manual_seed(9)).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+
+    def chief(placement):
+        t0 = time.perf_counter()
+        eng = engine_lib.Engine(cfg, weights, slots=4, queue_limit=32,
+                                placement=placement)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        out: dict = {}
+        try:
+            eng.submit(warm, 1, timeout=600)
+            st0 = eng.stats()
+
+            def client(name):
+                r = reqs[name]
+                out[name] = eng.submit(r["ids"], r["max_new_tokens"],
+                                       **{k: v for k, v in r.items()
+                                          if k not in ("ids",
+                                                       "max_new_tokens")},
+                                       timeout=600)
+            threads = [threading.Thread(target=client, args=(n,))
+                       for n in reqs]
+            t_batch = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            batch_s = time.perf_counter() - t_batch
+            st1 = eng.stats()
+            t_check = time.perf_counter()
+            logits = {"sound": mesh_prefill_logits(torch, eng, check_ids)}
+            attn = eng._compute.model.layers[-1].attn
+            ring = attn.tp
+            attn.tp = _SkippedSum(ring)
+            try:
+                logits["fault"] = mesh_prefill_logits(torch, eng, check_ids)
+            finally:
+                attn.tp = ring
+            check_s = time.perf_counter() - t_check
+            st2 = eng.stats()
+        finally:
+            eng.shutdown()
+        return {"tokens": out, "st0": st0, "st1": st1, "st2": st2,
+                "batch_s": batch_s, "setup_s": setup_s, "check_s": check_s,
+                "logits": logits, "buckets": eng.buckets,
+                "pool_local_fraction": placement.pool_local_fraction,
+                "params_local_fraction": placement.params_local_fraction,
+                "plan_bus": placement.plan_bus_stats(),
+                "pool_gib": sum(t.numel() * t.element_size()
+                                for node in eng._pool
+                                for t in node.values()) / 2 ** 30}
+
+    t0 = time.perf_counter()
+    # the main path's run, warm-up included: counters zeroed just before,
+    # read once every rank has ended (a follower's last launches of a call
+    # may follow the chief's last all-reduce, so not before its bye)
+    common.reset_launches()
+    res, reports = mesh_serve.run_in_threads(4, cfg, weights, chief,
+                                             device="cuda", timeout=900)
+    torch.cuda.synchronize()
+    res["launches"] = common.launches()
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    toks = res["tokens"]
+    if len(toks) != len(reqs) or any(
+            len(t) != new or not all(0 <= x < cfg.vocab_size for x in t)
+            for t in toks.values()):
+        fail(f"mesh_serve: answers {toks}")
+    calls = res["st2"]["model_calls"]
+    want_l = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "rms_norm": (2 * cfg.layers + 1) * 4 * calls}
+    if res["launches"] != want_l:
+        fail(f"mesh_serve launches {res['launches']}, expected {want_l} "
+             f"({calls} chief model calls, 4 ranks)")
+    fracs = [res["pool_local_fraction"]] + [r["pool_local_fraction"]
+                                            for r in reports]
+    if fracs != [0.25] * 4:
+        fail(f"mesh_serve: measured pool shares {fracs}, want 0.25 each")
+    ref = path_logits(torch, whole, check_ids, res["buckets"])
+    errs = {k: (v - ref["paged"]).abs().max().item()
+            for k, v in res["logits"].items()}
+    logit_check = {"prompt_len": len(check_ids), "bound": MESH_LOGIT_BOUND,
+                   "max_abs_err": errs["sound"],
+                   "max_abs_err_vs_flash_prefill": (
+                       res["logits"]["sound"] - ref["prefill"]).abs().max()
+                   .item(),
+                   "planted_fault_max_abs_err": errs["fault"],
+                   "whole_model_path_spread": max(
+                       (x - ref["prefill"]).abs().max().item()
+                       for k, x in ref.items() if k != "prefill")}
+    if not all(torch.isfinite(v).all() for v in res["logits"].values()):
+        fail("mesh_serve: non-finite prefill logits")
+    if not errs["sound"] <= MESH_LOGIT_BOUND:
+        fail(f"mesh_serve: tp 4 prefill logits {errs['sound']} from the "
+             f"whole model's, bound {MESH_LOGIT_BOUND}")
+    if not errs["fault"] > MESH_LOGIT_BOUND:
+        fail(f"mesh_serve: a skipped all-reduce moved the logits only "
+             f"{errs['fault']}, within the bound {MESH_LOGIT_BOUND}: the "
+             "check cannot see a wrong rank")
+    checks = {}
+    for name, n in (("greedy_17", 17), ("greedy_64", 64),
+                    ("greedy_128", 128), ("greedy_509", 509),
+                    ("spec_128", 128)):
+        checks[name] = token_check(
+            torch, whole, prompts[n], toks[name],
+            kept["tokens"][n][:new],
+            f"mesh_serve {name} (tp 4) vs serve_engine", kept["buckets"])
+    emitted = sum(len(t) - 1 for t in toks.values())
+    engine_tps = REPORT["serve_engine"]["batch"]["decode_tokens_per_s"]
+    rec = {"phase": "mesh_serve", "card": REPORT["card"],
+           "config": "llama_8b bf16 flash+fused, MeshPlacement tp 4 "
+                     "(ThreadRing ranks, plan bus on loopback), slots 4",
+           "layers": cfg.layers, "tp": 4, "requests": sorted(reqs),
+           "new_tokens": new, "setup_s": res["setup_s"], "wall_s": wall_s,
+           "batch_s": res["batch_s"], "logit_check_s": res["check_s"],
+           "decode_tokens": emitted,
+           "batch_model_calls": res["st1"]["model_calls"]
+           - res["st0"]["model_calls"],
+           "s_per_batch_model_call": res["batch_s"] / max(
+               1, res["st1"]["model_calls"] - res["st0"]["model_calls"]),
+           "decode_tokens_per_s": emitted / res["batch_s"],
+           "serve_engine_decode_tokens_per_s": engine_tps,
+           "model_calls": calls, "launches": res["launches"],
+           "expected_launches": want_l,
+           "pool_local_fraction": fracs,
+           "params_local_fraction": [res["params_local_fraction"]]
+           + [r["params_local_fraction"] for r in reports],
+           "follower_ops": [r["ops"] for r in reports],
+           "pool_gib_per_rank": res["pool_gib"],
+           "plan_bus": res["plan_bus"],
+           "memory_allocated_before_gib": base_gib,
+           "max_memory_allocated_gib": peak_gib,
+           "prefill_logits_vs_whole": logit_check,
+           "tokens_vs_serve_engine": checks,
+           "tokens_equal_serve_engine": sum(
+               c["equal"] for c in checks.values())}
+    emit(rec)
+    REPORT["mesh_serve"] = rec
+    return res["launches"]
+
+
+def _server_process(argv: list, env: dict):
+    """Start ``python -m k8s_tpu_torch.models.server ...``; returns the
+    process, its URL (from its READY line) and the lines it printed."""
+    p = subprocess.Popen([sys.executable, "-m", "k8s_tpu_torch.models.server"]
+                         + argv, env=env, cwd=REPO, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    url = None
+    for line in p.stdout:
+        lines.append(line)
+        if line.startswith("READY "):
+            url = line.split()[1]
+            break
+    if url is None:
+        p.wait(timeout=60)
+        fail(f"mesh_nccl: the server exited {p.returncode} before READY: "
+             + "".join(lines)[-3000:])
+    # keep draining, so a chatty server never blocks on a full pipe
+    threading.Thread(target=lambda: lines.extend(p.stdout),
+                     daemon=True).start()
+    return p, url, lines
+
+
+def mesh_nccl(torch, engine_lib, server, serving, mesh_serve, collectives,
+              common):
+    """Mesh serving over the one-rank NCCL group ``make_training_mesh``
+    made, on the gpt2-small export of the train phase: in process, the
+    engine on a ``MeshPlacement`` over the group's ``ProcessGroupRing``
+    (tp 1, the RMSNorm kernel turned on: 2·12+1 launches a model call)
+    against the ``LocalPlacement`` engine on the same weights; then
+    ``python -m k8s_tpu_torch.models.server`` with
+    ``K8S_TPU_SERVE_MESH=1`` in a process of its own under the operator's
+    one-worker env (``gang_env``): its HTTP answers to three requests
+    (greedy, sampled, speculative) must equal a ``LocalPlacement``
+    server's on the same artifact, and SIGINT must end it with exit 0."""
+    import numpy as np
+
+    export = KEPT["gpt2_export"]
+    cfg0, sd = serving.load_for_serving(export, device="cuda")
+    cfg = dataclasses.replace(cfg0, use_fused_norm=True)
+    ring = mesh_serve.build_serve_mesh()
+    if not isinstance(ring, collectives.ProcessGroupRing) or ring.size != 1:
+        fail(f"mesh_nccl: the serving ring is {type(ring).__name__} of "
+             f"{ring.size}, not the one-rank NCCL group's")
+    rng = torch.Generator().manual_seed(21)
+    pattern = torch.randint(0, cfg.vocab_size, (9,), generator=rng).tolist()
+    reqs = [dict(ids=torch.randint(0, cfg.vocab_size, (40,),
+                                   generator=rng).tolist(),
+                 max_new_tokens=8),
+            dict(ids=torch.randint(0, cfg.vocab_size, (100,),
+                                   generator=rng).tolist(),
+                 max_new_tokens=8, temperature=0.8, top_k=40, seed=5),
+            dict(ids=(pattern * 8)[:64], max_new_tokens=8, speculative=4)]
+
+    def run(placement=None):
+        eng = engine_lib.Engine(cfg, sd, slots=2, placement=placement,
+                                device="cuda")
+        try:
+            return [eng.submit(np.asarray(r["ids"]), **{
+                k: v for k, v in r.items() if k != "ids"}, timeout=300)
+                for r in reqs], eng.stats()
+        finally:
+            eng.shutdown()
+
+    t0 = time.perf_counter()
+    want, _ = run()
+    common.reset_launches()
+    placement = mesh_serve.MeshPlacement(cfg, ring, device="cuda")
+    got, st = run(placement)
+    torch.cuda.synchronize()
+    launches = common.launches()
+    want_l = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "rms_norm": (2 * cfg.layers + 1) * st["model_calls"]}
+    if got != want or launches != want_l or \
+            (st["placement"], st["tp_degree"]) != ("mesh", 1):
+        fail(f"mesh_nccl in process: tokens {got} vs local {want}, "
+             f"launches {launches} vs {want_l}, stats {st['placement']} "
+             f"tp {st['tp_degree']}")
+    in_process_s = time.perf_counter() - t0
+
+    # the server entry under K8S_TPU_SERVE_MESH=1, in its own process
+    bodies = [{"tokens": r["ids"], **{k: v for k, v in r.items()
+                                      if k != "ids"}} for r in reqs]
+    lm = server.LmServer(export, device="cuda")
+    try:
+        local = [lm.generate(server.parse_request(cfg0, b, 8))["tokens"]
+                 for b in bodies]
+    finally:
+        lm.close()
+    t1 = time.perf_counter()
+    env = {**gang_env(29501), "K8S_TPU_SERVE_MESH": "1",
+           "K8S_TPU_SERVE_PLAN_PORT": "0"}
+    p, url, lines = _server_process(["--train_dir", export, "--port", "0"],
+                                    env)
+    try:
+        ready_s = time.perf_counter() - t1
+        served = [http(url + "/v1/generate", b)[1].get("tokens")
+                  for b in bodies]
+        health = http(url + "/healthz")[1]["serving"]
+        p.send_signal(signal.SIGINT)
+        rc = p.wait(timeout=120)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if served != local or rc != 0 or (health["placement"],
+                                      health["tp_degree"]) != ("mesh", 1):
+        fail(f"mesh_nccl server: tokens {served} vs local {local}, exit "
+             f"{rc}, healthz {health.get('placement')} tp "
+             f"{health.get('tp_degree')}: " + "".join(lines)[-2000:])
+    rec = {"phase": "mesh_nccl", "card": REPORT["card"],
+           "config": "gpt2-small export of train (bf16), fused norm on in "
+                     "process; MeshPlacement over the one-rank NCCL group",
+           "ring": type(ring).__name__, "in_process_tokens_equal": True,
+           "in_process_model_calls": st["model_calls"],
+           "launches": launches, "expected_launches": want_l,
+           "in_process_s": in_process_s,
+           "server": {"env": "K8S_TPU_SERVE_MESH=1 under gang_env",
+                      "ready_s": ready_s, "tokens_equal_local": True,
+                      "healthz": {k: health[k] for k in (
+                          "placement", "num_processes", "mesh_shape",
+                          "tp_degree")}, "exit_code": rc},
+           "s": time.perf_counter() - t0}
+    emit(rec)
+    REPORT["mesh_nccl"] = rec
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4668,7 +5153,7 @@ def main() -> int:
         from k8s_tpu_torch import dist_mnist, trace, train_lm
         from k8s_tpu_torch.launcher import bootstrap
         from k8s_tpu_torch.models import bridge, checkpoint, dataset, decode
-        from k8s_tpu_torch.models import moe, pp_lm
+        from k8s_tpu_torch.models import mesh_serve, moe, pp_lm
         from k8s_tpu_torch.models import mnist, mnist_data, resnet, vit
         from k8s_tpu_torch.models import server, serving
         from k8s_tpu_torch.models import engine as engine_lib
@@ -4717,6 +5202,10 @@ def main() -> int:
     parity(torch, tlib, bridge, decode)
     engine_parity(torch, tlib, bridge, decode, engine_lib)
     spec_parity(torch, tlib, bridge, decode, engine_lib)
+    t0 = time.perf_counter()
+    mesh_par = mesh_parity(torch, tlib, bridge, engine_lib, mesh_serve,
+                           _common)
+    mesh_s = time.perf_counter() - t0
     train_parity(torch, tlib, bridge, train_lib, _common)
     moe_parity(torch, tlib, bridge, decode, train_lib, moe)
     vision_parity(torch, resnet, vit, mnist, train_lib)
@@ -4738,6 +5227,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     beam = beam_llama(torch, tlib, decode, _common, weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_served = mesh_serve_llama(torch, tlib, engine_lib, mesh_serve,
+                                   _common, weights)
+    mesh_s += time.perf_counter() - t0
     del weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -4765,6 +5260,13 @@ def main() -> int:
     fsdp_run = fsdp_train(torch, tlib, bridge, train_lib, train_lm, _common,
                           checkpoint, mesh)
     gang_run = gang_path(torch)
+    t1 = time.perf_counter()
+    mesh_nccl_run = mesh_nccl(torch, engine_lib, server, serving, mesh_serve,
+                              collectives, _common)
+    shutil.rmtree(KEPT.pop("gpt2_export"), ignore_errors=True)
+    mesh_s += time.perf_counter() - t1
+    REPORT["mesh_phases_s"] = mesh_s
+    emit({"phase": "mesh_done", "s": mesh_s})
     torch.distributed.destroy_process_group()
     REPORT["dist_phases_s"] = time.perf_counter() - t0
     emit({"phase": "dist_done", "s": REPORT["dist_phases_s"]})
@@ -4825,6 +5327,9 @@ def main() -> int:
                    "pp_train_gpt2_small_4_ranks": pp_run[kname],
                    "pp_llama_8b_width_4_layers": pp_llama_run[kname],
                    "ep_moe_llama_width_e8_2_layers": ep_run[kname],
+                   "serve_mesh_tp4_llama_8b": mesh_served[kname],
+                   "mesh_nccl_world1_gpt2_small": mesh_nccl_run[kname],
+                   "mesh_parity": mesh_par[kname],
                    **{f"serve_lm_{mode}_gpt2_small": r[kname]
                       for mode, r in lm_runs.items()}}
         kernels.append({"name": kname, "route": route, "source": source,

@@ -78,8 +78,15 @@ What the reference has and this port does not:
   lengths drawn from the bucket set, decode widths from powers of two —
   holds here too and is reported by ``stats()`` (``prefill_programs``
   lists the chunk lengths used, ``decode_step_ks`` the widths);
-- mesh placements, which come with a later slice of the port
-  (models/placement.py refuses them by name);
+
+Tensor-parallel serving, as in the reference: with a
+``mesh_serve.MeshPlacement`` the engine's model is tp rank 0's shard and
+every body call is replayed by the follower ranks (models/mesh_serve.py).
+The scheduler above never branches on it.  Under a mesh, windowed configs
+(dense rows, nothing to head-split), the spill tier and disaggregation
+(no local pool to export) are refused or off with the reference's
+messages, and ``stats()`` reports ``placement``, ``num_processes``,
+``mesh_shape`` and ``tp_degree``.
 
 Tiered KV memory and disaggregation, as in the reference:
 
@@ -133,7 +140,6 @@ from k8s_tpu_torch.models.decode import (
 )
 from k8s_tpu_torch.models.kvblocks import BlockPool, PrefixTree, chain_tokens
 from k8s_tpu_torch.models.paged import quantize_kv
-from k8s_tpu_torch.models.transformer import Transformer
 from k8s_tpu_torch.ops._common import resolve_device
 
 log = logging.getLogger(__name__)
@@ -324,11 +330,12 @@ class _Slot:
 class Engine:
     """Continuous-batching decode engine over one model.
 
-    ``params`` is a state dict (models/bridge.py); the engine builds the
-    served :class:`Transformer` on ``device`` (``model``, shared with the
-    server's exclusive lane).  All device work happens on the single
-    engine thread; callers block in :meth:`submit` /
-    :meth:`submit_exclusive` on a per-request event.
+    ``params`` is a state dict (models/bridge.py); the placement builds the
+    served :class:`Transformer` from it (``model``, shared with the
+    server's exclusive lane): the whole model on ``device`` by default, tp
+    rank 0's shard on the placement's device under a mesh.  All device
+    work happens on the single engine thread; callers block in
+    :meth:`submit` / :meth:`submit_exclusive` on a per-request event.
     """
 
     def __init__(self, config, params, *, slots: Optional[int] = None,
@@ -348,12 +355,16 @@ class Engine:
         if spill_mb is None:
             spill_mb = kvtier.env_spill_mb()
         self.config = config
-        self.device = resolve_device(device)
-        self._placement = placement_lib.check_placement(
-            placement if placement is not None
-            else placement_lib.LocalPlacement(self.device))
-        self.model = Transformer(config, params, device=self.device)
-        self._compute = placement_lib.PagedCompute(self.model)
+        if placement is None:
+            placement = placement_lib.LocalPlacement(resolve_device(device))
+        self._placement = placement_lib.check_placement(placement)
+        self.device = placement.device
+        if self._placement.is_mesh and config.window_size is not None:
+            raise ValueError(
+                "mesh serving needs the paged block pool; windowed "
+                "configs keep dense per-slot rows and stay single-host")
+        self._compute = self._placement.build_compute(config, params)
+        self.model = self._compute.model
         self.pad_id = pad_id
         self.queue_limit = queue_limit
         self.buckets = tuple(sorted(buckets or prefill_buckets_for(config)))
@@ -404,18 +415,27 @@ class Engine:
         # (fused width, has-sampling, is-spec) step shapes used so far
         self._step_ks: set[tuple[int, bool, bool]] = set()
         if self.paged:
-            self._step_fn = wrap(self._compute.paged_step)
+            self._step_fn = wrap("paged_step", self._compute.paged_step)
             # the variable-width speculative verify step
-            self._spec_fn = wrap(self._compute.spec_step)
-            self._cow_fn = wrap(self._compute.cow)
-            self._prefill_body = wrap(self._compute.prefill_paged)
+            self._spec_fn = wrap("spec_step", self._compute.spec_step)
+            self._cow_fn = wrap("cow", self._compute.cow)
+            self._prefill_body = wrap("prefill",
+                                      self._compute.prefill_paged)
             self._pool = self._placement.build_pool(
                 self._compute, self.pool_blocks, self.block_size)
             # disaggregated block export/import and the spill tier's
             # demote/promote: gather a chain to the host, graft one into
-            # fresh local blocks
-            self._gather_fn = wrap(self._compute.gather_blocks)
-            self._graft_fn = wrap(self._compute.graft_blocks)
+            # fresh local blocks.  A mesh placement has no single-device
+            # pool to export from: disaggregation composes tiers of
+            # single-device (or whole-gang) pods, so the seams stay local
+            if not self._placement.is_mesh:
+                self._gather_fn = wrap("kv_gather",
+                                       self._compute.gather_blocks)
+                self._graft_fn = wrap("kv_graft",
+                                      self._compute.graft_blocks)
+            else:
+                self._gather_fn = None
+                self._graft_fn = None
             # {leaf path: (per-block tail shape, host dtype)}: what
             # submit_prefilled validates an imported chain against
             # before any device work
@@ -427,19 +447,24 @@ class Engine:
             self._tree = PrefixTree(block_size) \
                 if self.prefix_blocks > 0 else None
             # host-RAM spill tier: evicted tree leaves demote to bounded
-            # host buffers instead of being dropped (0 MB = off)
+            # host buffers instead of being dropped (0 MB = off).  Needs
+            # the gather/graft chain seams, so a mesh placement (no local
+            # pool export) stays single-tier
             self._spill = kvtier.SpillTier(int(spill_mb) * (1 << 20)) \
-                if self._tree is not None and int(spill_mb) > 0 else None
+                if (self._tree is not None and int(spill_mb) > 0
+                    and self._gather_fn is not None) else None
             self._cache = None
             # device-side table stack, refreshed only when a slot's
             # table changes (join/retire/growth) — not every step
             self._tables_dev = None
             self._tables_dirty = True
         else:
-            self._step_fn = wrap(self._compute.dense_step)
-            self._scatter_fn = wrap(self._compute.scatter)
-            self._prefill_body = wrap(self._compute.prefill_dense)
-            self._init_cache_fn = wrap(self._compute.init_cache)
+            self._step_fn = wrap("dense_step", self._compute.dense_step)
+            self._scatter_fn = wrap("scatter", self._compute.scatter)
+            self._prefill_body = wrap("prefill_dense",
+                                      self._compute.prefill_dense)
+            self._init_cache_fn = wrap("init_cache",
+                                       self._compute.init_cache)
             self._cache = self._init_cache_fn(slots, self.device)
             self._pool = None
             self._pool_alloc = None
@@ -553,6 +578,11 @@ class Engine:
             raise ValueError(
                 "disaggregated serving needs the paged block pool; "
                 "windowed configs keep dense per-slot rows")
+        if self._gather_fn is None or self._graft_fn is None:
+            raise ValueError(
+                "disaggregated serving tiers are single-host engines; "
+                "a mesh placement has no local pool to export/import "
+                "(compose disaggregation ACROSS gangs, not inside one)")
 
     def prefill_export(self, ids, max_new_tokens: int,
                        eos_id: Optional[int] = None,
@@ -1503,7 +1533,7 @@ class Engine:
                     slot.nblocks += 1
                 self._tables_dirty = True
                 self._update_block_gauge()
-                table = self._placement.put_tables(slot.table[:needed])
+                table = slot.table[:needed].copy()  # host plan data
 
                 def call(c, chunk, positions):
                     # the table columns this chunk's positions reach

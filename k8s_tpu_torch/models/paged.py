@@ -35,9 +35,15 @@ Conventions (the reference's):
   kv_heads]``; dequantization happens after the block gather, in f32,
   with the product cast once, exactly as in the dense path.
 
-The reference's tensor-parallel variants (``paged_kv_write_tp``,
-``paged_attention_tp``) come with the ``parallel/`` slice of the port
-(ROADMAP.md Queue 1 item 8c).
+Tensor-parallel serving (models/mesh_serve.py) splits the pool along the
+kv-head axis: each tp rank holds its head slice of every block, addressed
+by the same block tables.  Attention is independent per head, so a rank
+runs the bodies above on its slice, with no collective, as the
+reference's ``shard_map`` islands do: its model's config carries its head
+counts.  :func:`paged_kv_write_tp` and :func:`paged_attention_tp` are the
+reference's named entry points for that, which also check that what they
+are given is one rank's slice (the tests hold them against the
+reference's islands; the served rank calls the bodies directly).
 """
 
 from __future__ import annotations
@@ -132,3 +138,47 @@ def paged_attention(q, pool_k, pool_v, tables, lengths, positions, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(values.dtype), values)
     return out.reshape(B, Lc, H, D)
+
+
+# -- tensor-parallel head slices --------------------------------------------
+
+
+def _check_slice(what: str, got: int, total: int, tp: int) -> None:
+    if total % tp or got != total // tp:
+        raise ValueError(
+            f"{what}: {got} heads is not one tp rank's slice of {total} "
+            f"over tp {tp}")
+
+
+def paged_kv_write_tp(tp: int, kv_heads: int, leaf, tables, positions, x,
+                      *, scale_leaf=None, quantize: bool = False):
+    """:func:`paged_kv_write` on one tp rank's head slice of a pool whose
+    ``kv_heads`` heads are split over ``tp`` ranks: the scatter indexes
+    only (block, offset), never the head axis, so the rank writes its own
+    slice locally.  ``leaf``, ``x`` and ``scale_leaf`` must each carry
+    ``kv_heads / tp`` heads."""
+    _check_slice("pool leaf", leaf.shape[2], kv_heads, tp)
+    _check_slice("chunk K/V", x.shape[2], kv_heads, tp)
+    if scale_leaf is not None:
+        _check_slice("int8 scale leaf", scale_leaf.shape[2], kv_heads, tp)
+    return paged_kv_write(leaf, tables, positions, x, scale_leaf=scale_leaf,
+                          quantize=quantize)
+
+
+def paged_attention_tp(tp: int, heads: int, kv_heads: int, q, pool_k,
+                       pool_v, tables, lengths, positions, *, k_scale=None,
+                       v_scale=None, dtype=None,
+                       mask_value: float = MASK_VALUE):
+    """:func:`paged_attention` on one tp rank's head slice: the rank's
+    ``heads / tp`` query heads against its ``kv_heads / tp`` pool heads
+    (a GQA group never straddles two ranks), tables, lengths and
+    positions the same on every rank.  Returns the rank's ``[B, Lc,
+    heads / tp, D]`` slice for the row-sharded ``o_proj`` that follows."""
+    _check_slice("queries", q.shape[2], heads, tp)
+    for what, t in (("pool k", pool_k), ("pool v", pool_v),
+                    ("k scale", k_scale), ("v scale", v_scale)):
+        if t is not None:
+            _check_slice(what, t.shape[2], kv_heads, tp)
+    return paged_attention(q, pool_k, pool_v, tables, lengths, positions,
+                           k_scale=k_scale, v_scale=v_scale, dtype=dtype,
+                           mask_value=mask_value)

@@ -18,16 +18,34 @@ This module holds the bodies and the placement that runs them:
   on the engine's device, with no compile (eager PyTorch has no program
   to build); allocates the zero pool on the device and uploads block
   tables.
+- ``MeshPlacement`` (models/mesh_serve.py) — tensor-parallel serving over
+  a ``tp`` ring: the engine's model is tp rank 0's Megatron shard, the
+  pool holds rank 0's kv-head slice, and every call first goes to the
+  follower ranks over the plan bus (models/mp_plan.py), which replay it
+  on their own shards.
 
-The reference's ``MeshPlacement`` (params tensor-sharded over a ``tp``
-mesh, the pool head-sharded per host) comes with the ``parallel/`` slice
-of the port (ROADMAP.md Queue 1 item 8c); :func:`check_placement` refuses
-anything but the local placement.
+The seam the engine relies on: ``build_compute(config, params)`` gives
+the :class:`PagedCompute` over the placement's model; ``wrap(op, fn)``
+returns a callable with ``fn``'s signature (``op`` names it for plan
+replay); ``build_pool(compute, blocks, block_size)`` and
+``put_tables(stack)`` place the pool and the slot tables; ``info()`` is
+the mesh identity ``stats()`` reports.  Plan arguments are host (numpy)
+arrays; a body moves them to its device.
+
+On a tp ring every rank runs the same bodies; rank 0 alone holds the
+slots' generators and samples, and each fused iteration's tokens reach
+the other ranks over the ring (``Ring.broadcast``), so every rank feeds
+the tokens the chief sampled.  Only rank 0 reads results on the host.
+
+Knob: ``K8S_TPU_SERVE_MESH`` (:func:`env_mesh`; models/server.py routes
+on it).
 """
 
 from __future__ import annotations
 
 import functools
+import logging
+import os
 from typing import Callable
 
 import numpy as np
@@ -36,6 +54,21 @@ import torch
 from k8s_tpu_torch.models.decode import sample_logits_rows, spec_verify_rows
 from k8s_tpu_torch.models.kvtier import BF16
 from k8s_tpu_torch.models.transformer import Transformer
+
+log = logging.getLogger(__name__)
+
+
+def env_mesh() -> int:
+    """K8S_TPU_SERVE_MESH: number of processes in the serving mesh (0 or
+    unset = one device, LocalPlacement; >= 1 = MeshPlacement over the
+    ``torch.distributed`` world the launcher env contract brings up)."""
+    raw = os.environ.get("K8S_TPU_SERVE_MESH", "").strip()
+    try:
+        return max(0, int(raw)) if raw else 0
+    except ValueError:
+        log.warning("ignoring non-integer K8S_TPU_SERVE_MESH=%r", raw)
+        return 0
+
 
 # the host dtype of each pool leaf dtype (a bf16 leaf travels as its bits)
 _HOST_DTYPES = {torch.float32: np.dtype(np.float32),
@@ -61,14 +94,19 @@ def host_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 class PagedCompute:
-    """The engine's device bodies over one served transformer.
+    """The engine's device bodies over one served transformer (on a tp
+    ring, one rank's shard of it).
 
     Every method sees the model, the pool or dense cache, and per-call
-    plan data, and mutates the pool or cache in place."""
+    plan data, and mutates the pool or cache in place.  On a tp rank
+    other than 0 the step bodies take no generators and return nothing:
+    rank 0 samples and reads."""
 
     def __init__(self, model: Transformer):
         self.model = model
         self.config = model.config
+        self.tp = model.tp
+        self.sampler = self.tp is None or self.tp.rank == 0
 
     # ---------------------------------------------------- cache helpers
 
@@ -88,6 +126,26 @@ class PagedCompute:
         for layer, node in zip(self.model.layers, cache):
             layer.attn._cache_vars(node, batch, device)
         return cache
+
+    def pool_manifest(self, pool_blocks: int, block_size: int,
+                      tp: int = 1) -> list:
+        """The shape manifest of the whole pool (every tp rank's slices
+        together): ``[[path parts], dtype name, shape]`` per leaf, in
+        :meth:`pool_leaves` order, as the reference's init message
+        carries it.  ``tp``: the ranks this compute's kv heads are one
+        slice of."""
+        cfg = self.config
+        shape = [pool_blocks, block_size, cfg.kv_heads * tp,
+                 cfg.dims_per_head]
+        if cfg.kv_cache_dtype == "int8":
+            leaves = (("k", "int8", shape), ("v", "int8", shape),
+                      ("k_scale", "float32", shape[:3]),
+                      ("v_scale", "float32", shape[:3]))
+        else:
+            dt = str(cfg.dtype).replace("torch.", "")
+            leaves = (("k", dt, shape), ("v", dt, shape))
+        return [[[f"layer_{i}", "attn", name], dt, list(s)]
+                for i in range(cfg.layers) for name, dt, s in leaves]
 
     def build_pool(self, pool_blocks: int, block_size: int, device):
         """The zero block pool: each dense-cache K/V(/scale) leaf ``[1, S,
@@ -128,7 +186,8 @@ class PagedCompute:
         ``topks`` are per-row lists.  A row's position doubles as its
         written length.  Inactive rows ride at position -1: their writes
         are dropped before they reach the pool.  Returns the ``[k, B]``
-        tokens on the host."""
+        tokens on the host (None on a tp rank other than 0, which feeds
+        the tokens rank 0 sampled)."""
         dev = tables.device
         plan = torch.as_tensor(ints, dtype=torch.long).to(dev)
         toks, poss = plan[0], plan[1]
@@ -138,10 +197,17 @@ class PagedCompute:
             cache = self.paged_cache(pool, tables, poss.clamp_min(0))
             logits = self.model(toks[:, None], positions=poss[:, None],
                                 mode="decode", cache=cache)
-            nxt = sample_logits_rows(logits[:, -1], gens, temps, topks)
+            if self.sampler:
+                nxt = sample_logits_rows(logits[:, -1], gens, temps, topks)
+            else:
+                nxt = torch.empty_like(toks)
+            if self.tp is not None:
+                nxt = self.tp.broadcast(nxt)
             out.append(nxt)
             toks = torch.where(act, nxt, toks)
             poss = torch.where(act, poss + 1, poss)
+        if not self.sampler:
+            return None
         return torch.stack(out).cpu().numpy()
 
     def spec_step(self, pool, tables, chunk, ints, gens, temps, topks,
@@ -157,7 +223,8 @@ class PagedCompute:
         queries attend nothing.  Accept/reject runs row-wise in
         :func:`spec_verify_rows` with the per-slot generators.  ``ints``
         packs [poss, widths] as a ``[2, B]`` host array.  Returns ``(emit
-        [B, W], n_emit [B])`` on the host, from one read."""
+        [B, W], n_emit [B])`` on the host, from one read (None on a tp
+        rank other than 0: no later call of the rank reads them)."""
         dev = tables.device
         plan = torch.as_tensor(ints, dtype=torch.long).to(dev)
         poss, widths = plan[0], plan[1]
@@ -168,6 +235,8 @@ class PagedCompute:
         cache = self.paged_cache(pool, tables, poss.clamp_min(0))
         logits = self.model(chunk, positions=cpos, mode="decode",
                             cache=cache)
+        if not self.sampler:
+            return None
         emit, n_emit = spec_verify_rows(logits, chunk, gens, temps, topks,
                                         ints[1].tolist())
         out = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
@@ -175,10 +244,12 @@ class PagedCompute:
 
     def prefill_paged(self, pool, table, chunk, positions):
         """One chunked decode-mode prefill call writing straight into the
-        request's pool blocks through its ``[blocks]`` table.  Written
-        length before this chunk = its first position (chunks land in
-        order).  Returns the last position's ``[1, V]`` logits."""
-        dev = table.device
+        request's pool blocks through its ``[blocks]`` table (a host array
+        or a tensor).  Written length before this chunk = its first
+        position (chunks land in order).  Returns the last position's
+        ``[1, V]`` logits."""
+        dev = pool[0]["k"].device
+        table = torch.as_tensor(table, dtype=torch.long).to(dev)
         chunk = torch.as_tensor(chunk, dtype=torch.long).to(dev)
         positions = torch.as_tensor(positions, dtype=torch.long).to(dev)
         cache = self.paged_cache(pool, table[None, :], positions[:, 0])
@@ -278,8 +349,14 @@ class LocalPlacement:
     """Single-device placement: each body runs eagerly on the engine's
     device under ``torch.inference_mode()``."""
 
+    is_mesh = False
+
     def __init__(self, device):
         self.device = torch.device(device)
+
+    def build_compute(self, config, params) -> PagedCompute:
+        """The bodies over the whole served model on this device."""
+        return PagedCompute(Transformer(config, params, device=self.device))
 
     def info(self) -> dict:
         """Mesh identity for stats(): a single-device engine is a
@@ -287,8 +364,11 @@ class LocalPlacement:
         return {"num_processes": 1, "mesh_shape": {}, "tp_degree": 1,
                 "placement": "local"}
 
-    def wrap(self, fn: Callable) -> Callable:
-        """``fn`` run under ``torch.inference_mode()``."""
+    def wrap(self, op: str, fn: Callable) -> Callable:
+        """``fn`` run under ``torch.inference_mode()`` (``op`` names the
+        body for plan replay on a mesh; unused here)."""
+        del op
+
         @functools.wraps(fn)
         def run(*args, **kwargs):
             with torch.inference_mode():
@@ -308,13 +388,14 @@ class LocalPlacement:
         pass
 
 
-def check_placement(placement) -> LocalPlacement:
-    """The placement an engine may run on: only :class:`LocalPlacement`
-    is ported."""
-    if not isinstance(placement, LocalPlacement):
-        raise NotImplementedError(
-            f"placement {type(placement).__name__} is not ported: mesh "
-            "serving (MeshPlacement, K8S_TPU_SERVE_MESH) comes with the "
-            "parallel/ slice of the port (ROADMAP.md Queue 1 item 8c); use "
-            "LocalPlacement")
+def check_placement(placement):
+    """The placement an engine may run on: a :class:`LocalPlacement`, or a
+    ``mesh_serve.MeshPlacement`` (tensor-parallel serving over a tp
+    ring).  Anything else is refused by name."""
+    from k8s_tpu_torch.models.mesh_serve import MeshPlacement
+
+    if not isinstance(placement, (LocalPlacement, MeshPlacement)):
+        raise TypeError(
+            f"placement {type(placement).__name__} is neither a "
+            "LocalPlacement nor a mesh_serve.MeshPlacement")
     return placement

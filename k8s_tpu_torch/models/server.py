@@ -72,8 +72,22 @@ Tiered KV memory and disaggregated serving, as in the reference:
 What differs from the reference: the manifest carries the sampler
 generator's state instead of a threefry key (models/engine.py).  The hop
 is a ``kv_migrate`` span in the request's trace and carries its
-``trace_id`` on the wire, as the reference's does.  Mesh serving
-(``K8S_TPU_SERVE_MESH``) is not ported yet and is refused by name.
+``trace_id`` on the wire, as the reference's does.
+
+Multi-process serving, as in the reference: with ``K8S_TPU_SERVE_MESH=N``
+every pod of an N-replica serving gang runs THIS binary.  The launcher
+env contract brings up ``torch.distributed`` (launcher/bootstrap.py),
+every process loads the same artifact, replica 0 serves HTTP as the chief
+over a ``mesh_serve.MeshPlacement`` (params split Megatron-style over
+the N processes, the KV pool split by kv head, the plan bus
+on ``K8S_TPU_SERVE_PLAN_PORT``), and the other replicas replay the
+chief's per-step plan (``mesh_serve.follower_loop``), exiting non-zero if
+the chief dies so the gang restarts whole.  One deliberate difference: at
+tp > 1 the chief holds only a shard, so the exclusive lane, which runs
+the whole model on one device, cannot run there; ``LmServer`` refuses
+``slots=0``, ``batch_sampling=False`` and ``batch_spec=False`` under such
+a placement at construction, and a speculative request with a one-token
+prompt gets the batched lane's 400.  At tp 1 every lane runs.
 """
 
 from __future__ import annotations
@@ -220,21 +234,14 @@ def _emitted(toks, eos) -> int:
     return len(toks)
 
 
-def _refuse_later_slices() -> None:
-    """The serving features of later slices, refused by name when their
-    knobs are set."""
-    if engine_lib._env_int("K8S_TPU_SERVE_MESH", 0) > 0:
-        raise NotImplementedError(
-            "K8S_TPU_SERVE_MESH: mesh serving comes with the parallel/ "
-            "slice of the port (ROADMAP.md Queue 1 item 8c); unset it to "
-            "serve on one device")
-
-
 class LmServer:
     """Loads a serving artifact (or takes config + params directly) once
     onto ``device``; thread-safe generate() through the
     continuous-batching engine (``slots`` > 0, default
-    ``K8S_TPU_SERVE_SLOTS`` or 4) or single-flight (``slots=0``)."""
+    ``K8S_TPU_SERVE_SLOTS`` or 4) or single-flight (``slots=0``).
+    ``placement``: the engine's (None: the whole model on ``device``; a
+    ``mesh_serve.MeshPlacement`` makes this server the chief of a
+    tensor-parallel gang, on the placement's device)."""
 
     def __init__(self, train_dir: Optional[str] = None,
                  kv_cache: str = "model", param_dtype: str = "model",
@@ -248,9 +255,10 @@ class LmServer:
                  kvxfer_port: Optional[int] = None,
                  kvxfer_int8: Optional[bool] = None,
                  spill_mb: Optional[int] = None,
-                 kvxfer_dedup: Optional[bool] = None, device="cuda"):
-        _refuse_later_slices()
-        self.device = resolve_device(device)
+                 kvxfer_dedup: Optional[bool] = None, placement=None,
+                 device="cuda"):
+        self.device = placement.device if placement is not None \
+            else resolve_device(device)
         if train_dir is not None:
             config, params = serving.load_for_serving(
                 train_dir, kv_cache=kv_cache, param_dtype=param_dtype,
@@ -272,11 +280,23 @@ class LmServer:
         if batch_spec is None:
             batch_spec = engine_lib.env_batch_spec()
         self.batch_spec = bool(batch_spec)
+        # at tp > 1 the chief holds one shard: the exclusive lane (the
+        # whole model on one device) cannot run, so nothing may route there
+        self._sharded = placement is not None and placement.is_mesh \
+            and placement.tp > 1
+        if self._sharded and (slots == 0 or not self.batch_sampling
+                              or not self.batch_spec):
+            raise ValueError(
+                f"tp {placement.tp} mesh serving runs every request on the "
+                "batched lanes: the exclusive lane (slots=0, "
+                "batch_sampling=False or batch_spec=False; --slots 0, "
+                "--batch-sampling 0, --batch-spec 0) needs the whole model "
+                "on one device, and the chief holds one shard")
         if slots > 0:
             self.engine: Optional[engine_lib.Engine] = engine_lib.Engine(
                 config, params, slots=slots, queue_limit=queue_limit,
                 prefix_blocks=prefix_blocks, metrics=self.metrics,
-                spill_mb=spill_mb, device=self.device)
+                spill_mb=spill_mb, placement=placement, device=self.device)
             # the exclusive lane runs on the engine's model
             self.model = self.engine.model
         else:
@@ -598,11 +618,12 @@ class LmServer:
         requests ride it unless ``batch_spec`` routes them there, or the
         engine has no paged pool to write-mask (windowed configs), or the
         prompt is too short to draft from (the exclusive lane refuses
-        that: the same 400 from one lane).  Either routing emits the
+        that: the same 400 from one lane; a tp > 1 mesh sends it to the
+        batched lane, whose 400 is the same).  Either routing emits the
         same tokens at a fixed seed."""
         spec_batched = (parsed.speculative > 0 and self.batch_spec
                         and self.engine is not None and self.engine.paged
-                        and parsed.ids.size >= 2)
+                        and (parsed.ids.size >= 2 or self._sharded))
         use_batched = (parsed.speculative == 0 or spec_batched) and (
             parsed.temperature == 0.0 or self.batch_sampling)
         if parsed.kv_src and not parsed.kv_dest \
@@ -907,11 +928,39 @@ def main(argv=None) -> int:
                    "blocks the receiver already holds in-tree or "
                    "in-spill (default K8S_TPU_KVXFER_DEDUP or 1; "
                    "legacy peers interoperate either way)")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu (the plain versions)")
+    p.add_argument("--device", default=None,
+                   help="cuda or cpu (the plain versions); default "
+                   "K8S_TPU_PLATFORM, else cuda")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    lm = LmServer(args.train_dir, kv_cache=args.kv_cache,
+    from k8s_tpu_torch.launcher import bootstrap
+    from k8s_tpu_torch.models import placement as placement_lib
+
+    device = bootstrap.default_device(args.device)
+    mesh_kw: dict = {"train_dir": args.train_dir, "device": device}
+    if placement_lib.env_mesh() > 0:
+        # a tensor-parallel serving gang: every pod runs this binary; the
+        # launcher env contract brings up torch.distributed, followers
+        # replay the chief's batch plan, and the chief serves HTTP over
+        # the mesh placement.  Every process loads the same artifact (to
+        # the host; each rank moves its own shard), so no parameter
+        # crosses the wire.
+        from k8s_tpu_torch.models import mesh_serve
+
+        lcfg = bootstrap.initialize_distributed(device=device)
+        dev = bootstrap.process_device()
+        config, params = serving.load_for_serving(
+            args.train_dir, kv_cache=args.kv_cache,
+            param_dtype=args.param_dtype, device="cpu")
+        if lcfg.num_processes > 1 and lcfg.process_id != 0:
+            host = lcfg.coordinator_address.rsplit(":", 1)[0] \
+                if lcfg.coordinator_address else "127.0.0.1"
+            return mesh_serve.follower_loop(config, params,
+                                            chief_host=host, device=dev)
+        mesh_kw = {"config": config, "params": params,
+                   "placement": mesh_serve.MeshPlacement.from_env(
+                       config, device=dev)}
+    lm = LmServer(kv_cache=args.kv_cache,
                   param_dtype=args.param_dtype,
                   default_max_new_tokens=args.max_new_tokens,
                   slots=args.slots, queue_limit=args.queue,
@@ -925,7 +974,7 @@ def main(argv=None) -> int:
                   else bool(args.kvxfer_int8),
                   spill_mb=args.spill_mb,
                   kvxfer_dedup=None if args.kvxfer_dedup is None
-                  else bool(args.kvxfer_dedup), device=args.device)
+                  else bool(args.kvxfer_dedup), **mesh_kw)
     httpd = serve(lm, args.host, args.port)
     host, port = httpd.server_address[:2]
     log.info("serving %s on http://%s:%d (POST /v1/generate)",

@@ -42,6 +42,16 @@ the served weights (the reference serves it f32), the expert stacks are
 held in ``config.dtype`` like every projection, and
 ``forward(aux_losses=[...])`` gathers each layer's load-balance loss.
 
+Tensor-parallel serving (models/mesh_serve.py): ``Transformer(...,
+tp=ring)`` is one tp rank of a served model, built from its Megatron
+shard (``parallel.sharding.serve_rank_config`` / ``shard_serve_params``):
+its heads, kv heads and ffn width are the rank's, and the partial sums
+``o_proj`` and ``down_proj`` produce are summed over the ``tp``
+``parallel.collectives.Ring`` right after each (neither has a bias, so
+nothing is counted twice).  This is where the reference's GSPMD inserts
+its per-layer psums.  RoPE, the norms (the RMSNorm kernel), the embedding
+and the f32 tied head stay replicated.
+
 Sequence parallelism (``use_ring_attention``, training only): with
 ``forward(mesh=...)`` each rank runs its chunk of the sequence (RoPE at
 the chunk's global positions) and attention goes through the ``sp``
@@ -205,9 +215,10 @@ def _plain_attention(q, k, v, causal: bool, window: int | None = None):
 
 
 class Attention(nn.Module):
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, tp=None):
         super().__init__()
         cfg = self.config = config
+        self.tp = tp  # the served tp rank's Ring (None: not sharded)
         D = cfg.dims_per_head
         lin = lambda i, o: nn.Linear(i, o, bias=False)  # noqa: E731
         self.q_proj = lin(cfg.hidden, cfg.heads * D)
@@ -424,14 +435,24 @@ class Attention(nn.Module):
             else:
                 out = _plain_attention(q, k, v, causal,
                                        window=cfg.window_size)
-        return _linear(out.reshape(B, L, cfg.heads * D).to(cfg.dtype),
-                       self.o_proj, cfg.dtype)
+        return _tp_sum(self.tp, _linear(
+            out.reshape(B, L, cfg.heads * D).to(cfg.dtype), self.o_proj,
+            cfg.dtype))
+
+
+def _tp_sum(tp, y):
+    """A row-sharded projection's partial sums, summed over the served tp
+    ring (the identity when the model is not sharded)."""
+    if tp is None or tp.size == 1:
+        return y
+    return tp.all_reduce(y)
 
 
 class MLP(nn.Module):
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, tp=None):
         super().__init__()
         self.config = config
+        self.tp = tp  # the served tp rank's Ring (None: not sharded)
         self.gate_proj = nn.Linear(config.hidden, config.ffn_hidden,
                                    bias=False)
         self.up_proj = nn.Linear(config.hidden, config.ffn_hidden, bias=False)
@@ -442,8 +463,8 @@ class MLP(nn.Module):
         dt = self.config.dtype
         x = x.to(dt)
         gate = _linear(x, self.gate_proj, dt)
-        return _linear(F.silu(gate) * _linear(x, self.up_proj, dt),
-                       self.down_proj, dt)
+        return _tp_sum(self.tp, _linear(
+            F.silu(gate) * _linear(x, self.up_proj, dt), self.down_proj, dt))
 
 
 class Block(nn.Module):
@@ -452,11 +473,11 @@ class Block(nn.Module):
     ``num_experts > 0``.  Returns ``(x, aux)``, ``aux`` the MoE layer's
     load-balance loss or None."""
 
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, tp=None):
         super().__init__()
         fused = config.use_fused_norm
         self.attn_norm = RMSNorm(config.hidden, fused=fused)
-        self.attn = Attention(config)
+        self.attn = Attention(config, tp)
         self.mlp_norm = RMSNorm(config.hidden, fused=fused)
         if config.num_experts > 0:
             self.moe_mlp = MoeMLP(
@@ -465,7 +486,7 @@ class Block(nn.Module):
                 capacity_factor=config.expert_capacity_factor,
                 dtype=config.dtype)
         else:
-            self.mlp = MLP(config)
+            self.mlp = MLP(config, tp)
 
     def forward(self, x, positions, mode: str = "train", cache=None,
                 rings=None):
@@ -500,18 +521,20 @@ class Transformer(nn.Module):
     random one).  Served (default): weights are placed on ``device`` in the
     dtype the forward uses, sharing the given tensors where they already
     match, and frozen.  ``trainable=True``: f32 copies as trainable
-    parameters, cast inside each forward."""
+    parameters, cast inside each forward.  ``tp``: the Ring of a served
+    tp rank whose ``params`` are its shard (see the module docstring)."""
 
     def __init__(self, config: TransformerConfig, params: dict, *,
-                 device="cuda", trainable: bool = False):
+                 device="cuda", trainable: bool = False, tp=None):
         super().__init__()
         self.config = config
         self.trainable = trainable
+        self.tp = tp
         with torch.device("meta"):
             self.embedding = nn.Parameter(
                 torch.empty(config.vocab_size, config.hidden))
             self.layers = nn.ModuleList(
-                Block(config) for _ in range(config.layers))
+                Block(config, tp) for _ in range(config.layers))
             self.final_norm = RMSNorm(config.hidden,
                                       fused=config.use_fused_norm)
         dev = resolve_device(device)

@@ -12,7 +12,9 @@ rank runs its own program, and the communication goes through a
   ring's);
 - ``all_to_all(x)``: block ``j`` of ``x``'s first dim goes to rank ``j``;
 - ``all_reduce(x)`` (a sum) and ``all_gather(x)`` (stacked in rank
-  order), which the tensor-parallel pair below needs.
+  order), which the tensor-parallel pair below needs;
+- ``broadcast(x)``: rank 0's ``x`` on every rank (the tokens a served tp
+  rank 0 samples, models/placement.py).
 
 Three transports: :class:`Ring` itself is the one-rank ring (every
 collective is the identity); :class:`ProcessGroupRing` runs over a
@@ -83,6 +85,11 @@ class Ring:
         """``[size, *x.shape]``: every rank's ``x`` in rank order."""
         return x[None]
 
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank (each rank passes a tensor of the
+        same shape and type; only rank 0's values are read)."""
+        return x
+
 
 class ProcessGroupRing(Ring):
     """A ring over the ranks of a ``torch.distributed`` process group, in
@@ -140,6 +147,15 @@ class ProcessGroupRing(Ring):
         outs = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(outs, x, group=self.group)
         return torch.stack(outs)
+
+    def broadcast(self, x):
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return x
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, self._peers[0], group=self.group)
+        return out
 
 
 class _Aborted(RuntimeError):
@@ -207,6 +223,13 @@ class ThreadRing(Ring):
         for j in range(self.size):
             self._send(x, j)
         return torch.stack([self._recv(i) for i in range(self.size)])
+
+    def broadcast(self, x):
+        if self.rank == 0:
+            for j in range(1, self.size):
+                self._send(x, j)
+            return x
+        return self._recv(0)
 
     @staticmethod
     def run(size: int, fn: Callable, *, timeout: float = 600.0) -> list:

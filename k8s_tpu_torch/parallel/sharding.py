@@ -1,7 +1,7 @@
 """Sharding rules: logical parameter axes onto mesh axes, applied with
 FSDP2 (``torch.distributed.fsdp.fully_shard``).
 
-Port of ``k8s_tpu/parallel/sharding.py:30-141``.  The spec functions are
+Port of ``k8s_tpu/parallel/sharding.py``.  The spec functions are
 pure functions of names and shapes and return the reference's
 PartitionSpecs as tuples (``(None, "fsdp")`` for ``P(None, "fsdp")``):
 a parameter shards its largest dimension divisible by the fsdp size,
@@ -12,12 +12,17 @@ replicated spec keeps FSDP2's default ``Shard(0)`` (padded where the
 size does not divide): the gathered parameter and the reduced gradient
 are the same, only where its bytes rest differs.
 
-The serving tensor-parallel specs (``serve_tp_spec``, ``serve_pool_spec``)
-come with the mesh-serving slice of the port (ROADMAP.md Queue 1 item 8c).
+The serving tensor-parallel specs (:func:`serve_tp_spec`,
+:func:`serve_pool_spec`, :func:`check_serve_tp_config`) are the
+reference's Megatron split written in the port's state-dict layout, and
+:func:`shard_serve_params` cuts a tp rank's shard out of a state dict, as
+the reference's ``MeshPrograms.globalize`` places each device's part
+(models/mesh_serve.py serves over them).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import numpy as np
@@ -169,3 +174,112 @@ def shard_params(module, logical_axes: Mapping, mesh,
         name: logical_to_spec(logical_axes[name], rules,
                               shape=tuple(p.shape), fsdp_size=n)
         for name, p in module.named_parameters()}, mesh)
+
+
+# -- serving tp ---------------------------------------------------------------
+
+
+def serve_tp_spec(name: str, shape) -> tuple:
+    """Tensor-parallel spec of one served-transformer tensor, keyed on its
+    state-dict name: the Megatron split.  ``q/k/v_proj.weight`` ``[heads
+    * D, hidden]`` and ``gate/up_proj.weight`` ``[ffn, hidden]`` shard dim
+    0 (contiguous head or ffn blocks), ``o_proj.weight`` ``[hidden, heads
+    * D]`` and ``down_proj.weight`` ``[hidden, ffn]`` shard dim 1 (their
+    products are per-rank partial sums, summed over tp after each), and
+    everything on the replicated hidden stream (the embedding, the norm
+    scales) is replicated (``()``).  The embedding stays whole on every
+    rank: the tied head multiplies a replicated hidden, and a decode
+    step's activations are ``[B, 1, ...]``, so replication costs memory
+    where sharding would cost a collective per token."""
+    ndim = len(tuple(shape))
+    if ndim != 2:
+        return ()
+    leaf = name.rsplit(".", 2)
+    proj = leaf[-2] if len(leaf) >= 2 and leaf[-1] == "weight" else ""
+    if proj in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"):
+        return ("tp", None)
+    if proj in ("o_proj", "down_proj"):
+        return (None, "tp")
+    return ()
+
+
+def serve_tp_param_specs(params: Mapping) -> dict:
+    """``{name: spec}`` of :func:`serve_tp_spec` for a served
+    transformer's state dict."""
+    return {name: serve_tp_spec(name, t.shape) for name, t in params.items()}
+
+
+def serve_pool_spec(shape) -> tuple:
+    """Spec of one KV block-pool leaf: the kv-head axis is the tp axis,
+    so each rank holds its head slice of every block and the same block
+    tables address every rank's slice.  ``[N, bs, kv_heads, D]`` K/V
+    leaves and ``[N, bs, kv_heads]`` int8 scale leaves both shard dim 2;
+    anything else replicates."""
+    ndim = len(tuple(shape))
+    if ndim == 4:
+        return (None, None, "tp", None)
+    if ndim == 3:
+        return (None, None, "tp")
+    return ()
+
+
+def serve_pool_specs(pool) -> list:
+    """The spec of every leaf of the engine's pool (a list of per-layer
+    dicts of tensors), in its structure."""
+    return [{k: serve_pool_spec(v.shape) for k, v in node.items()}
+            for node in pool]
+
+
+def check_serve_tp_config(config, tp: int) -> None:
+    """The divisibility contract serving tensor parallelism needs: every
+    sharded dimension must split evenly over ``tp`` or a rank would hold
+    a ragged slice."""
+    problems = []
+    if config.heads % tp:
+        problems.append(f"heads {config.heads} % tp {tp}")
+    if config.kv_heads % tp:
+        problems.append(f"kv_heads {config.kv_heads} % tp {tp}")
+    if config.ffn_hidden % tp:
+        problems.append(f"ffn_hidden {config.ffn_hidden} % tp {tp}")
+    if getattr(config, "num_experts", 0):
+        problems.append("MoE serving is single-host for now "
+                        "(expert params ride the ep axis, not tp)")
+    if problems:
+        raise ValueError(
+            "config does not shard over tp=%d: %s"
+            % (tp, "; ".join(problems)))
+
+
+def serve_rank_config(config, tp: int):
+    """The config of one tp rank's served model: ``heads / tp``,
+    ``kv_heads / tp`` and ``ffn_hidden / tp``, with ``head_dim`` set so
+    the per-head width stays the full model's.  Contiguous head blocks
+    keep GQA groups whole: rank r's query heads are served by rank r's kv
+    heads.  At tp 1 the config itself."""
+    check_serve_tp_config(config, tp)
+    if tp == 1:
+        return config
+    return dataclasses.replace(
+        config, heads=config.heads // tp, kv_heads=config.kv_heads // tp,
+        ffn_hidden=config.ffn_hidden // tp, head_dim=config.dims_per_head)
+
+
+def shard_serve_params(state_dict: Mapping, rank: int, tp: int) -> dict:
+    """Tp rank ``rank``'s shard of a served transformer's state dict: each
+    tensor narrowed to the rank's block of its :func:`serve_tp_spec` dim
+    (contiguous; a dim-0 block is a view of the whole tensor, a dim-1
+    block a copy), replicated tensors shared as they are."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside tp {tp}")
+    out = {}
+    for name, t in state_dict.items():
+        spec = serve_tp_spec(name, t.shape)
+        if "tp" in spec and tp > 1:
+            dim = spec.index("tp")
+            if t.shape[dim] % tp:
+                raise ValueError(f"{name} {tuple(t.shape)}: dim {dim} does "
+                                 f"not divide over tp {tp}")
+            n = t.shape[dim] // tp
+            t = t.narrow(dim, rank * n, n).contiguous()
+        out[name] = t
+    return out

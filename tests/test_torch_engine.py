@@ -591,7 +591,11 @@ class TestLifecycle:
 
     def test_spill_tier_and_mesh_refused(self, params, monkeypatch):
         """The spill tier is ported (``K8S_TPU_SERVE_SPILL_MB`` turns it
-        on and stats() reports it); mesh placements stay refused."""
+        on and stats() reports it); a placement that is neither local nor
+        a mesh is refused, and under a mesh the spill tier stays off, as
+        in the reference (no local pool to export from)."""
+        from k8s_tpu_torch.models import mesh_serve
+
         monkeypatch.setenv("K8S_TPU_SERVE_SPILL_MB", "16")
         eng = Engine(configs("default")[1], params[1], slots=1,
                      device="cpu")
@@ -601,8 +605,16 @@ class TestLifecycle:
             assert eng._spill.budget_bytes == 16 << 20
         finally:
             eng.shutdown()
+        eng = Engine(configs("default")[1], params[1], slots=1,
+                     placement=mesh_serve.MeshPlacement(
+                         configs("default")[1], device="cpu"))
+        try:
+            assert not eng.stats()["spill_enabled"]
+            assert eng.stats()["placement"] == "mesh"
+        finally:
+            eng.shutdown()
         monkeypatch.delenv("K8S_TPU_SERVE_SPILL_MB")
-        with pytest.raises(NotImplementedError, match="parallel/"):
+        with pytest.raises(TypeError, match="neither a LocalPlacement"):
             Engine(configs("default")[1], params[1], slots=1, device="cpu",
                    placement=object())
 

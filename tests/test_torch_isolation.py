@@ -53,7 +53,8 @@ def test_scan_sees_the_whole_package():
                  ("models", "moe.py"), ("models", "dataset.py"),
                  ("models", "resnet.py"), ("models", "vit.py"),
                  ("models", "mnist.py"), ("models", "mnist_data.py"),
-                 ("dist_mnist.py",)):
+                 ("models", "mp_plan.py"), ("models", "mesh_serve.py"),
+                 ("models", "mp_serve.py"), ("dist_mnist.py",)):
         assert os.path.join("k8s_tpu_torch", *part) in rel
 
 

@@ -285,8 +285,16 @@ def test_windowed_config_refuses_paged_decode():
 
 
 def test_only_the_local_placement_is_ported():
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    """The engine takes the local placement and the mesh one (tensor-
+    parallel serving); anything else is refused by name."""
+    from k8s_tpu_torch.models import mesh_serve
+
+    with pytest.raises(TypeError, match="neither a LocalPlacement"):
         placement.check_placement(object())
     local = placement.LocalPlacement("cpu")
     assert placement.check_placement(local) is local
     assert local.info()["placement"] == "local"
+    mesh = mesh_serve.MeshPlacement(tt.tiny_test(), device="cpu")
+    assert placement.check_placement(mesh) is mesh
+    assert mesh.info() == {"num_processes": 1, "mesh_shape": {"tp": 1},
+                           "tp_degree": 1, "placement": "mesh"}

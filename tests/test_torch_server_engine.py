@@ -353,12 +353,14 @@ def test_metrics_carry_the_engine_families(servers):
 
 @pytest.mark.parametrize("env,match", [
     ({"K8S_TPU_SERVE_ROLE": "prefill"}, ("role", "prefill")),
-    ({"K8S_TPU_SERVE_MESH": "2"}, "parallel/"),
+    ({"K8S_TPU_SERVE_MESH": "2"}, ("placement", "local")),
     ({"K8S_TPU_SERVE_SPILL_MB": "64"}, ("spill_enabled", True)),
 ], ids=["role", "mesh", "spill"])
 def test_later_slices_refused_by_name(model, monkeypatch, env, match):
-    """Mesh serving is still refused by name; the role and spill knobs
-    are ported: the server constructs and reports them in /healthz."""
+    """The role, spill and mesh knobs are all ported: the server
+    constructs and reports them in /healthz.  ``K8S_TPU_SERVE_MESH`` is
+    read by the server's entry point (``main`` routes the gang there); an
+    ``LmServer`` built in process without a placement serves locally."""
     _, ct, _, sd = model
     for k, v in env.items():
         monkeypatch.setenv(k, v)

@@ -2,7 +2,9 @@
 under the operator's env contract, and ``python tests/torch_world.py fsdp
 IO_DIR`` is the worker of the sharded-step tests.
 
-``spawn`` builds each worker's env with the reference's own gang helpers
+``spawn`` builds each worker's env (``gang_envs``, which the serving
+gang tests also use to start servers that outlive a run) with the
+reference's own gang helpers
 (``k8s_tpu.e2e.multiprocess.build_gang_tfjob`` and ``localhost_env``:
 ``controller_v2.tpu_config.gen_env_vars`` with the coordinator mapped to
 loopback), adds ``K8S_TPU_PLATFORM=cpu`` as ``run_gang`` does, and runs
@@ -35,22 +37,32 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def spawn(n: int, argv: list, *, num_slices: int = 1, extra_env=None,
-          timeout: float = 120.0) -> tuple[list, list]:
-    """Run ``argv`` (after ``python``) as an n-process gang; returns each
-    worker's exit code and output.  The first failure terminates the
-    rest, as the operator restarts a whole gang."""
+def gang_envs(n: int, *, num_slices: int = 1, extra_env=None) -> list:
+    """Each of an n-worker gang's envs: the operator's (``localhost_env``
+    of a TFJob from ``build_gang_tfjob``), on the CPU, the repository on
+    the path, ``extra_env`` last."""
     from k8s_tpu.e2e import multiprocess
 
     tfjob = multiprocess.build_gang_tfjob(n, multiprocess.free_port(),
                                           num_slices=num_slices)
-    procs, logs = [], []
+    envs = []
     for i in range(n):
         env = dict(os.environ)
         env.update(multiprocess.localhost_env(tfjob, "worker", i))
         env.update(K8S_TPU_PLATFORM="cpu", OMP_NUM_THREADS="1",
                    PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
         env.update(extra_env or {})
+        envs.append(env)
+    return envs
+
+
+def spawn(n: int, argv: list, *, num_slices: int = 1, extra_env=None,
+          timeout: float = 120.0) -> tuple[list, list]:
+    """Run ``argv`` (after ``python``) as an n-process gang; returns each
+    worker's exit code and output.  The first failure terminates the
+    rest, as the operator restarts a whole gang."""
+    procs, logs = [], []
+    for env in gang_envs(n, num_slices=num_slices, extra_env=extra_env):
         log = tempfile.TemporaryFile()
         logs.append(log)
         procs.append(subprocess.Popen([sys.executable, *argv], env=env,
