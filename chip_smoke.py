@@ -90,9 +90,21 @@ Phases, each fatal on failure:
    the same layout cut to 2 layers trains 3 steps (B1 L2048) on batches
    ``TokenDataset`` reads from a corpus ``write_text_corpus`` wrote, exact
    K1-K4 launches; ``data``: ``train_lm.main --data_dir`` at gpt2-small, 6
-   steps with checkpoints and a held-out eval every 3, exact launches,
-   then a run resumed from step 3 whose losses equal the uninterrupted
-   run's.
+   steps with checkpoints and a held-out eval every 3 through the native
+   window reader (its counter covers the windows consumed), exact
+   launches, then a run resumed from step 3 whose losses equal the
+   uninterrupted run's.
+7b. native reader and profiler hooks: ``native_reader`` writes 512M
+   uint16 tokens (1 GiB, 64 shards) and reads the same 20,000 shuffled
+   windows of 1024 through the native and the mmap reader in turns
+   (equal bytes, windows/s and MB/s each), trains gpt2-small 6 steps on
+   it through ``train_lm.main --data_dir`` on each reader (losses equal
+   within 1e-4, exact K2-K4) and with ``--fused_ce on --grad_accum 2
+   --remat`` (step 1 within 1e-3, exact launches, peak memory);
+   ``profile_hook`` runs ``setup_observability`` / 2 gpt2-small steps /
+   ``stop_observability`` in a child process under ``JAX_PROFILE_DIR``
+   (and the two hooks without a counterpart), and the trace's K2-K4
+   kernel events must equal the child's launch counters.
 8. vision and dist_mnist: ``vision_parity`` (``resnet18_thin`` with both
    stems, ``vit_tiny_test`` with the RMSNorm kernel, ``MnistCNN``, f32:
    logits, one training step's loss and gradients, ResNet's BatchNorm
@@ -2959,12 +2971,24 @@ DATA_ARGS = ["--preset", "gpt2-small", "--batch_size", "8", "--seq_len",
              "--log_every", "1", "--device", "cuda"]
 
 
-def data_path(torch, train_lm, common, dataset):
+def readahead_bound(consumed: int, streams: int, B: int = 8) -> int:
+    """The most windows a ``train_lm`` run's readers can deliver: the
+    windows its steps and evals consumed, plus, on each of its ``streams``
+    (the training stream and one for each eval), what the prefetch stage
+    read ahead: its 2 queued batches, the one it holds and the one it draws
+    before it sees the stop."""
+    return consumed + streams * 4 * B
+
+
+def data_path(torch, train_lm, common, dataset, native_dl):
     """``train_lm.main`` at gpt2-small (full width and depth) reading a
     token-shard corpus through ``--data_dir`` (``write_text_corpus`` into
     a temporary directory, ~600 KB of byte-tokenized text): 6 steps,
     checkpoints every 3, a held-out eval every 3.  Exact launch counts
     (K2 a layer per forward, training and eval; K3, K4 a layer per step).
+    The windows come through the native reader (``reader="auto"``): its
+    counter covers the windows the run consumed, and at most the prefetch
+    stage's read-ahead more (``readahead_bound``).
     Then a second run stops at step 3 and a third resumes it to 6: the
     resumed run's step 4-6 losses equal the uninterrupted run's (within
     1e-4: the same windows through the same deterministic kernels; a
@@ -2984,11 +3008,13 @@ def data_path(torch, train_lm, common, dataset):
                 if name == "full":
                     torch.cuda.reset_peak_memory_stats()
                     common.reset_launches()
+                    native_dl.reset_delivered()
                 t0 = time.perf_counter()
                 rc = train_lm.main(args)
                 torch.cuda.synchronize()
                 if name == "full":
                     launches = common.launches()
+                    delivered = native_dl.delivered()
                     wall_s = time.perf_counter() - t0
                     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
                 if rc != 0:
@@ -3013,6 +3039,12 @@ def data_path(torch, train_lm, common, dataset):
     if launches != want or sorted(full["loss"]) != list(range(1, steps + 1)):
         fail(f"data path launches {launches} (expected {want}, {evals} "
              f"evals), steps {sorted(full['loss'])}")
+    consumed = 8 * (steps + 2 * evals)
+    most = readahead_bound(consumed, 1 + evals)
+    if not consumed <= delivered <= most:
+        fail(f"data path: the native reader delivered {delivered} windows, "
+             f"the run consumed {consumed} (at most {most} with the "
+             "read-ahead): another reader fed it")
     diffs = {s: abs(res["loss"][s] - full["loss"][s])
              for s in range(4, steps + 1)}
     if sorted(res["loss"]) != list(range(1, steps + 1)) or \
@@ -3031,10 +3063,324 @@ def data_path(torch, train_lm, common, dataset):
            "losses": full["loss"], "eval_losses": full["eval"],
            "resumed_losses": res["loss"], "resume_abs_diff": diffs,
            "resume_tol": 1e-4, "max_memory_allocated_gib": peak_gib,
+           "native_windows": {"delivered": delivered, "consumed": consumed,
+                              "most": most},
            "launches": launches, "expected_launches": want}
     emit(rec)
     REPORT["data"] = rec
     return launches
+
+
+# -- the native window reader and the profiler hooks -------------------------
+
+
+CORPUS_SEED = 15
+CORPUS_TOKENS = 512 << 20   # uint16: 1 GiB on disk
+CORPUS_SHARD = 8 << 20      # 64 shards of 16 MiB
+GPT2_VOCAB = 32000          # the gpt2-small preset's vocabulary
+READ_WINDOWS, READ_L = 20_000, 1024
+
+
+def write_corpus(dataset, root: str) -> tuple[str, dict, float]:
+    """512M uint16 tokens drawn from CORPUS_SEED below gpt2-small's
+    vocabulary, written by ``write_token_shards`` as 64 checksummed
+    shards (~2 GiB of host memory at the peak: the draw and the writer's
+    cast).  Returns the directory, the manifest and the seconds."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    data = os.path.join(root, "corpus")
+    toks = np.random.default_rng(CORPUS_SEED).integers(
+        0, GPT2_VOCAB, CORPUS_TOKENS, dtype=np.uint16)
+    man = dataset.write_token_shards(data, toks, shard_tokens=CORPUS_SHARD,
+                                     vocab_size=GPT2_VOCAB)
+    del toks
+    return data, man, time.perf_counter() - t0
+
+
+def read_windows(dataset, native_dl, data: str, reader: str) -> dict:
+    """The first READ_WINDOWS shuffled windows of READ_L tokens through
+    ``reader`` (checksums off: hashing is not the reader's work; the
+    shards sit in the page cache, just written)."""
+    import numpy as np
+
+    ds = dataset.TokenDataset(data, verify=False)
+    out = np.empty((READ_WINDOWS, READ_L), np.int32)
+    native_dl.reset_delivered()
+    t0 = time.perf_counter()
+    it = ds.sequences(READ_L, shuffle=True, seed=CORPUS_SEED, reader=reader)
+    for i in range(READ_WINDOWS):
+        out[i] = next(it)
+    it.close()
+    s = time.perf_counter() - t0
+    itemsize = np.dtype(ds.manifest["dtype"]).itemsize
+    return {"reader": reader, "s": s, "windows_per_s": READ_WINDOWS / s,
+            "MB_per_s": READ_WINDOWS * READ_L * itemsize / s / 1e6,
+            "delivered": native_dl.delivered(), "windows": out}
+
+
+def train_on(torch, train_lm, common, native_dl, data: str, metrics: str,
+             extra: list, native: bool) -> dict:
+    """One ``train_lm.main --data_dir`` run at gpt2-small (DATA_ARGS, 6
+    steps, eval every 3, no checkpoints) with the reader ``"auto"`` picks,
+    native or (``K8S_TPU_NATIVE=0``) mmap; its losses, step intervals,
+    launches, windows the native reader delivered and peak memory."""
+    args = DATA_ARGS + ["--data_dir", data, "--train_dir", "",
+                        "--metrics_path", metrics, "--train_steps", "6",
+                        *extra]
+    if not native:
+        os.environ["K8S_TPU_NATIVE"] = "0"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        native_dl.reset_delivered()
+        t0 = time.perf_counter()
+        rc = train_lm.main(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = common.launches()
+        delivered = native_dl.delivered()
+    finally:
+        os.environ.pop("K8S_TPU_NATIVE", None)
+    if rc != 0:
+        fail(f"native_reader: train_lm {extra} exited {rc}")
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    wall = [r["wall_time"] for r in recs if "loss" in r]
+    return {"args": extra, "reader": "native" if native else "mmap",
+            "loss": {r["step"]: r["loss"] for r in recs if "loss" in r},
+            "eval": [(r["step"], r["eval_loss"]) for r in recs
+                     if "eval_loss" in r],
+            "step_s": [b - a for a, b in zip(wall, wall[1:])],
+            "wall_s": wall_s, "launches": launches, "delivered": delivered,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def native_reader(torch, train_lm, common, dataset, native_dl, root: str,
+                  corpus: tuple):
+    """The native window reader on a corpus of real size (``corpus``, from
+    ``write_corpus``: 1 GiB of uint16 tokens in 64 shards).  (a) The same 20,000 shuffled
+    windows of 1024 tokens through ``reader="native"`` and ``"mmap"`` in
+    turns native / mmap / mmap / native: equal byte for byte, windows/s
+    and MB/s each.  (b) ``train_lm.main --data_dir`` at gpt2-small (B8
+    L1024 bf16, flash on, 6 steps, eval every 3) under ``"auto"`` (the
+    native reader: its counter within ``readahead_bound``) and again with
+    ``K8S_TPU_NATIVE=0`` (mmap: the counter stays 0), from the same seed:
+    losses equal within 1e-4 (the same windows through the same
+    deterministic kernels), exact K2-K4 launches.  (c) ``--fused_ce on
+    --grad_accum 2 --remat`` on the same corpus from the same weights:
+    step 1's loss within 1e-3 of (b)'s native run (only the reduction
+    order differs), steps 2-6 finite and within 2e-2, exact launches (K2
+    12 · 2 · grad_accum a step, remat recomputing each block's forward,
+    plus 12 an eval batch; K3 = K4 = 12 · grad_accum a step), peak memory
+    beside (b)'s."""
+    import numpy as np
+
+    layers, steps, accum, evals, eval_batches = 12, 6, 2, 2, 2
+    data, man, write_s = corpus
+    reads = [read_windows(dataset, native_dl, data, r)
+             for r in ("native", "mmap", "mmap", "native")]
+    first = reads[0]["windows"]
+    same = all(np.array_equal(r["windows"], first) for r in reads[1:])
+    counts = [r["delivered"] for r in reads]
+    if not same or counts != [READ_WINDOWS, 0, 0, READ_WINDOWS]:
+        fail(f"native_reader: windows equal {same}, native counter "
+             f"{counts} (expected {READ_WINDOWS} for native, 0 for mmap)")
+    for r in reads:
+        del r["windows"]
+    del first
+    runs = {
+        "native": train_on(torch, train_lm, common, native_dl, data,
+                           os.path.join(root, "native.jsonl"), [], True),
+        "mmap": train_on(torch, train_lm, common, native_dl, data,
+                         os.path.join(root, "mmap.jsonl"), [], False),
+        "flags": train_on(torch, train_lm, common, native_dl, data,
+                          os.path.join(root, "flags.jsonl"),
+                          ["--fused_ce", "on", "--grad_accum", str(accum),
+                           "--remat"], True)}
+    consumed = 8 * (steps + evals * eval_batches)
+    most = readahead_bound(consumed, 1 + evals)
+    plain = {"flash_fwd": layers * (steps + evals * eval_batches),
+             "flash_bwd_dq": layers * steps,
+             "flash_bwd_dkv": layers * steps, "rms_norm": 0}
+    flags = {"flash_fwd": layers * (2 * accum * steps + evals * eval_batches),
+             "flash_bwd_dq": layers * accum * steps,
+             "flash_bwd_dkv": layers * accum * steps, "rms_norm": 0}
+    nat, mm, fl = runs["native"], runs["mmap"], runs["flags"]
+    for name, run, want in (("native", nat, plain), ("mmap", mm, plain),
+                            ("flags", fl, flags)):
+        if run["launches"] != want or \
+                sorted(run["loss"]) != list(range(1, steps + 1)) or \
+                len(run["eval"]) != evals:
+            fail(f"native_reader {name}: launches {run['launches']} "
+                 f"(expected {want}), steps {sorted(run['loss'])}, evals "
+                 f"{run['eval']}")
+    if not (consumed <= nat["delivered"] <= most
+            and consumed <= fl["delivered"] <= most
+            and mm["delivered"] == 0):
+        fail(f"native_reader: windows delivered native {nat['delivered']}, "
+             f"flags {fl['delivered']} (consumed {consumed}, at most "
+             f"{most}), mmap {mm['delivered']} (expected 0)")
+    reader_diff = max(abs(nat["loss"][s] - mm["loss"][s])
+                      for s in nat["loss"])
+    reader_diff = max([reader_diff] + [abs(a[1] - b[1]) for a, b in
+                                       zip(nat["eval"], mm["eval"])])
+    flag_diff = {s: abs(fl["loss"][s] - nat["loss"][s]) for s in fl["loss"]}
+    finite = all(map(math.isfinite, list(fl["loss"].values())
+                     + [e[1] for e in fl["eval"]]))
+    if reader_diff > 1e-4 or flag_diff[1] > 1e-3 or not finite or \
+            max(flag_diff[s] for s in range(2, steps + 1)) > 2e-2:
+        fail(f"native_reader: native vs mmap losses differ by {reader_diff} "
+             f"(tol 1e-4); the flags run's against native {flag_diff} "
+             f"(step 1 tol 1e-3, steps 2-6 2e-2), finite {finite}")
+    rec = {"phase": "native_reader", "card": REPORT["card"],
+           "corpus": {"tokens": man["total_tokens"], "dtype": man["dtype"],
+                      "shards": len(man["shards"]), "seed": CORPUS_SEED,
+                      "write_s": write_s},
+           "reads": reads, "reads_equal": same,
+           "train_args": DATA_ARGS + ["--train_steps", "6"],
+           "runs": runs, "native_vs_mmap_max_abs_diff": reader_diff,
+           "reader_tol": 1e-4, "flags_vs_native_abs_diff": flag_diff,
+           "flags_tol": {"step_1": 1e-3, "steps_2_6": 2e-2},
+           "windows": {"consumed": consumed, "most": most},
+           "expected_launches": {"plain": plain, "flags": flags}}
+    emit(rec)
+    REPORT["native_reader"] = rec
+    return {k: nat["launches"][k] + mm["launches"][k] + fl["launches"][k]
+            for k in plain}
+
+
+PROFILE_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from k8s_tpu_torch import train_lm
+from k8s_tpu_torch.launcher import bootstrap
+from k8s_tpu_torch.ops import _common
+enabled = bootstrap.setup_observability()
+_common.reset_launches()
+rc = train_lm.main(json.loads(sys.argv[2]))
+torch.cuda.synchronize()
+launches = _common.launches()
+bootstrap.stop_observability()
+print("RESULT " + json.dumps({"enabled": enabled, "rc": rc,
+                              "launches": launches}), flush=True)
+"""
+
+# the __global__ bodies of each wrapper's kernel in csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu, as the trace names them
+KERNEL_EVENTS = {
+    "flash_fwd": r"\bflash_fwd_(wgmma|mma|fma)\b",
+    "flash_bwd_dq": r"\bflash_bwd_dq_(wgmma|mma|fma)\b",
+    "flash_bwd_dkv": r"\bflash_bwd_dkv_(wgmma|mma|fma)\b",
+}
+
+
+def busy_share(events: list, t_from: float) -> float:
+    """The share of [t_from, the last device event's end] in which some
+    kernel, copy or fill ran (overlaps merged)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e["ts"] + e["dur"] > t_from)
+    busy, cur_a, cur_b = 0.0, None, None
+    for a, b in spans:
+        a = max(a, t_from)
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        busy += cur_b - cur_a
+    end = max(b for _, b in spans)
+    return busy / (end - t_from)
+
+
+def profile_hook(torch, data_dir: str) -> dict:
+    """The bootstrap's profiler hooks in a child process of its own (its
+    profiler session stays away from this process's host clocks), under
+    the pod env ``JAX_PROFILE_DIR``, ``JAX_PROFILER_PORT=9999``,
+    ``XLA_DUMP_TO`` and ``K8S_TPU_PLATFORM=gpu``: ``setup_observability()``,
+    ``train_lm.main`` for 2 gpt2-small steps on ``data_dir`` through the
+    native reader, ``stop_observability()``.  ``enabled`` is exactly
+    ``{"profile_dir": ...}``, the two hooks without a counterpart are
+    named in warnings and dump nothing, the one trace file carries the
+    child's host and pid, and its CUDA kernel events named after each
+    flash kernel equal the child's launch counters (kernels the main
+    thread launched while the prefetch thread read).  Prints the device
+    busy share over both steps and over step 2."""
+    import re
+    import socket
+
+    with tempfile.TemporaryDirectory() as root:
+        trace_dir = os.path.join(root, "trace")
+        dump_dir = os.path.join(root, "xla_dump")
+        env = dict(os.environ, JAX_PROFILE_DIR=trace_dir,
+                   JAX_PROFILER_PORT="9999", XLA_DUMP_TO=dump_dir,
+                   K8S_TPU_PLATFORM="gpu")
+        env.pop("K8S_TPU_NATIVE", None)
+        args = DATA_ARGS + ["--data_dir", data_dir, "--train_dir", "",
+                            "--train_steps", "2", "--eval_every", "0"]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-c", PROFILE_CHILD, REPO, json.dumps(args)],
+            env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            out, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail("profile_hook: the child ran past 300 s")
+        child_s = time.perf_counter() - t0
+        lines = [x for x in out.splitlines() if x.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            fail(f"profile_hook: the child exited {p.returncode}: "
+                 f"{out[-2000:]}{err[-3000:]}")
+        res = json.loads(lines[-1][len("RESULT "):])
+        files = sorted(os.listdir(trace_dir))
+        prefix = f"{socket.gethostname()}_{p.pid}."
+        if res["enabled"] != {"profile_dir": trace_dir} or res["rc"] != 0 \
+                or len(files) != 1 or not files[0].startswith(prefix) \
+                or os.path.exists(dump_dir) \
+                or "JAX_PROFILER_PORT=9999 ignored" not in err \
+                or f"XLA_DUMP_TO={dump_dir} ignored" not in err:
+            fail(f"profile_hook: enabled {res['enabled']}, rc {res['rc']}, "
+                 f"trace files {files} (expected one named {prefix}*), "
+                 f"dump dir made {os.path.exists(dump_dir)}, stderr "
+                 f"{err[-2000:]}")
+        trace_mb = os.path.getsize(os.path.join(trace_dir, files[0])) / 1e6
+        with open(os.path.join(trace_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    counted = {k: [e for e in kernels if re.search(pat, e["name"])]
+               for k, pat in KERNEL_EVENTS.items()}
+    in_trace = {k: len(v) for k, v in counted.items()}
+    want = {k: res["launches"][k] for k in KERNEL_EVENTS}
+    if in_trace != want or want["flash_fwd"] != 12 * 2:
+        fail(f"profile_hook: kernel events in the trace {in_trace} against "
+             f"the child's launch counters {res['launches']} (K2 expected "
+             "24 for 2 steps)")
+    fwd = sorted(e["ts"] for e in counted["flash_fwd"])
+    rec = {"phase": "profile_hook", "card": REPORT["card"],
+           "enabled": res["enabled"], "child_s": child_s,
+           "trace_file_mb": trace_mb, "trace_events": len(events),
+           "device_events": {c: sum(e["cat"] == c for e in device)
+                             for c in ("kernel", "gpu_memcpy",
+                                       "gpu_memset")},
+           "kernel_events": in_trace, "launches": res["launches"],
+           # from the first flash forward of step 1 (or step 2) to the
+           # last device event: both steps, then the second alone
+           "device_busy_share_steps_1_2": busy_share(device, fwd[0]),
+           "device_busy_share_step_2": busy_share(device, fwd[12]),
+           "warnings": [x for x in err.splitlines() if "ignored" in x]}
+    emit(rec)
+    REPORT["profile_hook"] = rec
+    return res["launches"]
 
 
 # -- phase 8: the vision models and dist_mnist -------------------------------
@@ -5160,6 +5506,7 @@ def main() -> int:
         from k8s_tpu_torch.models import requestlog
         from k8s_tpu_torch.models import train as train_lib
         from k8s_tpu_torch.models import transformer as tlib
+        from k8s_tpu_torch.native import dataloader as native_dl
         from k8s_tpu_torch.ops import _build, _common
         from k8s_tpu_torch.ops import flash_attention as flash
         from k8s_tpu_torch.ops import fused_norm
@@ -5244,9 +5591,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_trained = moe_train(torch, tlib, bridge, train_lib, _common, dataset,
                             moe)
-    data = data_path(torch, train_lm, _common, dataset)
+    data = data_path(torch, train_lm, _common, dataset, native_dl)
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        corpus = write_corpus(dataset, root)
+        native_run = native_reader(torch, train_lm, _common, dataset,
+                                   native_dl, root, corpus)
+        gc.collect()
+        torch.cuda.empty_cache()
+        hooked = profile_hook(torch, corpus[0])
+    REPORT["native_phases_s"] = time.perf_counter() - t0
+    emit({"phase": "native_done", "s": REPORT["native_phases_s"]})
     resnet_run = resnet_path(torch, resnet, train_lib, _common)
     vit_run = vit_path(torch, vit, train_lib, _common)
     mnist_run = mnist_path(torch, dist_mnist, mnist, mnist_data, train_lib,
@@ -5317,6 +5674,8 @@ def main() -> int:
                    "serve_moe_llama_8b_e8_20_layers": moe_served[kname],
                    "train_moe_llama_width_e8_2_layers": moe_trained[kname],
                    "train_lm_data_dir_gpt2_small": data[kname],
+                   "native_reader_gpt2_small": native_run[kname],
+                   "profile_hook_gpt2_small": hooked[kname],
                    "train_resnet50_both_stems": resnet_run[kname],
                    "train_vit_b16_fused_norm": vit_run[kname],
                    "dist_mnist": mnist_run[kname],

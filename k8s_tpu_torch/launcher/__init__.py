@@ -6,4 +6,6 @@ from k8s_tpu_torch.launcher.bootstrap import (  # noqa: F401
     barrier,
     initialize_distributed,
     make_training_mesh,
+    setup_observability,
+    stop_observability,
 )

@@ -18,6 +18,10 @@ NCCL when the process runs on CUDA, gloo on the CPU.  One process drives
 one device (rank ``r`` takes GPU ``r % device_count``).
 ``make_training_mesh`` lays the world out as the reference's mesh; at one
 process it first makes a one-rank group, so a mesh always exists.
+``setup_observability`` / ``stop_observability`` read the reference's
+profiler hooks (``JAX_PROFILE_DIR``: a ``torch.profiler`` trace;
+``JAX_PROFILER_PORT`` and ``XLA_DUMP_TO`` have no counterpart and are
+named in a warning).
 """
 
 from __future__ import annotations
@@ -94,13 +98,14 @@ def apply_platform_env(env: Optional[dict] = None) -> Optional[str]:
         "'gpu'/'cuda'")
 
 
-def default_device(flag: Optional[str] = None) -> str:
+def default_device(flag: Optional[str] = None,
+                   env: Optional[dict] = None) -> str:
     """An entry point's device: its ``--device`` flag if given, else the
     pod env's ``K8S_TPU_PLATFORM``, else ``cuda``."""
-    return flag or apply_platform_env() or "cuda"
+    return flag or apply_platform_env(env) or "cuda"
 
 
-def process_device():
+def process_device(env: Optional[dict] = None):
     """The device this process drives (set at bring-up; the pod env's
     choice before it)."""
     import torch
@@ -108,7 +113,7 @@ def process_device():
     from k8s_tpu_torch.ops._common import resolve_device
 
     return _device if _device is not None else resolve_device(
-        torch.device(default_device()))
+        torch.device(default_device(env=env)))
 
 
 def process_index() -> int:
@@ -239,6 +244,89 @@ def host_group():
     if _host_group is None:
         _host_group = dist.new_group(backend="gloo")
     return _host_group
+
+
+# The reference's hooks that PyTorch has no counterpart for: each is named
+# in a warning when the pod env sets it, and left out of what
+# setup_observability returns.
+_NO_COUNTERPART = {
+    "JAX_PROFILER_PORT": "torch has no profiler server to start",
+    "XLA_DUMP_TO": "eager PyTorch compiles no XLA programs to dump "
+                   "(XLA_FLAGS is left as it is)",
+}
+_profiler = None     # the torch.profiler session JAX_PROFILE_DIR started
+_profile_dir = None
+
+
+def setup_observability(env: Optional[dict] = None) -> dict:
+    """The reference's profiler hooks from the operator-injected pod env
+    (``k8s_tpu/launcher/bootstrap.py``), for torch:
+
+      JAX_PROFILE_DIR    start a ``torch.profiler`` session now, tracing
+                         the CPU and, on a CUDA process, the card;
+                         ``stop_observability`` at job teardown writes the
+                         whole run's trace into that directory under a
+                         per-host, per-pid name (``tensorboard_trace_
+                         handler``'s), so a gang's ranks never overwrite
+                         each other
+      JAX_PROFILER_PORT  no counterpart (a warning names it)
+      XLA_DUMP_TO        no counterpart (a warning names it)
+
+    The process's device is the one bring-up bound, else the env's
+    ``K8S_TPU_PLATFORM`` (CUDA when unset; asking for CUDA without one
+    raises).  Returns {hook: value} for what was enabled: ``{}`` or
+    ``{"profile_dir": dir}``.  A second call with another directory warns
+    and keeps the first session.
+    """
+    global _profiler, _profile_dir
+    e = env if env is not None else os.environ
+    for name, why in _NO_COUNTERPART.items():
+        if e.get(name, ""):
+            log.warning("%s=%s ignored: %s", name, e[name], why)
+    enabled: dict = {}
+    profile_dir = e.get("JAX_PROFILE_DIR", "")
+    if profile_dir:
+        if _profiler is None:
+            _profiler = _start_profiler(profile_dir, process_device(e))
+            _profile_dir = profile_dir
+        elif _profile_dir != profile_dir:
+            log.warning(
+                "JAX_PROFILE_DIR=%s ignored: trace already writing to %s",
+                profile_dir, _profile_dir)
+        enabled["profile_dir"] = _profile_dir
+    return enabled
+
+
+def _start_profiler(profile_dir: str, device):
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    log.info("profiling %s into %s", [a.name for a in activities],
+             profile_dir)
+    return prof
+
+
+def stop_observability(env: Optional[dict] = None) -> None:
+    """Stop the JAX_PROFILE_DIR session and write its trace (call at job
+    teardown, chief included).  No-op when no session was started, and a
+    failure to write the trace is logged, never raised: teardown must not
+    mask the job's real exit status."""
+    global _profiler, _profile_dir
+    del env  # kept for call-site symmetry with setup_observability
+    prof, trace_dir = _profiler, _profile_dir
+    _profiler = _profile_dir = None
+    if prof is None:
+        return
+    try:
+        prof.stop()
+    except Exception:  # noqa: BLE001 - teardown keeps the exit status
+        log.exception("profiler trace into %s failed", trace_dir)
 
 
 def barrier(name: str = "launcher") -> None:

@@ -14,9 +14,10 @@ Shards are memory-mapped (np.load mmap_mode="r"), so reading scales to
 corpora far beyond host RAM; sha256 is verified per shard on open (a
 corrupted shard fails loudly, not as silently-wrong training data).
 
-Not in this port yet: the reference's ``"native"`` reader (its C++ window
-loader, ``k8s_tpu/native/``) is refused by name; ``"auto"`` picks the
-mmap reader, which yields the same windows.
+``reader="native"`` streams the same windows through the port's C++
+window reader (``k8s_tpu_torch/native/``: ``pread`` on C++ threads, off
+the GIL); ``"auto"``, the default, takes it whenever g++ builds it and
+``K8S_TPU_NATIVE`` is not ``0``, as the reference does.
 """
 
 from __future__ import annotations
@@ -227,9 +228,11 @@ class TokenDataset:
         block- or Feistel-style streaming shuffle in here; unshuffled
         streams stay O(num_shards) end to end.
 
-        ``reader``: "mmap" (and "auto") read through numpy memory maps;
-        "native", the reference's C++ loader, is not ported yet and is
-        refused.
+        ``reader``: "mmap" reads through numpy memory maps (page faults
+        hold the GIL); "native" streams windows through the C++ loader
+        (k8s_tpu_torch/native/dataloader.py — reads on C++ threads,
+        GIL-free); "auto" picks native when the toolchain built it, else
+        mmap.  Both yield identical streams.
 
         ``split``/``eval_fraction``: holdout evaluation — "eval" is the
         stable last slice of the unshuffled global window order, "train"
@@ -238,11 +241,26 @@ class TokenDataset:
         """
         if reader not in ("auto", "mmap", "native"):
             raise ValueError(f"unknown reader {reader!r}")
+        if reader == "auto":
+            from k8s_tpu_torch.native import dataloader as native_dl
+
+            reader = "native" if native_dl.available() else "mmap"
+        names, _ = self._window_index(seq_len)
+        windows = self._windows(seq_len, shuffle, seed, epochs, start_window,
+                                split, eval_fraction)
         if reader == "native":
-            raise NotImplementedError(
-                "the native C++ window reader (k8s_tpu/native) comes with a "
-                "later slice of the port; reader='mmap' (or 'auto') yields "
-                "the same windows")
+            yield from self._read_native(names, seq_len, windows)
+            return
+        for shard_i, start in windows:
+            yield np.asarray(
+                self._shard(names[shard_i])[start:start + seq_len],
+                dtype=np.int32)
+
+    def _windows(self, seq_len: int, shuffle: bool, seed: int,
+                 epochs: Optional[int], start_window: int, split: str,
+                 eval_fraction: float) -> Iterator[tuple[int, int]]:
+        """(shard index, first token) of each window of the stream, in
+        order: what both readers read."""
         names, cum = self._window_index(seq_len)
         base, total = self._split_bounds(int(cum[-1]), split, eval_fraction)
         rng = np.random.default_rng(seed)
@@ -252,10 +270,7 @@ class TokenDataset:
             for i in order[offset:]:
                 i = base + int(i)
                 shard_i = int(np.searchsorted(cum, i, side="right")) - 1
-                start = (i - int(cum[shard_i])) * seq_len
-                yield np.asarray(
-                    self._shard(names[shard_i])[start:start + seq_len],
-                    dtype=np.int32)
+                yield shard_i, (i - int(cum[shard_i])) * seq_len
             offset = 0
             epoch += 1
 
@@ -272,6 +287,36 @@ class TokenDataset:
             for _ in range(epoch):
                 rng.permutation(total)
         return epoch, offset
+
+    def _read_native(self, names: list, seq_len: int,
+                     windows: Iterator[tuple[int, int]]
+                     ) -> Iterator[np.ndarray]:
+        """The C++-reader stream: the same windows, in the same order, as
+        the mmap reader's.
+
+        Checksums stay LAZY (matching the class docstring's no-startup-
+        stall contract): a shard is hashed the first time one of its
+        windows is submitted, not at registration.  The reader (and its
+        threads) is closed when this generator stops.
+        """
+        from k8s_tpu_torch.native.dataloader import NativeWindowReader
+
+        dtype = np.dtype(self.manifest["dtype"])
+        paths = [os.path.join(self.data_dir, n) for n in names]
+        # npy payload starts after the header: size - n_tokens * itemsize
+        data_off = [
+            os.path.getsize(p) - s["n_tokens"] * dtype.itemsize
+            for p, s in zip(paths, self.manifest["shards"])
+        ]
+
+        def descriptors():
+            for shard_i, start in windows:
+                self._check_shard(names[shard_i])  # lazy, once each
+                yield shard_i, data_off[shard_i] + start * dtype.itemsize
+
+        with NativeWindowReader(paths, seq_len * dtype.itemsize) as r:
+            for raw in r.stream(descriptors()):
+                yield np.frombuffer(raw, dtype=dtype).astype(np.int32)
 
     def batches(
         self,

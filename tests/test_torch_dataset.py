@@ -4,7 +4,9 @@ either package are read by the other with identical windows and batches
 (seed, shuffle, epochs, split and ``eval_fraction``, ``start_window`` and
 ``BatchStream.skip``), the writers produce the same files, a corrupted
 shard fails its sha256 check, ``tests/fixtures/tokens`` reads the same,
-the native C++ reader is refused by name, and ``train_lm --data_dir``
+``"auto"`` and the native C++ reader yield the mmap reader's windows
+(tests/test_torch_native.py holds the native reader against the
+reference), and ``train_lm --data_dir``
 on ``--preset tiny`` gives the reference script's losses from the same
 initial weights, its eval losses on the held-out tail, and resumes at
 the next unread window."""
@@ -171,15 +173,16 @@ def test_fixture_corpus_reads_the_same():
         jds.decode_bytes(j._shard("tokens-00000.npy")[:20])
 
 
-def test_native_reader_is_refused_by_name():
+def test_readers_by_name(monkeypatch):
     ds = tds.TokenDataset(FIXTURE)
-    with pytest.raises(NotImplementedError, match="native"):
-        next(ds.sequences(64, reader="native"))
     with pytest.raises(ValueError, match="unknown reader"):
         next(ds.sequences(64, reader="fast"))
-    # "auto" is the mmap reader
-    assert _seqs(ds, 3, 64, reader="auto") == _seqs(ds, 3, 64,
-                                                     reader="mmap")
+    # with K8S_TPU_NATIVE unset (the port's side only) "auto" is the
+    # native reader, and both yield the mmap reader's windows
+    monkeypatch.delenv("K8S_TPU_NATIVE")
+    want = _seqs(ds, 3, 64, reader="mmap")
+    assert _seqs(ds, 3, 64, reader="auto") == want
+    assert _seqs(ds, 3, 64, reader="native") == want
 
 
 def _reference_script():

@@ -54,7 +54,8 @@ def test_scan_sees_the_whole_package():
                  ("models", "resnet.py"), ("models", "vit.py"),
                  ("models", "mnist.py"), ("models", "mnist_data.py"),
                  ("models", "mp_plan.py"), ("models", "mesh_serve.py"),
-                 ("models", "mp_serve.py"), ("dist_mnist.py",)):
+                 ("models", "mp_serve.py"), ("native", "__init__.py"),
+                 ("native", "dataloader.py"), ("dist_mnist.py",)):
         assert os.path.join("k8s_tpu_torch", *part) in rel
 
 
@@ -63,7 +64,9 @@ def test_server_import_loads_nothing_of_k8s_tpu():
             "k8s_tpu_torch.models.bridge, k8s_tpu_torch.models.dataset, "
             "k8s_tpu_torch.models.resnet, k8s_tpu_torch.models.vit, "
             "k8s_tpu_torch.models.mnist, k8s_tpu_torch.models.mnist_data, "
-            "k8s_tpu_torch.train_lm, k8s_tpu_torch.dist_mnist; "
+            "k8s_tpu_torch.train_lm, k8s_tpu_torch.dist_mnist, "
+            "k8s_tpu_torch.native.dataloader, "
+            "k8s_tpu_torch.launcher.bootstrap; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'k8s_tpu' or m.startswith('k8s_tpu.')); "
             "print(bad); sys.exit(1 if bad else 0)")

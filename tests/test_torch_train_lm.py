@@ -2,7 +2,7 @@
 --preset tiny``): the reference's CLI contract (tests/test_train_lm.py) —
 trains, checkpoints, resumes, exits 0 when already complete, exits 143 on
 SIGTERM with a checkpoint behind, exports a serving artifact the port's
-server loads, and refuses the flags of later slices by name."""
+server loads, and refuses by name the flags one process cannot run."""
 
 from __future__ import annotations
 
@@ -102,16 +102,19 @@ def test_sigterm_exits_143_with_a_checkpoint(tmp_path):
 ])
 def test_later_slice_flags_are_refused(tmp_path, args, match):
     if match == "TokenDataset":
-        # the token-shard dataset is ported: --data_dir trains on the
-        # fixture corpus (tests/test_torch_dataset.py holds it against
-        # the reference script); only the native C++ reader waits
+        # the token-shard dataset is ported with its native C++ reader:
+        # --data_dir trains on the fixture corpus (tests/test_torch_dataset.py
+        # and test_torch_native.py hold both readers against the reference)
         assert train_lm.main([f"--train_dir={tmp_path}", *BASE, *args,
                               "--train_steps=2"]) == 0
         from k8s_tpu_torch.models.dataset import TokenDataset
 
         ds = TokenDataset(os.path.join(REPO, "tests", "fixtures", "tokens"))
-        with pytest.raises(NotImplementedError, match="native"):
-            next(ds.sequences(64, reader="native"))
+        native = ds.sequences(64, reader="native")
+        mmap = ds.sequences(64, reader="mmap")
+        for _ in range(3):
+            assert next(native).tolist() == next(mmap).tolist()
+        native.close()
         return
     with pytest.raises(SystemExit, match=match):
         train_lm.main([f"--train_dir={tmp_path}", *BASE, *args])
