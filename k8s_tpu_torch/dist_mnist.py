@@ -21,12 +21,10 @@ batches).
 Checkpoints: ``<train_dir>/mnist_state.pt`` holds the model, the
 optimizer and the step, written atomically (a temporary file, then
 ``os.replace``) every ``--checkpoint_every`` steps and at the end; a
-second run resumes from it.  A resumed run continues the seed-0 batch
-stream at the step it stopped (the stream fast-forwarded), so its
-batches, and with deterministic kernels its losses, are those of an
-uninterrupted run.  The reference reseeds the stream with the resume
-step instead (``seed=start_step``), which gives other batches after a
-resume.
+second run resumes from it.  As in the reference, a resumed run draws
+its batches from a stream reseeded with the resume step
+(``array_batches(..., seed=start_step)``), so a resumed run trains on
+the batches a resumed reference run trains on.
 
 A job of more processes or slices (the operator's env) trains
 data-parallel: ``torch.distributed`` from the env, the FSDP-sharded state
@@ -202,11 +200,10 @@ def main(argv=None) -> int:
                 "resuming at step %d: held-out accuracy is only a clean "
                 "eval if every prior run used the same --eval_holdout",
                 start_step)
-    batches = data_lib.array_batches((ds_x, ds_y), args.batch_size, seed=0)
+    batches = data_lib.array_batches((ds_x, ds_y), args.batch_size,
+                                     seed=start_step)
     data_iter = data_lib.prefetch_to_mesh(batches, mesh, device) if sharded \
         else data_lib.prefetch_to_device(batches, device)
-    if start_step > 0:
-        data_iter.skip(start_step)  # continue the stream where it stopped
 
     loss = None
     try:

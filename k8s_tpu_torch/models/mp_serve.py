@@ -161,6 +161,7 @@ def member_main(args) -> int:
     """One gang member (chief or follower), inside the operator env."""
     from k8s_tpu_torch.launcher import bootstrap
     from k8s_tpu_torch.models import mesh_serve
+    from k8s_tpu_torch.ops import _common
 
     lcfg = bootstrap.initialize_distributed(
         device=bootstrap.default_device())
@@ -205,6 +206,8 @@ def member_main(args) -> int:
         "prefill_programs": stats["prefill_programs"],
         "spec_mean_accepted": stats["spec_mean_accepted"],
         "compile_ledger": None,
+        # this process's kernel launches (serving and warm-up)
+        "launches": _common.launches(),
         "pool_local_fraction": placement.pool_local_fraction,
         "params_local_fraction": placement.params_local_fraction,
         **out,

@@ -3,7 +3,8 @@ the control plane's flight recorder.
 
 The port's own copy of ``k8s_tpu/models/requestlog.py`` (stdlib only, so
 it is copied rather than imported), with its lock a plain
-``threading.Lock`` and its nearest-rank quantile a local helper; keep
+``threading.Lock`` and its nearest-rank quantile the port's own
+``util.util.quantile_nearest`` (the one the bench harnesses use); keep
 the two in step.
 
 Two bounded instruments behind one process-global recorder:
@@ -53,6 +54,8 @@ from collections import OrderedDict, deque
 from typing import Optional
 from urllib.parse import parse_qs
 
+from k8s_tpu_torch.util.util import quantile_nearest as _quantile
+
 
 ENV_ENABLE = "K8S_TPU_REQUEST_LOG"
 ENV_RING = "K8S_TPU_REQUEST_LOG_RING"
@@ -74,16 +77,6 @@ DEFAULT_MAX_EVENTS_PER_REQUEST = 256
 #: attribution names the tier, it does not partition wall time.
 PHASES = ("queue", "prefill", "migrate", "decode", "spec_reject",
           "compile", "evict", "spill", "promote")
-
-
-def _quantile(sorted_vals, q: float) -> float:
-    """Nearest-rank quantile of an ascending-sorted sequence (0.0 for
-    empty input), as the reference's ``util.quantile_nearest``."""
-    if not sorted_vals:
-        return 0.0
-    idx = min(len(sorted_vals) - 1,
-              max(0, round(q * (len(sorted_vals) - 1))))
-    return sorted_vals[int(idx)]
 
 
 def _dominant(phase_s: dict) -> str:

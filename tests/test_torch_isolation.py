@@ -55,7 +55,10 @@ def test_scan_sees_the_whole_package():
                  ("models", "mnist.py"), ("models", "mnist_data.py"),
                  ("models", "mp_plan.py"), ("models", "mesh_serve.py"),
                  ("models", "mp_serve.py"), ("native", "__init__.py"),
-                 ("native", "dataloader.py"), ("dist_mnist.py",)):
+                 ("native", "dataloader.py"), ("dist_mnist.py",),
+                 ("harness", "__init__.py"), ("harness", "bench_serve.py"),
+                 ("harness", "bench_kvtier.py"),
+                 ("harness", "bench_serve_mp.py"), ("util", "util.py")):
         assert os.path.join("k8s_tpu_torch", *part) in rel
 
 
@@ -66,7 +69,10 @@ def test_server_import_loads_nothing_of_k8s_tpu():
             "k8s_tpu_torch.models.mnist, k8s_tpu_torch.models.mnist_data, "
             "k8s_tpu_torch.train_lm, k8s_tpu_torch.dist_mnist, "
             "k8s_tpu_torch.native.dataloader, "
-            "k8s_tpu_torch.launcher.bootstrap; "
+            "k8s_tpu_torch.launcher.bootstrap, "
+            "k8s_tpu_torch.harness.bench_serve, "
+            "k8s_tpu_torch.harness.bench_kvtier, "
+            "k8s_tpu_torch.harness.bench_serve_mp; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'k8s_tpu' or m.startswith('k8s_tpu.')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -10,8 +10,8 @@ convolutions and the dense layers).
 
 import gzip
 import hashlib
-import logging
 import os
+import shutil
 import subprocess
 import sys
 
@@ -203,32 +203,64 @@ def test_dist_mnist_trains_checkpoints_resumes(tmp_path):
     assert saved["step"] == 9 and set(saved) == {"model", "optimizer", "step"}
 
 
-def test_dist_mnist_resume_equals_an_uninterrupted_run(tmp_path, caplog):
-    """A run stopped at step 4 and resumed to 8 trains on the batches an
-    uninterrupted run to 8 trains on, so it ends at the same weights and
-    logs the same losses (synthetic data, the reference's draw)."""
+def test_dist_mnist_resume_equals_an_uninterrupted_run(tmp_path,
+                                                       monkeypatch):
+    """A run stopped at step 4 and resumed to 8 trains, as the reference
+    does, on a stream reseeded with the resume step: its first batch is
+    element for element the first batch of the reference's
+    ``array_batches(..., seed=4)`` over the synthetic draw, and its
+    losses and final weights equal a control that restores the same
+    step-4 checkpoint and trains on that reseeded stream."""
+    from k8s_tpu.models import data as jdata_lib
+
+    seen = []  # (batch, loss) of every step main runs
+    make_step = ttrain.make_train_step
+
+    def recording_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch):
+            state, loss = step(state, batch)
+            seen.append(([t.clone() for t in batch], float(loss)))
+            return state, loss
+        return run
+    monkeypatch.setattr(ttrain, "make_train_step", recording_step)
     common = ["--device", "cpu", "--batch_size", "16", "--checkpoint_every",
-              "4"]
-    full, resumed = tmp_path / "full", tmp_path / "resumed"
-    with caplog.at_level(logging.INFO, logger="dist_mnist"):
-        assert dist_mnist.main(common + [f"--train_dir={full}",
-                                         "--train_steps=8"]) == 0
-        full_log = [r.getMessage() for r in caplog.records
-                    if " loss " in r.getMessage()]
-        caplog.clear()
-        for n in (4, 8):
-            assert dist_mnist.main(common + [f"--train_dir={resumed}",
-                                             f"--train_steps={n}"]) == 0
-        resumed_log = [r.getMessage() for r in caplog.records
-                       if " loss " in r.getMessage()]
-    # logged: steps 0 and 7 uninterrupted; 0, 3, then 7 after the resume
-    assert [m.split()[1] for m in full_log] == ["0", "7"]
-    assert [m.split()[1] for m in resumed_log] == ["0", "3", "7"]
-    assert resumed_log[0] == full_log[0] and resumed_log[-1] == full_log[-1]
-    a = torch.load(full / "mnist_state.pt", weights_only=True)
-    b = torch.load(resumed / "mnist_state.pt", weights_only=True)
-    for name, t in a["model"].items():
-        assert torch.equal(t, b["model"][name]), name
+              "4", f"--train_dir={tmp_path}"]
+    assert dist_mnist.main(common + ["--train_steps=4"]) == 0
+    ckpt = tmp_path / "at4"  # the step-4 checkpoint, kept for the control
+    ckpt.mkdir()
+    shutil.copy(tmp_path / dist_mnist.CKPT_NAME, ckpt / dist_mnist.CKPT_NAME)
+    seen.clear()
+    assert dist_mnist.main(common + ["--train_steps=8"]) == 0
+    resumed = list(seen)
+    assert len(resumed) == 4
+
+    # the reference's synthetic draw and its reseeded stream
+    rng = np.random.default_rng(0)
+    ds_x = rng.normal(size=(64 * 16, 28, 28, 1)).astype(np.float32)
+    ds_y = rng.integers(0, 10, size=(64 * 16,)).astype(np.int32)
+    ref_stream = jdata_lib.array_batches((ds_x, ds_y), 16, seed=4)
+    want = [next(ref_stream) for _ in range(4)]
+    for (got, _), ref in zip(resumed, want):
+        for t, a in zip(got, ref):
+            np.testing.assert_array_equal(t.numpy(), a)
+
+    # control: the step-4 checkpoint trained on that reseeded stream
+    model = tmnist.MnistCNN(device="cpu", seed=0)
+    opt = ttrain.default_optimizer(1e-3)
+    state = ttrain.init_state(model, opt)
+    assert dist_mnist.restore_checkpoint(str(ckpt), state, "cpu") == 4
+    step = make_step(lambda m, x: m(x), ttrain.cross_entropy_loss, opt)
+    control = []
+    for x, y in want:
+        state, loss = step(state, (torch.from_numpy(x), torch.from_numpy(y)))
+        control.append(float(loss))
+    assert [loss for _, loss in resumed] == control
+    final = torch.load(tmp_path / dist_mnist.CKPT_NAME, weights_only=True)
+    assert final["step"] == 8
+    for name, t in state["model"].state_dict().items():
+        assert torch.equal(t, final["model"][name]), name
 
 
 def test_dist_mnist_refuses_what_it_cannot_run(tmp_path, monkeypatch):
