@@ -55,7 +55,8 @@ builds it:
 ``resnet``, ``vit``: one training step of chip_smoke.py's ``resnet``
 phase (ResNet-50, bf16, 7x7 stem, SGD momentum) or ``vit`` phase
 (ViT-B/16, bf16, fused norm on, AdamW), B128 at 224x224, built by
-chip_smoke.py's own ``resnet_trainer`` / ``vit_trainer``:
+the bench cells' ``resnet_trainer`` / ``vit_trainer``
+(``k8s_tpu_torch/bench.py``), which the smoke's phases use too:
 
 - host clock around steps that end in ``torch.cuda.synchronize()``,
   median of 5 after 3 warm-up steps (``cudnn.benchmark`` on);
@@ -474,23 +475,20 @@ def profile_vision(torch, args, report, path: str) -> int:
     (``OP_CLASSES``) and the device-busy share.  For ``vit`` also the
     plain attention of one layer, forward and backward, by CUDA events."""
     import chip_smoke as smoke
-    from k8s_tpu_torch.models import resnet, vit
-    from k8s_tpu_torch.models import train as train_lib
+    from k8s_tpu_torch import bench
+    from k8s_tpu_torch.models import vit
 
     torch.backends.cudnn.benchmark = True
     torch.cuda.reset_peak_memory_stats()
     if path == "resnet":
         B, gflop = smoke.RESNET_BATCH, smoke.RESNET_GFLOP
         x, y = smoke.vision_batch(torch, B, args.seed)
-        _, step = smoke.resnet_trainer(torch, resnet, train_lib, x, y,
-                                       "conv", args.seed)
+        _, step = bench.resnet_trainer(x, y, "conv", args.seed)
     else:
         B, gflop = smoke.VIT_BATCH, smoke.VIT_GFLOP
         x, y = smoke.vision_batch(torch, B, args.seed)
         cfg = vit.vit_b16(remat=False, use_fused_norm=True)
-        weights = vit.ViT(cfg, device="cuda", seed=args.seed).state_dict()
-        _, step = smoke.vit_trainer(torch, vit, train_lib, cfg, x, y,
-                                    weights)
+        _, step = bench.vit_trainer(cfg, x, y, seed=args.seed)
 
     def run():
         t0 = time.perf_counter()

@@ -48,29 +48,33 @@ names):
    spill_mb=512)`` on the served Llama-3-8B-width weights (a 509-token
    prompt's 31 prefix blocks demoted by a flood of distinct prompts,
    promoted back on the next ask, the answer unchanged; demote and
-   promote ms a block, TTFT cold / hit / promoted); then two in-process
+   promote ms a block, TTFT cold / hit / promoted); then (on the served
+   weights' first 16 of 32 layers, ``cut_depth``, as in bench_serve,
+   bench_kvtier and serve_spec) two in-process
    ``LmServer``s, roles prefill and decode, over loopback kvxfer: 8
    prompts (17-509 tokens) through ``kv_dest`` one at a time (equal to
    the colocated answers) and concurrently (``token_check``), a
    fixed-seed sampled request equal to its local answer, dedup on the
    repeats, a ``kv_src`` fetch, ``serve_kv_migrate_seconds`` and each
    stage of a 509-token migration timed on its own.  Both with exact K1
-   launches (65 a model call) and no flash launch.
+   launches (2·layers+1 a model call) and no flash launch.
 5d. speculative, beam: the batched speculative lane equals the exclusive
    lane and vanilla greedy on the tiny model in f32 (greedy at draft_k
    2-4, fixed-seed sampled, two draft_k groups beside a plain row); then
-   on the served Llama-3-8B-width weights, ``speculative: 4`` over HTTP
-   on the batched lane and on single-flight against vanilla greedy on the
-   same prompts (a repeated 509- and 128-token pattern, a random 64),
-   with tokens per model call, both tokens/s, exact K1 launches (65 a
-   model call) and K2 (32 a single-flight prefill, none batched); beam 1
+   on the served Llama-3-8B-width weights (16 layers), ``speculative:
+   4`` over HTTP on the batched lane and on single-flight against vanilla
+   greedy on the same prompts (a repeated 509- and 128-token pattern, a
+   random 64), with tokens per model call, both tokens/s, exact K1
+   launches (2·16+1 a model call) and K2 (16 a single-flight prefill,
+   none batched); beam 1 (all 32 layers)
    equals greedy and beam 4 reports its peak memory, exact launches.
 5e. (run after 5c, before 5d) the serving benches' twins
-   (``k8s_tpu_torch/harness/``) on the served Llama-3-8B-width weights:
+   (``k8s_tpu_torch/harness/``) on the served Llama-3-8B-width weights
+   (16 layers):
    ``bench_serve`` (``run_phase`` in ``run_bench``'s order: single_flight, batched and recorder-off twice
    in turns, sampled exclusive / batched, spec exclusive / batched over
-   grounded prompts; no request error, exact K1 (2·32+1 a model call) and
-   K2 (32 a prefill-mode call: in the single-flight and exclusive phases
+   grounded prompts; no request error, exact K1 (2·16+1 a model call) and
+   K2 (16 a prefill-mode call: in the single-flight and exclusive phases
    only); tokens/s, p50/p99, recorder TTFT/TPOT, the speedups and the
    recorder ratio as readings; the lane checks exact on the tiny model in
    f32 and, at Llama width, each differing token judged by its decode
@@ -142,7 +146,19 @@ names):
    a stream reseeded with the resume step (as the reference's), whose
    losses and final weights equal a control that restores the same
    checkpoint and trains on ``array_batches(seed=100)``; K1 at the ViT
-   shape [25216, 768] joins the kernel cases.
+   shape [25216, 768] joins the kernel cases.  ``resnet`` and ``vit``
+   build their steps with the bench cells' ``resnet_trainer`` /
+   ``vit_trainer`` and time them with their ``_time_steps``.
+8b. bench: ``k8s_tpu_torch/bench.py``'s five cells at their shapes with
+   fewer steps (``BENCH_KW``, ``BENCH_REPEATS=2``): ResNet-50 and
+   ViT-B/16 at B128, gpt2-small B8 L1024 with K2-K4 and its
+   plain-attention control, greedy decode B32 128+128 with its HBM
+   roofline, and the decode-depth A/Bs (one-shot and chunked prefill at
+   B32 L1024, beam 4 and greedy, B128, speculative on a periodic
+   prompt); the twin's line printed on a line of its own, complete,
+   every MFU and HBM share in (0, 1], each cell's K2-K4 launches equal
+   to ``bench_expected``, the flash and plain first losses within one
+   bf16 step, and no file at the repository root written.
 9. multi-process bring-up at world 1 (NCCL refuses two ranks on one
    card; worlds of 2 and 4 are held against JAX on the CPU over gloo):
    ``launcher.bootstrap.make_training_mesh`` makes a one-rank NCCL group;
@@ -242,6 +258,21 @@ REPORT: dict = {"cases": []}
 # holds its tp 4 tokens against them), the train phase's gpt2-small
 # serving export (mesh_nccl serves it)
 KEPT: dict = {}
+
+
+# The serving phases after serve_engine that drive its lanes again
+# (disagg, bench_serve, bench_kvtier, serve_spec) run the first 16 of its
+# 32 layers at full width: a depth cut that keeps the script inside its
+# time limit.
+CUT_LAYERS = 16
+
+
+def cut_depth(cfg, sd: dict, layers: int = CUT_LAYERS):
+    """``cfg`` and its state dict ``sd`` cut to their first ``layers``
+    layers (the same tensors: nothing is copied)."""
+    keep = {k: v for k, v in sd.items() if not k.startswith("layers.")
+            or int(k.split(".")[1]) < layers}
+    return dataclasses.replace(cfg, layers=layers), keep
 
 
 def fail(msg: str) -> None:
@@ -1650,7 +1681,7 @@ def serve_disagg(torch, tlib, server, common, requestlog, sd, trace):
     on the decode server only is fetched through ``kv_src`` by the
     prefill server: a hit, and a tail-only prefill.  Counters zeroed
     just before the kv_dest requests and read after the fetch: RMSNorm
-    at 2·32+1 launches per model call of both engines, no flash kernel.
+    at 2·16+1 launches per model call of both engines, no flash kernel.
     Then one more migration under a caller's W3C traceparent, tracing on
     (``traced_migration``: its ``kv_migrate`` span and the frame's trace
     id), and each stage of a 509-token migration timed on its own."""
@@ -1658,8 +1689,9 @@ def serve_disagg(torch, tlib, server, common, requestlog, sd, trace):
 
     from k8s_tpu_torch.models import kvxfer, placement
 
-    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
-                              use_fused_norm=True, dtype=torch.bfloat16)
+    cfg, sd = cut_depth(dataclasses.replace(
+        tlib.llama_8b(), use_flash_attention=True, use_fused_norm=True,
+        dtype=torch.bfloat16), sd)
     os.environ["K8S_TPU_REQUEST_LOG"] = "1"
     requestlog.set_active(None)
     torch.cuda.synchronize()
@@ -2005,17 +2037,18 @@ def llama_lane_equivalence(torch, tlib, decode, bench_serve, cfg, sd,
 
 def bench_serve_llama(torch, tlib, bridge, decode, common, sd, bench_serve):
     """``k8s_tpu_torch.harness.bench_serve``'s phases at the served width
-    and depth (``llama_8b``, bf16, both forward kernels, on
-    ``serve_engine``'s weights), in ``run_bench``'s order, each the twin's
-    ``run_phase`` (a real HTTP server, closed-loop clients, the recorder
-    cleared at the warm-up boundary): single_flight (slots 0), batched
+    (``llama_8b``, bf16, both forward kernels, on ``serve_engine``'s
+    weights, cut to their first 16 layers by ``cut_depth``), in
+    ``run_bench``'s order, each the twin's ``run_phase`` (a real HTTP
+    server, closed-loop clients, the recorder cleared at the warm-up
+    boundary): single_flight (slots 0), batched
     and batched_recorder_off twice each in turns, sampled_exclusive and
     sampled_batched (twice the clients), the grounded prompts, then
     spec_exclusive and spec_batched (twice the slots, clients and
     requests).  Slots 4, 4 clients, 1 request a client, 16 / 32 new
     tokens.  Each phase must answer every request; its counters, zeroed
-    just before and read just after, must equal 2·32+1 K1 launches a
-    model call (``ModelCalls``) and 32 K2 launches (one a layer) a
+    just before and read just after, must equal 2·16+1 K1 launches a
+    model call (``ModelCalls``) and 16 K2 launches (one a layer) a
     prefill-mode call, with K2 in the single-flight and exclusive phases
     and none in the batched ones.  The twin's lane checks must hold exactly on the tiny
     model in f32 on the card; at the served width each differing token
@@ -2023,8 +2056,9 @@ def bench_serve_llama(torch, tlib, bridge, decode, common, sd, bench_serve):
     recorder ratio are readings: ``run_bench``'s bounds were set on the
     reference's tiny CPU model."""
     bs = bench_serve
-    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
-                              use_fused_norm=True, dtype=torch.bfloat16)
+    cfg, sd = cut_depth(dataclasses.replace(
+        tlib.llama_8b(), use_flash_attention=True, use_fused_norm=True,
+        dtype=torch.bfloat16), sd)
     t_start = time.perf_counter()
     tcfg = dataclasses.replace(tlib.tiny_test(), use_flash_attention=True,
                                use_fused_norm=True)
@@ -2169,12 +2203,12 @@ def bench_kvtier_llama(torch, tlib, common, sd, bench_kvtier):
     rate, and the identity and dedup stages report no failure (each lane
     equal through promote, dedup skips blocks and saves bytes, deduped
     answers equal the local oracle).  Spill against evict-recompute
-    tokens/s is a reading.  K1 runs 2·32+1 times a model call; nothing
+    tokens/s is a reading.  K1 runs 2·16+1 times a model call; nothing
     prefills in prefill mode, so no K2."""
     kv = bench_kvtier
-    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
-                              use_fused_norm=True, dtype=torch.bfloat16,
-                              max_seq_len=KV_MAX_SEQ)
+    cfg, sd = cut_depth(dataclasses.replace(
+        tlib.llama_8b(), use_flash_attention=True, use_fused_norm=True,
+        dtype=torch.bfloat16, max_seq_len=KV_MAX_SEQ), sd)
     t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     failures: list = []
@@ -2319,14 +2353,15 @@ def serve_spec(torch, tlib, server, common, sd):
     same server, in turns (vanilla, spec, spec, vanilla).  Prompts: a
     seeded 23-token pattern repeated to 509 tokens, the same to 128, and
     a random 64.  Each lane's requests run with the counters zeroed just
-    before and read just after: K1 must show 2·32+1 launches per model
+    before and read just after: K1 must show 2·16+1 launches per model
     call (the engine's ``model_calls``; on single-flight every
     ``Transformer`` call, counted by ``ModelCalls``), K2 32 launches per
     single-flight prefill and none on the batched lane.  Spec tokens are
     held against vanilla greedy's on the same lane and across the lanes
     by ``token_check``."""
-    cfg = dataclasses.replace(tlib.llama_8b(), use_flash_attention=True,
-                              use_fused_norm=True, dtype=torch.bfloat16)
+    cfg, sd = cut_depth(dataclasses.replace(
+        tlib.llama_8b(), use_flash_attention=True, use_fused_norm=True,
+        dtype=torch.bfloat16), sd)
     # no prefix reuse: the prompts share a pattern, and a spec request
     # attaching its vanilla twin's blocks would skip the prefill the
     # vanilla request paid
@@ -4010,80 +4045,42 @@ def vision_batch(torch, B: int, seed: int):
     return x, torch.randint(0, 1000, (B,), generator=g, device="cuda")
 
 
-def resnet_trainer(torch, resnet, train_lib, x, y, stem: str, seed: int):
-    """``resnet50(dtype=bf16, stem=stem)`` with SGD(lr 0.1, momentum 0.9),
-    the ``optax.sgd(0.1, momentum=0.9)`` of the reference: ``(model,
-    step)``, where ``step()`` trains once on (x, y) and returns the
-    loss."""
-    model = resnet.resnet50(dtype=torch.bfloat16, stem=stem, device="cuda",
-                            seed=seed)
-    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
-
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss = train_lib.cross_entropy_loss(model(x, train=True), y)
-        loss.backward()
-        opt.step()
-        return loss.detach()
-    return model, step
-
-
-def vit_trainer(torch, vit, train_lib, cfg, x, y, weights):
-    """``ViT(cfg)`` from the state dict ``weights`` with AdamW
-    (``default_optimizer(1e-3, weight_decay=0.05)``, bench.py's cell):
-    ``(model, step)``, where ``step()`` trains once on (x, y) and returns
-    the loss."""
-    model = vit.ViT(cfg, device="cuda")
-    model.load_state_dict(weights)
-    opt = train_lib.default_optimizer(1e-3, weight_decay=0.05)
-    state = train_lib.init_state(model, opt)
-    train_step = train_lib.make_train_step(
-        lambda m, b: m(b), train_lib.cross_entropy_loss, opt)
-    return model, lambda: train_step(state, (x, y))[1]
-
-
-def resnet_path(torch, resnet, train_lib, common):
+def resnet_path(torch, bench, common):
     """``resnet50(dtype=bf16)`` at full width and depth (bench.py's
     ResNet-50 cell: B128 at 224x224x3, 1000 classes), random NHWC images
     and labels from a seed, trained with SGD(lr 0.1, momentum 0.9), the
-    ``optax.sgd(0.1, momentum=0.9)`` of the reference: 3 warm-up steps
-    (cuDNN's algorithm search, with ``cudnn.benchmark`` on for this
-    phase), then 10 timed steps, with the 7x7 stem and then the s2d
-    stem.  Per step: CUDA events around each step (device time of the
-    step's queue) and the host clock around all 10 (images/s).  The loss
-    and every BatchNorm running stat must be finite and must have moved;
-    no hand-written kernel may launch (the reference's convolutions are
-    XLA, not Pallas)."""
+    ``optax.sgd(0.1, momentum=0.9)`` of the reference, through the bench
+    cell's own ``resnet_trainer`` and ``_time_steps``
+    (``k8s_tpu_torch/bench.py``): 3 warm-up steps (cuDNN's algorithm
+    search, with ``cudnn.benchmark`` on for this phase), then 10 timed
+    steps, with the 7x7 stem and then the s2d stem (images/s from the host
+    clock around the 10).  The loss and every BatchNorm running stat must
+    be finite and must have moved; no hand-written kernel may launch (the
+    reference's convolutions are XLA, not Pallas)."""
     B = RESNET_BATCH
     x, y = vision_batch(torch, B, 31)
     flops = 3 * 2 * RESNET_GFLOP * 1e9 * B
-    bench = torch.backends.cudnn.benchmark
+    search = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     out, launches = {}, {}
     try:
         for stem in ("conv", "s2d"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            model, step = resnet_trainer(torch, resnet, train_lib, x, y,
-                                         stem, 32)
+            model, step = bench.resnet_trainer(x, y, stem, 32)
             stats0 = {n: b.clone() for n, b in model.named_buffers()}
+            losses = []
+
+            def run_step(state, step=step, losses=losses):
+                losses.append(step())
+                return state, losses[-1]
             common.reset_launches()
             t0 = time.perf_counter()
-            losses = [step() for _ in range(RESNET_WARMUP)]
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-            events = [torch.cuda.Event(enable_timing=True)
-                      for _ in range(RESNET_STEPS + 1)]
-            t0 = time.perf_counter()
-            events[0].record()
-            for i in range(RESNET_STEPS):
-                losses.append(step())
-                events[i + 1].record()
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
+            (wall_s,) = bench._time_steps(run_step, None, RESNET_STEPS,
+                                          RESNET_WARMUP)
+            warm_s = time.perf_counter() - t0 - wall_s
             launches[stem] = common.launches()
             losses = torch.stack(losses).tolist()
-            step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
             stats = dict(model.named_buffers())
             finite = all(math.isfinite(v) for v in losses) and all(
                 bool(torch.isfinite(b).all()) for b in stats.values())
@@ -4095,8 +4092,7 @@ def resnet_path(torch, resnet, train_lib, common):
                    "warmup_steps": RESNET_WARMUP, "warmup_s": warm_s,
                    "steps": RESNET_STEPS, "wall_s": wall_s,
                    "images_per_s": B * RESNET_STEPS / wall_s,
-                   "step_ms": step_ms,
-                   "step_ms_median": sorted(step_ms)[RESNET_STEPS // 2],
+                   "step_ms": wall_s / RESNET_STEPS * 1e3,
                    "flops_per_step": flops,
                    "peak_16bit_share":
                        flops / (wall_s / RESNET_STEPS) / PEAK_16BIT,
@@ -4114,11 +4110,11 @@ def resnet_path(torch, resnet, train_lib, common):
                      f"{launches[stem]} (expected none)")
             emit(rec)
             out[stem] = rec
-            del model, step, stats, stats0
+            del model, step, stats, stats0, run_step
             gc.collect()
             torch.cuda.empty_cache()
     finally:
-        torch.backends.cudnn.benchmark = bench
+        torch.backends.cudnn.benchmark = search
     REPORT["resnet"] = out
     return {k: sum(v[k] for v in launches.values()) for k in common.KERNELS}
 
@@ -4126,7 +4122,7 @@ def resnet_path(torch, resnet, train_lib, common):
 VIT_STEPS = 5  # a turn
 
 
-def vit_path(torch, vit, train_lib, common):
+def vit_path(torch, vit, train_lib, bench, common):
     """``ViT(vit_b16(remat=False))`` at full width (hidden 768, 12 layers,
     12 heads, ffn 2048, 224/16 -> 197 tokens), bf16 over f32 masters,
     B128, AdamW (``default_optimizer(1e-3, weight_decay=0.05)``, as
@@ -4148,7 +4144,7 @@ def vit_path(torch, vit, train_lib, common):
     x, y = vision_batch(torch, B, 41)
     base = vit.vit_b16(remat=False)
     flops = 3 * 2 * VIT_GFLOP * 1e9 * B
-    bench = torch.backends.cudnn.benchmark
+    search = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4159,8 +4155,7 @@ def vit_path(torch, vit, train_lib, common):
             t.copy_(0.5 + torch.rand(t.shape, generator=g, device="cuda"))
     runs = {}
     for fused in (True, False):
-        model, step = vit_trainer(
-            torch, vit, train_lib,
+        model, step = bench.vit_trainer(
             dataclasses.replace(base, use_fused_norm=fused), x, y, weights)
         runs[fused] = {"model": model, "step": step, "wall_s": [],
                        "launches": [], "losses": []}
@@ -4183,16 +4178,18 @@ def vit_path(torch, vit, train_lib, common):
             first[fused] = r["step"]().item()
         for fused in (True, False, False, True):
             r = runs[fused]
+            losses = []
+
+            def run_step(state, step=r["step"], losses=losses):
+                losses.append(step())
+                return state, losses[-1]
             torch.cuda.synchronize()
             common.reset_launches()
-            t0 = time.perf_counter()
-            losses = [r["step"]() for _ in range(VIT_STEPS)]
-            torch.cuda.synchronize()
-            r["wall_s"].append(time.perf_counter() - t0)
+            r["wall_s"] += bench._time_steps(run_step, None, VIT_STEPS, 0)
             r["launches"].append(common.launches())
             r["losses"] += torch.stack(losses).tolist()
     finally:
-        torch.backends.cudnn.benchmark = bench
+        torch.backends.cudnn.benchmark = search
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want_k1 = 25 * VIT_STEPS
     launches = {fused: {k: sum(lc[k] for lc in r["launches"])
@@ -4242,6 +4239,143 @@ def vit_path(torch, vit, train_lib, common):
     gc.collect()
     torch.cuda.empty_cache()
     return launches[True]
+
+
+# the bench cells at their shapes with fewer iterations: BENCH_REPEATS=2
+# and these arguments (the twin's defaults are 5 repeats of 30-40 steps)
+BENCH_REPEATS = 2
+BENCH_KW = {"vit": dict(iters=3, warmup=1), "decode": dict(calls=1),
+            "decode_depth": dict(calls=1),
+            "resnet50": dict(iters=3, warmup=1),
+            "transformer": dict(iters=3, warmup=1)}
+BENCH_CONTROL_REPEATS = 3  # as the twin's main() runs the control
+BENCH_LAYERS = 12          # gpt2-small's: one K2 (K3, K4) a layer a call
+# |flash - plain| first loss over |plain|: one bf16 step of the loss
+BENCH_LOSS_BOUND = 2 ** -8
+
+
+def bench_expected(cell: str, kw: dict, repeats: int) -> dict:
+    """K2-K4 launches a cell makes, from the code: the transformer step
+    runs K2 in its forward and K3 and K4 in its backward once a layer
+    (warm-up + repeats x iters steps); the plain-attention control none.
+    Each generate call's full-prompt prefill runs K2 once a layer, its
+    decode steps and chunked prefill (decode-mode chunks) none; a cell
+    calls ``generate`` once to start, ``warmup - 1`` more (decode) or once
+    more (decode_depth) and then repeats x calls times; decode_depth has
+    five sub-cells with a full prefill (one-shot, greedy, beam 4, the
+    sweep point, speculative) and the chunked one without.  ResNet and
+    ViT-B/16 (plain attention, no fused norm) launch nothing."""
+    counts = dict(flash_fwd=0, rms_norm=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+    if cell == "transformer":
+        steps = kw["warmup"] + repeats * kw["iters"]
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            counts[k] = BENCH_LAYERS * steps
+    elif cell == "decode":
+        calls = 1 + max(0, kw.get("warmup", 1) - 1) + repeats * kw["calls"]
+        counts["flash_fwd"] = BENCH_LAYERS * calls
+    elif cell == "decode_depth":
+        counts["flash_fwd"] = BENCH_LAYERS * 5 * (2 + repeats * kw["calls"])
+    return counts
+
+
+def bench_cells(torch, bench, common):
+    """``k8s_tpu_torch/bench.py``'s five cells on the card at their
+    shapes (ResNet-50 and ViT-B/16 B128, gpt2-small B8 L1024 with K2-K4
+    and its plain-attention control, greedy decode B32 128+128, the
+    decode-depth A/Bs) with fewer iterations (``BENCH_KW``,
+    ``BENCH_REPEATS=2``), recorded by the twin's ``Recorder`` into a file
+    of this script's under chip_reports/ and assembled into the twin's
+    line by ``bench.assemble``, printed on a line of its own.  Checks: a
+    complete line (no ``partial``); every MFU and the decode HBM share in
+    (0, 1]; each cell's K2-K4 launches, zeroed before it and read after,
+    equal to ``bench_expected``; the flash step's and the control's first
+    losses (the same seed, weights and batch) within ``BENCH_LOSS_BOUND``
+    of each other; all six records persisted; no file at the repository
+    root written or changed."""
+    t_start = time.perf_counter()
+
+    def root_files():
+        return {n: os.stat(os.path.join(REPO, n)).st_mtime_ns
+                for n in os.listdir(REPO)
+                if os.path.isfile(os.path.join(REPO, n))}
+    root0 = root_files()
+    kind = torch.cuda.get_device_name(0)
+    path = os.path.join(OUT_DIR, "bench_smoke_lastgood.json")
+    if os.path.exists(path):
+        os.remove(path)
+    recorder = bench.Recorder(path)
+    tf_kw = BENCH_KW["transformer"]
+    cells = (("vit", bench.bench_vit, BENCH_KW["vit"]),
+             ("decode", bench.bench_decode, BENCH_KW["decode"]),
+             ("decode_depth", bench.bench_decode_depth,
+              BENCH_KW["decode_depth"]),
+             ("resnet50", bench.bench_resnet50, BENCH_KW["resnet50"]),
+             ("transformer", bench.bench_transformer, tf_kw),
+             ("transformer_xla_control", bench.bench_transformer,
+              {**tf_kw, "use_flash": False,
+               "repeats": BENCH_CONTROL_REPEATS}))
+    results, launches, seconds = {}, {}, {}
+    repeats = os.environ.get("BENCH_REPEATS")
+    os.environ["BENCH_REPEATS"] = str(BENCH_REPEATS)
+    try:
+        for name, fn, kw in cells:
+            torch.cuda.synchronize()
+            common.reset_launches()
+            t0 = time.perf_counter()
+            results[name] = fn(**kw)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = common.launches()
+            recorder.record(name, results[name], True, kind)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if repeats is None:
+            del os.environ["BENCH_REPEATS"]
+        else:
+            os.environ["BENCH_REPEATS"] = repeats
+    line = bench.assemble(recorder, dict.fromkeys(bench.CELLS, True),
+                          allow_stale=False, device_kind=kind, n_chips=1)
+    print(json.dumps(line), flush=True)
+    expected = {name: bench_expected(name, kw, BENCH_REPEATS)
+                for name, _, kw in cells}
+    shares = {k: (line or {}).get(k) for k in (
+        "resnet50_mfu", "transformer_mfu", "vit_mfu", "decode_mfu",
+        "decode_hbm_utilization")}
+    first = {name: results[name]["first_loss"]
+             for name in ("transformer", "transformer_xla_control")}
+    loss_diff = abs(first["transformer"] - first["transformer_xla_control"])
+    loss_bound = BENCH_LOSS_BOUND * abs(first["transformer_xla_control"])
+    with open(path) as f:
+        persisted = sorted(json.load(f)["benchmarks"])
+    changed = sorted(n for n, t in root_files().items()
+                     if root0.get(n) != t)
+    rec = {"phase": "bench", "card": REPORT["card"],
+           "repeats": BENCH_REPEATS, "kwargs": BENCH_KW,
+           "seconds": seconds, "launches": launches, "expected": expected,
+           "shares": shares, "first_loss": first,
+           "first_loss_abs_diff": loss_diff, "loss_bound": loss_bound,
+           "persisted": persisted, "root_files_changed": changed,
+           "s": time.perf_counter() - t_start}
+    bad = []
+    if line is None or line.get("partial"):
+        bad.append("the line is partial")
+    if not all(isinstance(v, float) and 0 < v <= 1 for v in shares.values()):
+        bad.append(f"shares outside (0, 1]: {shares}")
+    if launches != expected:
+        bad.append(f"launches {launches} != expected {expected}")
+    if not loss_diff <= loss_bound:
+        bad.append(f"first losses {first} differ by {loss_diff} > "
+                   f"{loss_bound}")
+    if persisted != sorted(results):
+        bad.append(f"persisted {persisted}")
+    if changed:
+        bad.append(f"root files written: {changed}")
+    if bad:
+        fail(f"bench: {'; '.join(bad)}: {rec}")
+    emit(rec)
+    REPORT["bench"] = {**rec, "line": line}
+    return {k: sum(lc[k] for lc in launches.values()) for k in common.KERNELS}
 
 
 MNIST_ARGS = ["--device", "cuda", "--eval_holdout", "256",
@@ -6041,7 +6175,8 @@ PHASES = ("kernels", "parity", "engine_parity", "spec_parity",
           "serve", "serve_engine", "spill", "disagg", "bench_serve",
           "bench_kvtier", "bench_serve_mp", "serve_spec", "beam",
           "mesh_serve", "train", "grads", "llama_train", "moe_train",
-          "data", "native_reader", "profile_hook", "resnet", "vit", "mnist",
+          "data", "native_reader", "profile_hook", "resnet", "vit", "bench",
+          "mnist",
           "dist_parity", "fsdp_train", "gang", "mesh_nccl", "sp_kernels",
           "sp_model", "pp_train", "pp_llama", "ep_moe", "moe_serve")
 NEEDS = {name: ("serve_engine",) for name in (
@@ -6085,7 +6220,7 @@ def main(argv=None) -> int:
              "card")
     sys.path.insert(0, REPO)
     try:
-        from k8s_tpu_torch import dist_mnist, trace, train_lm
+        from k8s_tpu_torch import bench, dist_mnist, trace, train_lm
         from k8s_tpu_torch.harness import bench_kvtier, bench_serve
         from k8s_tpu_torch.harness import bench_serve_mp
         from k8s_tpu_torch.launcher import bootstrap
@@ -6244,11 +6379,14 @@ def main(argv=None) -> int:
         REPORT["native_phases_s"] = time.perf_counter() - t0
         emit({"phase": "native_done", "s": REPORT["native_phases_s"]})
     if "resnet" in run:
-        paths["train_resnet50_both_stems"] = resnet_path(
-            torch, resnet, train_lib, _common)
+        paths["train_resnet50_both_stems"] = resnet_path(torch, bench,
+                                                         _common)
     if "vit" in run:
         paths["train_vit_b16_fused_norm"] = vit_path(torch, vit, train_lib,
-                                                     _common)
+                                                     bench, _common)
+    if "bench" in run:
+        paths["bench"] = bench_cells(torch, bench, _common)
+        free()
     if "mnist" in run:
         paths["dist_mnist"] = mnist_path(torch, dist_mnist, mnist,
                                          mnist_data, train_lib, _common)

@@ -29,6 +29,10 @@ from k8s_tpu.models import transformer as jt
 from k8s_tpu_torch.models import bridge
 from k8s_tpu_torch.models import decode as td
 from k8s_tpu_torch.models import transformer as tt
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 SHAPE = dict(vocab_size=61, hidden=32, ffn_hidden=64, layers=2, heads=4,
              kv_heads=2, max_seq_len=64, remat=False)

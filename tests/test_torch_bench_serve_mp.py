@@ -13,6 +13,10 @@ import pytest
 
 from k8s_tpu.harness import bench_serve_mp as ref
 from k8s_tpu_torch.harness import bench_serve_mp as mp
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 
 @pytest.mark.parametrize("requests,max_new", [(1, 1), (3, 8), (7, 24),

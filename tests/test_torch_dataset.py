@@ -27,6 +27,10 @@ from k8s_tpu.models import transformer as jt
 from k8s_tpu_torch import train_lm
 from k8s_tpu_torch.models import bridge
 from k8s_tpu_torch.models import dataset as tds
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "tokens")

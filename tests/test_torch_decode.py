@@ -21,6 +21,10 @@ from k8s_tpu.models import transformer as jt
 from k8s_tpu_torch.models import bridge
 from k8s_tpu_torch.models import decode as td
 from k8s_tpu_torch.models import transformer as tt
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 NEW = 12
 

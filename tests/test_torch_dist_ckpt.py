@@ -39,6 +39,9 @@ from k8s_tpu_torch.models import checkpoint as tckpt
 from k8s_tpu_torch.models import train as ttrain
 from k8s_tpu_torch.models import transformer as tt
 
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MNIST = os.path.join(REPO, "tests", "fixtures", "mnist")
 

@@ -43,6 +43,10 @@ from k8s_tpu_torch.models.engine import (
 )
 from k8s_tpu_torch.models.transformer import TransformerConfig
 from k8s_tpu_torch.util import metrics as metrics_mod
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 WAIT = 60  # seconds any one request or thread may take here
 SHAPE = dict(vocab_size=61, hidden=32, ffn_hidden=64, layers=2, heads=4,

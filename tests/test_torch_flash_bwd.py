@@ -26,6 +26,10 @@ from k8s_tpu_torch.ops.flash_attention import (
     flash_bwd_plain,
     flash_fwd,
 )
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 BWD_TOL = 5e-4     # tests/test_ops.py flash grads
 WINDOW_TOL = 5e-5  # tests/test_ops.py windowed grads

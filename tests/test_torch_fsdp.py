@@ -44,6 +44,9 @@ from k8s_tpu_torch.models import bridge
 from k8s_tpu_torch.models import train as ttrain
 from k8s_tpu_torch.models import transformer as tt
 
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
+
 RTOL, ATOL = 1e-5, 1e-6
 STEPS, B, L = 3, 4, 16
 OPT = dict(lr=3e-4, weight_decay=0.01, clip_norm=0.1)

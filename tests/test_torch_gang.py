@@ -13,6 +13,10 @@ import math
 import pytest
 
 from k8s_tpu.e2e import multiprocess
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 WORKER = "k8s_tpu_torch.e2e.rendezvous_worker"
 

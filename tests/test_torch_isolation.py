@@ -58,7 +58,8 @@ def test_scan_sees_the_whole_package():
                  ("native", "dataloader.py"), ("dist_mnist.py",),
                  ("harness", "__init__.py"), ("harness", "bench_serve.py"),
                  ("harness", "bench_kvtier.py"),
-                 ("harness", "bench_serve_mp.py"), ("util", "util.py")):
+                 ("harness", "bench_serve_mp.py"), ("util", "util.py"),
+                 ("bench.py",)):
         assert os.path.join("k8s_tpu_torch", *part) in rel
 
 
@@ -72,7 +73,7 @@ def test_server_import_loads_nothing_of_k8s_tpu():
             "k8s_tpu_torch.launcher.bootstrap, "
             "k8s_tpu_torch.harness.bench_serve, "
             "k8s_tpu_torch.harness.bench_kvtier, "
-            "k8s_tpu_torch.harness.bench_serve_mp; "
+            "k8s_tpu_torch.harness.bench_serve_mp, k8s_tpu_torch.bench; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'k8s_tpu' or m.startswith('k8s_tpu.')); "
             "print(bad); sys.exit(1 if bad else 0)")

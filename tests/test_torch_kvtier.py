@@ -17,6 +17,10 @@ from k8s_tpu.models.paged import quantize_kv as jax_quantize_kv
 from k8s_tpu.router import ring
 from k8s_tpu_torch.models import engine as engine_lib
 from k8s_tpu_torch.models import kvtier
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 TOKENS = [(i * 7 + 3) % 256 for i in range(133)]
 

@@ -17,6 +17,10 @@ from k8s_tpu.parallel import mesh as jmesh
 from k8s_tpu.parallel import sharding as jsharding
 from k8s_tpu_torch.parallel import mesh as tmesh
 from k8s_tpu_torch.parallel import sharding as tsharding
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 AUTO = [dict(num_devices=8), dict(num_devices=8, tp=2),
         dict(num_devices=8, fsdp=2), dict(num_devices=8, tp=2, sp=2),

@@ -36,6 +36,10 @@ from k8s_tpu_torch.models.server import LmServer, serve
 from k8s_tpu_torch.models.transformer import TransformerConfig
 from k8s_tpu_torch.parallel import collectives
 from k8s_tpu_torch.util import metrics as metrics_mod
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 WAIT = 60
 SHAPE = dict(vocab_size=61, hidden=64, ffn_hidden=128, layers=2, heads=8,

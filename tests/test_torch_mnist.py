@@ -29,6 +29,10 @@ from k8s_tpu_torch.models import bridge
 from k8s_tpu_torch.models import mnist as tmnist
 from k8s_tpu_torch.models import mnist_data as tdata
 from k8s_tpu_torch.models import train as ttrain
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MNIST = os.path.join(REPO, "tests", "fixtures", "mnist")

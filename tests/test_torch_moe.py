@@ -27,6 +27,10 @@ from k8s_tpu_torch.models import bridge, moe
 from k8s_tpu_torch.models import data as tdata
 from k8s_tpu_torch.models import train as ttrain
 from k8s_tpu_torch.models import transformer as tt
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 TOL = 1e-4
 OP_TOL = 1e-5

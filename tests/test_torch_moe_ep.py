@@ -41,6 +41,9 @@ from k8s_tpu.parallel.mesh import MeshConfig, make_mesh
 from k8s_tpu_torch.models import bridge, moe
 from k8s_tpu_torch.parallel.collectives import MeshRings, ThreadRing
 
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
+
 VAL_TOL, GRAD_TOL = 2e-5, 5e-5
 E, D, F = 4, 16, 32
 

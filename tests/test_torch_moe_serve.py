@@ -28,6 +28,10 @@ from k8s_tpu_torch import serve_lm
 from k8s_tpu_torch.models import bridge, moe, serving
 from k8s_tpu_torch.models import server as server_mod
 from k8s_tpu_torch.models.transformer import TransformerConfig, Transformer
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 SHAPE = dict(vocab_size=256, hidden=32, ffn_hidden=64, layers=2, heads=4,
              kv_heads=2, max_seq_len=128, remat=False, num_experts=4,

@@ -53,6 +53,9 @@ def _connect(bus_mod, follower_mod, pipelined):
     t.start()
     bus.accept_workers()
     t.join(30)
+    assert not t.is_alive(), "the follower never connected"
+    # a recv that never returns fails the test instead of hanging it
+    box["f"]._sock.settimeout(30)
     return bus, box["f"]
 
 

@@ -26,6 +26,10 @@ from k8s_tpu_torch.ops.flash_attention import (
     flash_fwd_plain,
 )
 from k8s_tpu_torch.ops.fused_norm import rms_norm, rms_norm_plain
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 ATOL = RTOL = 2e-5  # the reference's flash tolerance (tests/test_ops.py)
 

@@ -29,6 +29,10 @@ from k8s_tpu.util.metrics import Registry as JaxRegistry
 from k8s_tpu_torch.models import bridge, serving
 from k8s_tpu_torch.models.server import LmServer, serve
 from k8s_tpu_torch.models.transformer import Transformer
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOL = os.path.join(REPO, "tools", "orbax_to_torch.py")

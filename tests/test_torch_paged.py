@@ -26,6 +26,10 @@ from k8s_tpu.models import placement as jax_placement
 from k8s_tpu.models import transformer as jt
 from k8s_tpu_torch.models import bridge, kvblocks, paged, placement
 from k8s_tpu_torch.models import transformer as tt
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 N, BS, HKV, H, D = 11, 4, 2, 4, 8
 

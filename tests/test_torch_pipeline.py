@@ -26,6 +26,10 @@ from k8s_tpu.parallel import pipeline as jpl
 from k8s_tpu.parallel.mesh import MeshConfig, make_mesh
 from k8s_tpu_torch.parallel import pipeline as tpl
 from k8s_tpu_torch.parallel.collectives import ThreadRing
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 TOL = 2e-5
 V, D = 16, 8

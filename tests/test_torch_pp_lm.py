@@ -49,6 +49,9 @@ from k8s_tpu_torch.models import pp_lm as tpp
 from k8s_tpu_torch.models import transformer as tt
 from k8s_tpu_torch.parallel.collectives import ThreadRing
 
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
+
 RTOL, ATOL, PARAM_ATOL = 1e-5, 2e-6, 5e-6
 B, L = 8, 16
 OPT = dict(lr=3e-4, weight_decay=0.01, clip_norm=0.1)

@@ -22,6 +22,10 @@ from k8s_tpu.models import train as jtrain
 from k8s_tpu_torch.models import bridge
 from k8s_tpu_torch.models import resnet as tr
 from k8s_tpu_torch.models import train as ttrain
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 TOL = 1e-4
 STATS_RTOL, STATS_ATOL = 1e-5, 1e-6

@@ -18,6 +18,10 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 try:  # jax >= 0.8
     from jax import shard_map

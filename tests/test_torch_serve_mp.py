@@ -29,6 +29,10 @@ import urllib.request
 import pytest
 
 from k8s_tpu_torch.models import mesh_serve, mp_serve
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_world  # noqa: E402

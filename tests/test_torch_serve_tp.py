@@ -30,6 +30,10 @@ from k8s_tpu.parallel.mesh import MeshConfig, make_mesh
 from k8s_tpu_torch.models import bridge, paged
 from k8s_tpu_torch.models import transformer as tt
 from k8s_tpu_torch.parallel import collectives, sharding
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 SHAPE = dict(vocab_size=61, hidden=64, ffn_hidden=128, layers=2, heads=8,
              kv_heads=4, max_seq_len=64, remat=False)

@@ -34,6 +34,10 @@ from k8s_tpu_torch import trace
 from k8s_tpu_torch.models import bridge, requestlog, serving
 from k8s_tpu_torch.models.server import LmServer, serve
 from k8s_tpu_torch.models.transformer import TransformerConfig
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = dict(vocab_size=256, hidden=32, ffn_hidden=64, layers=2, heads=4,

@@ -43,6 +43,9 @@ from k8s_tpu.parallel.mesh import MeshConfig, make_mesh
 from k8s_tpu_torch import train_lm
 from k8s_tpu_torch.models import bridge
 
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
+
 RTOL, ATOL, PARAM_ATOL, GRAD_ATOL = 1e-5, 1e-6, 5e-6, 2e-6
 STEPS, B, L = 3, 4, 32
 OPT = dict(lr=3e-4, weight_decay=0.01, clip_norm=0.1)

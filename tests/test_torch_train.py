@@ -32,6 +32,10 @@ from k8s_tpu_torch.models import train as ttrain
 from k8s_tpu_torch.models import transformer as tt
 from k8s_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
 from k8s_tpu_torch.ops.fused_norm import rms_norm
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 OP_TOL = 1e-5
 MODEL_TOL = 5e-4

@@ -17,6 +17,10 @@ import torch
 
 from k8s_tpu_torch import train_lm
 from k8s_tpu_torch.models import checkpoint, server
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--device=cpu", "--preset=tiny", "--batch_size=8", "--seq_len=64",

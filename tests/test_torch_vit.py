@@ -26,6 +26,10 @@ from k8s_tpu_torch.models import train as ttrain
 from k8s_tpu_torch.models import vit as tv
 from k8s_tpu_torch.models.mnist_data import load_dataset
 from k8s_tpu_torch.models.transformer import rotary_embedding
+import torch_world
+
+_one_torch_thread = pytest.fixture(autouse=True)(
+    torch_world.one_torch_thread)
 
 TOL = 1e-4
 MNIST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",

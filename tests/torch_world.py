@@ -37,6 +37,23 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def one_torch_thread():
+    """The body of the port's CPU tests' autouse fixture
+    (``pytest.fixture(autouse=True)(torch_world.one_torch_thread)``):
+    torch's intra-op threads pinned to one while a test runs.  Beside the
+    other test workers more threads oversubscribe the host (a 60-step
+    tiny ViT took 516 s instead of 5); spawned workers get
+    ``OMP_NUM_THREADS=1`` for the same reason."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def gang_envs(n: int, *, num_slices: int = 1, extra_env=None) -> list:
     """Each of an n-worker gang's envs: the operator's (``localhost_env``
     of a TFJob from ``build_gang_tfjob``), on the CPU, the repository on
