@@ -85,7 +85,18 @@ names):
    identity, dedup and K1); ``bench_serve_mp`` (``_arm(1)``: a
    one-process NCCL serving gang at the twin's width, exit 0, tp 1, its
    greedy tokens equal to an in-process ``LmServer``'s, no kernel
-   launched by its plain-flag model).
+   launched by its plain-flag model); ``bench_disagg`` (needs no other
+   phase: ``measure`` and ``judge`` with the twin's workload on three pod
+   processes a topology, 1 prefill + 2 decode then 3 collapsed, each
+   pinned to a third of the host's cores and drawing its own Llama-3-8B
+   width weights, 16 layers, ``max_seq_len`` 128; no request error,
+   migrations, collapsed convoys, every pod's weight digest equal to this
+   process's draw, exact K1 (2·16+1 a pod's model call) and no K2-K4 on
+   every pod, the routed greedy and sampled answers equal to the same hop
+   in this process and that within ``token_check`` / ``draws_check`` of
+   the twin's local oracle; the two p99 ratios beside their bounds as
+   readings, blocks/s migrated, migration seconds, each pod's bring-up
+   and peak memory).
 6. train: ``k8s_tpu_torch.train_lm.main`` trains the gpt2-small preset at
    full width and depth (bf16, flash on, synthetic corpus) with
    checkpoints, exports a serving artifact and generates; the counters,
@@ -2342,6 +2353,190 @@ def bench_serve_mp_card(torch, server, mp_serve, bench_serve_mp):
     emit(rec)
     REPORT["bench_serve_mp"] = rec
     return c["launches"]
+
+
+# bench_disagg's served model: llama_8b width at the later serving phases'
+# depth, max_seq_len cut to the twin's bench model's (long_len 112 + 5 fit)
+DISAGG_MODEL = {"preset": "llama_8b", "layers": CUT_LAYERS,
+                "max_seq_len": 128, "dtype": "bfloat16",
+                "use_flash_attention": True, "use_fused_norm": True}
+DISAGG_WORKLOAD = dict(shorts=4, longs=3, slots=12, duration_s=4.0,
+                       max_new_short=17, max_new_long=5, long_len=112,
+                       phase_tokens=48, hidden=256, layers=4)  # the twin's
+
+
+def disagg_hop(torch, engine_lib, cfg, sd, body) -> list:
+    """``body`` through the disaggregated hop in this process: a prefill
+    engine and a decode engine at the pods' 12 slots over the same weights,
+    ``prefill_export`` then ``submit_prefilled`` with the exported blocks
+    and generator state, as the pods' servers call them."""
+    import numpy as np
+
+    kw = dict(temperature=float(body.get("temperature", 0.0)),
+              top_k=body.get("top_k"))
+    n = body["max_new_tokens"]
+    pre = engine_lib.Engine(cfg, sd, slots=12, queue_limit=16,
+                            device="cuda")
+    dec = engine_lib.Engine(cfg, sd, slots=12, queue_limit=16,
+                            device="cuda")
+    try:
+        ex = pre.prefill_export(np.asarray(body["tokens"], np.int32), n,
+                                seed=int(body.get("seed", 0)), timeout=600,
+                                **kw)
+        if ex["done"]:
+            return [int(t) for t in ex["tokens"]]
+        return [int(t) for t in dec.submit_prefilled(
+            np.asarray(ex["ids"], np.int32), ex["blocks"],
+            first_token=int(ex["first"]), key=ex["key"], max_new_tokens=n,
+            block_size=ex["block_size"], timeout=600, **kw)]
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+
+
+def bench_disagg_card(torch, tlib, decode, engine_lib, _build, bench_disagg):
+    """``k8s_tpu_torch.harness.bench_disagg`` at the served width:
+    ``measure`` with the twin's workload, call for call, on three pod
+    processes a topology (1 prefill + 2 decode, then 3 collapsed), each
+    pinned to a third of the host's cores and holding its own llama_8b
+    weights (16 of 32 layers, bf16, K1 and K2 on, ``max_seq_len`` 128)
+    drawn by ``bridge.init_params`` from seed 0, all on this card; then
+    ``judge``.  The kernels are built first (no pod runs nvcc) and this
+    process's cached blocks returned.  Held exactly: no request error in
+    any phase of either arm, the identity probes migrated, blocks migrated
+    in the storm phases, collapsed convoys, each pod's weight digest equal
+    to this process's draw, and on every pod K1 = (2·16+1) x its engine's
+    ``model_calls`` with K2-K4 at 0 (engine prefill runs through the paged
+    attention).  Identity: the routed greedy and sampled answers must
+    equal the same hop run in this process (``disagg_hop``), which is
+    held against the twin's local oracle (``Engine(slots=2)``) token by
+    token, or, where bf16 rounds otherwise at 12 slots than at 2, by
+    ``token_check`` (greedy) and ``draws_check`` (sampled, with each
+    side's recorded draws).  The two p99 ratios are readings beside their
+    bounds: one card's three processes time-share the GPU, where the
+    reference's pods each had their own cores."""
+    import copy
+
+    bd = bench_disagg
+    t_start = time.perf_counter()
+    nvcc_s = _build.build_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, wl = DISAGG_MODEL, DISAGG_WORKLOAD
+    cfg, sd = bd.build_pod_model(model, wl["hidden"], wl["layers"], "cuda")
+    digest = bd.weights_digest(sd)
+    t0 = time.perf_counter()
+    with DrawLog(torch, decode) as oracle_draws:  # only the oracle draws here
+        arms = bd.measure(**wl, model=model, device="cuda")
+    measure_s = time.perf_counter() - t0
+    identity = copy.deepcopy(arms["disaggregated"]["identity"])
+    result, failures = bd.judge(arms, **wl, model=model)
+    errors = {name: sum(p["error_count"] for p in arm["phases"].values())
+              for name, arm in arms.items()}
+    storm_blocks = sum(arms["disaggregated"]["phases"][p]["blocks_migrated"]
+                       for p in ("storm1x", "storm2x"))
+    if any(errors.values()) or identity["migrations"] < 1 \
+            or storm_blocks < 1 \
+            or arms["collapsed"]["prefill_convoys_total"] < 1:
+        fail(f"bench_disagg: request errors {errors}, identity migrations "
+             f"{identity['migrations']}, storm blocks {storm_blocks}, "
+             f"collapsed convoys {arms['collapsed']['prefill_convoys_total']}"
+             f"; twin failures {failures}")
+    launches = dict.fromkeys(("flash_fwd", "rms_norm", "flash_bwd_dq",
+                              "flash_bwd_dkv"), 0)
+    pods = {}
+    for name, arm in arms.items():
+        pods[name] = arm["pods"]
+        for i, pod in enumerate(arm["pods"]):
+            st = pod["stats"]
+            if st is None or pod["exit_code"] != 0 \
+                    or pod["weights"] != digest:
+                fail(f"bench_disagg {name} pod {i}: {pod} (this process "
+                     f"drew {digest})")
+            want = {"flash_fwd": 0,
+                    "rms_norm": (2 * cfg.layers + 1) * st["model_calls"],
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            if st["launches"] != want or not st["model_calls"]:
+                fail(f"bench_disagg {name} pod {i} ({pod['role']!r}): "
+                     f"launches {st['launches']}, expected {want} "
+                     f"({st['model_calls']} model calls)")
+            for k, v in st["launches"].items():
+                launches[k] += v
+    # identity: routed == the in-process hop, exactly; the hop against
+    # the oracle, token by token or within bf16's rounding
+    t0 = time.perf_counter()
+    lm = tlib.Transformer(cfg, sd, device="cuda")  # shares the weights
+    buckets = decode.prefill_buckets_for(cfg)
+    ident = {"migrations": identity["migrations"]}
+    for lane in ("greedy", "sampled"):
+        body = {"tokens": bd._long_prompt(7, 7, wl["long_len"]),
+                "max_new_tokens": 12}
+        if lane == "sampled":
+            body.update(temperature=1.0, top_k=7, seed=1234)
+        with DrawLog(torch, decode) as hop_draws:
+            hop = disagg_hop(torch, engine_lib, cfg, sd, body)
+        routed, local = identity[lane]["routed"], identity[lane]["local"]
+        if routed != hop:
+            fail(f"bench_disagg {lane}: the routed answer {routed} is not "
+                 f"the in-process hop's {hop}")
+        what = f"bench_disagg {lane} identity"
+        if lane == "greedy":
+            rec = token_check(torch, lm, body["tokens"], hop, local, what,
+                              buckets)
+        else:
+            rec = draws_check(torch, lm, body["tokens"], hop, local,
+                              (hop_draws.events, oracle_draws.events), 1.0,
+                              what, buckets)
+        ident[lane] = {"routed_equals_local": routed == local,
+                       "routed_equals_hop": True, "check": rec,
+                       "routed": routed, "local": local}
+    identity_s = time.perf_counter() - t0
+    del lm, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    dis, col = result["disaggregated"], result["collapsed"]
+
+    def phases(arm):
+        return {n: {k: p.get(k) for k in (
+            "short_requests", "long_requests", "short_p50_s", "short_p99_s",
+            "long_p50_s", "blocks_migrated", "blocks_per_s_migrated")
+            if k in p} for n, p in arm["phases"].items()}
+    value, col_ratio = result["value"], result["collapsed_ratio"]
+    rec = {"phase": "bench_disagg", "card": REPORT["card"],
+           "config": "llama_8b bf16 flash+fused, 16 layers, max_seq_len "
+                     "128, bridge.init_params seed 0 in each pod; "
+                     "k8s_tpu_torch.harness.bench_disagg measure + judge",
+           "model": model,
+           "reduced": {"layers": [32, CUT_LAYERS],
+                       "max_seq_len": [8192, model["max_seq_len"]]},
+           "workload": result["workload"],
+           "disaggregated_ratio": value, "collapsed_ratio": col_ratio,
+           "flat_factor_bound": result["flat_factor_bound"],
+           "convoy_factor_bound": result["convoy_factor_bound"],
+           "within_bound": {
+               "flat": value is not None
+               and value <= result["flat_factor_bound"],
+               "convoy": col_ratio is not None
+               and col_ratio >= result["convoy_factor_bound"]},
+           "twin_failures": failures,
+           "phases": {"disaggregated": phases(dis),
+                      "collapsed": phases(col)},
+           "prefill_convoys_total": {
+               "disaggregated": dis["prefill_convoys_total"],
+               "collapsed": col["prefill_convoys_total"]},
+           "migrations": dis["migrations"],
+           "migrate_seconds_total": dis["migrate_seconds_total"],
+           "migrate_s_per_migration": dis["migrate_s_per_migration"],
+           "transfer_overhead_s_per_token":
+               dis["transfer_overhead_s_per_token"],
+           "kv_exports": dis["kv_exports"], "kv_imports": dis["kv_imports"],
+           "identity": ident, "weights": digest, "pods": pods,
+           "launches": launches, "nvcc_s": nvcc_s, "measure_s": measure_s,
+           "identity_s": identity_s,
+           "phase_s": time.perf_counter() - t_start}
+    emit(rec)
+    REPORT["bench_disagg"] = rec
+    return launches
 
 
 def serve_spec(torch, tlib, server, common, sd):
@@ -6173,8 +6368,8 @@ def mesh_nccl(torch, engine_lib, server, serving, mesh_serve, collectives,
 PHASES = ("kernels", "parity", "engine_parity", "spec_parity",
           "mesh_parity", "train_parity", "moe_parity", "vision_parity",
           "serve", "serve_engine", "spill", "disagg", "bench_serve",
-          "bench_kvtier", "bench_serve_mp", "serve_spec", "beam",
-          "mesh_serve", "train", "grads", "llama_train", "moe_train",
+          "bench_kvtier", "bench_serve_mp", "bench_disagg", "serve_spec",
+          "beam", "mesh_serve", "train", "grads", "llama_train", "moe_train",
           "data", "native_reader", "profile_hook", "resnet", "vit", "bench",
           "mnist",
           "dist_parity", "fsdp_train", "gang", "mesh_nccl", "sp_kernels",
@@ -6221,8 +6416,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     try:
         from k8s_tpu_torch import bench, dist_mnist, trace, train_lm
-        from k8s_tpu_torch.harness import bench_kvtier, bench_serve
-        from k8s_tpu_torch.harness import bench_serve_mp
+        from k8s_tpu_torch.harness import bench_disagg, bench_kvtier
+        from k8s_tpu_torch.harness import bench_serve, bench_serve_mp
         from k8s_tpu_torch.launcher import bootstrap
         from k8s_tpu_torch.models import bridge, checkpoint, dataset, decode
         from k8s_tpu_torch.models import mesh_serve, moe, mp_serve, pp_lm
@@ -6327,6 +6522,10 @@ def main(argv=None) -> int:
     if "bench_serve_mp" in run:
         paths["bench_serve_mp_nccl_world1"] = bench_serve_mp_card(
             torch, server, mp_serve, bench_serve_mp)
+        free()
+    if "bench_disagg" in run:
+        paths["bench_disagg_llama_8b_3_pods"] = bench_disagg_card(
+            torch, tlib, decode, engine_lib, _build, bench_disagg)
         free()
     REPORT["bench_phases_s"] = time.perf_counter() - t0
     emit({"phase": "bench_done", "s": REPORT["bench_phases_s"]})
