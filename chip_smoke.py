@@ -23,6 +23,15 @@ names):
    dq kernel writes against a torch reduction; RMSNorm at every body its
    plan picks (row, stream, scalar; strided rows), timed over rotated
    buffers larger than the L2, its host time a call beside F.rms_norm's.
+   Then the head_dim cases of K2-K4: timed at Phi-3-mini's (D 96 on the
+   D-128 wgmma body) and Gemma-7B's (D 256 on the Dp-256 body) attention
+   shapes at L 2048, and once each for correctness at D 80 (GQA 4, window
+   48), 256 (f16 ragged, bidirectional Lk != L), 40, 24, the generic body
+   (timed at D 100 and L 2048; once at bf16 D 100 with an expanded k and
+   D 320, f32 D 160), operands the tiled body reads as contiguous copies
+   (an expanded k, a misaligned q, a strided head_dim) and B*H 65,544,
+   held whole; each record names its plan's body and padded width, which
+   the build must have compiled.
 4. parity: the tiny test model (f32, both kernels on) generates the same
    greedy tokens on cuda (kernels) and cpu (plain versions), and its
    logits agree; then it trains 5 Adam steps on each from the same
@@ -109,6 +118,16 @@ names):
    RMSNorm kernel with exact launch counts.  ``python -m
    k8s_tpu_torch.serve_lm`` runs ``--beam``, ``--chunked_prefill`` and
    ``--speculative`` on the exported artifact with exact launch counts.
+6b. head_dims: the attention and MLP widths of Phi-3-mini-4k (hidden
+   3072, ffn 8192, 32 layers, 32/32 heads, head_dim 96, vocab 32064) and
+   Gemma-7B (hidden 3072, ffn 24576, 28 layers, 16/16 heads, head_dim
+   256, vocab 256000) on the Llama-architecture Transformer, bf16,
+   random weights from a seed: single-flight serving at full depth over
+   HTTP (a 509-token prompt, 32 greedy tokens; K2 = layers, K1 exact;
+   tokens against the plain path's by ``token_check``), then the
+   ``models/train.py`` step at 2 layers (B2 L2048 and B1 L4096; K1-K4
+   exact; loss and gradients against the plain-attention step by
+   ``grads_at_width``'s bounds).
 7. MoE, tracing, data: ``moe_parity`` (the tiny model with 4 experts,
    top-2, f32: greedy tokens, logits, 3 steps of ``make_moe_apply_fn``
    training, aux losses and per-expert kept pairs on cuda against cpu);
@@ -272,9 +291,9 @@ KEPT: dict = {}
 
 
 # The serving phases after serve_engine that drive its lanes again
-# (disagg, bench_serve, bench_kvtier, serve_spec) run the first 16 of its
-# 32 layers at full width: a depth cut that keeps the script inside its
-# time limit.
+# (disagg, bench_serve, bench_kvtier, serve_spec), and bench_disagg's pods,
+# run the first 16 of its 32 layers at full width: a depth cut that keeps
+# the script inside its time limit.
 CUT_LAYERS = 16
 
 
@@ -411,26 +430,40 @@ def ptxas_report(_build, source: str, fn: str) -> dict:
     return rep
 
 
-def build_report(_build, kernel: str, dtype, D: int, split=False) -> dict:
-    """Registers, spills and shared memory of the body that runs ``kernel``
-    (flash_fwd, flash_bwd_dq or flash_bwd_dkv) for this type and head_dim:
-    the first from nvcc's ptxas report in ``_build.BUILD_LOGS``, the
-    dynamic shared memory from the library's own size query."""
+def build_report(_build, kernel: str, dtype, plan, split=False) -> dict:
+    """Registers, spills and shared memory of the body ``plan`` (the
+    kernel's ``_fwd_plan`` / ``_dq_plan`` / ``_dkv_plan``) names for
+    ``kernel`` (flash_fwd, flash_bwd_dq or flash_bwd_dkv) at this type: the
+    first from nvcc's ptxas report in ``_build.BUILD_LOGS``, the dynamic
+    shared memory from the library's own size query.  The build must agree
+    with the plan: the library takes its (type, padded width) and, where
+    nvcc ran in this process, it compiled the kernel the plan names."""
     code = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}[str(dtype)]
-    body = "fma" if code == 0 else ("wgmma" if D >= 64 else "mma")
-    tmpl = f"Li{D}E" if code == 0 else f"{_TYPE_TOKENS[str(dtype)]}Li{D}E"
-    if kernel == "flash_fwd":
-        source, fn = "flash_fwd", f"flash_fwd_{body}I" + ("f" if code == 0 else "") + tmpl
-        smem = _build.load(source).k8s_flash_fwd_smem(code, D)
+    tok = "f" if code == 0 else _TYPE_TOKENS[str(dtype)]
+    body, dp = plan.body, plan.dp
+    source = "flash_fwd" if kernel == "flash_fwd" else "flash_bwd"
+    fn = f"{kernel}_{body}I"
+    if body == "generic":
+        fn += f"{tok}E"
+        smem = 0
     else:
-        source, which = "flash_bwd", kernel[len("flash_bwd_"):]
-        fn = f"flash_bwd_{which}_{body}I" + tmpl
-        if body == "wgmma" and which == "dkv":
-            fn = f"flash_bwd_dkv_wgmmaI{_TYPE_TOKENS[str(dtype)]}" \
-                 f"{'f' if split else 'S1_'}Li{D}E"
-        smem = _build.load(source).k8s_flash_bwd_smem(int(which == "dkv"), code, D)
-    return {"body": f"{kernel}:{body}", "entry": fn, "smem_dynamic_bytes": smem,
-            **ptxas_report(_build, source, fn)}
+        if kernel == "flash_bwd_dkv" and body == "wgmma":
+            fn += f"{tok}{'f' if split else 'S1_'}Li{dp}E"
+        elif kernel != "flash_fwd" and code == 0:
+            fn += f"Li{dp}E"
+        else:
+            fn += f"{tok}Li{dp}E"
+        lib = _build.load(source)
+        smem = lib.k8s_flash_fwd_smem(code, dp) if kernel == "flash_fwd" \
+            else lib.k8s_flash_bwd_smem(int(kernel == "flash_bwd_dkv"), code, dp)
+        if smem < 0:
+            fail(f"{kernel}: the plan names {body} at Dp {dp} for {dtype}, "
+                 "which the library does not build")
+    rep = ptxas_report(_build, source, fn)
+    if source in _build.BUILD_LOGS and rep["registers"] is None:
+        fail(f"{kernel}: the plan names {fn}, which nvcc did not compile")
+    return {"body": f"{kernel}:{body}", "dp": dp, "entry": fn,
+            "smem_dynamic_bytes": smem, **rep}
 
 
 def rms_build_report(_build, plan, x_dtype, s_dtype) -> dict:
@@ -562,6 +595,67 @@ def visible_pairs(L: int, Lk: int, causal: bool, window) -> int:
     return L * Lk
 
 
+# The head_dim cases (both directions): (name, B, H, Hkv, L, Lk, D, dtype,
+# causal, window, layout).  The first three are timed: at the attention
+# shapes of Phi-3-mini (D 96 on the D-128 wgmma body) and Gemma-7B (D 256
+# on the Dp-256 body; the FLOPs of llama_2048), and Phi-3-mini's at D 100
+# (no multiple of 8: the generic body); the rest run once each for
+# correctness: every body and padding the plans pick beside the 64/128
+# ones, the generic body's types, head_dims and row layouts (read in
+# place), the layouts the tiled bodies read as contiguous copies, and a
+# B*H past grid.y's 65535.
+HEAD_DIM_TIMED = ("phi3_2048", "gemma_2048", "d100_2048_generic")
+
+
+def head_dim_cases(torch) -> list:
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    return [("phi3_2048", 1, 32, 32, 2048, 2048, 96, bf, True, None, None),
+            ("gemma_2048", 1, 16, 16, 2048, 2048, 256, bf, True, None, None),
+            ("d100_2048_generic", 1, 32, 32, 2048, 2048, 100, bf, True, None,
+             None),
+            ("d80_g4_window_48", 1, 8, 2, 509, 509, 80, bf, True, 48, None),
+            ("d256_f16_ragged_301", 2, 8, 2, 301, 301, 256, f16, True, None,
+             None),
+            ("d256_cross", 1, 8, 2, 301, 1000, 256, bf, False, None, None),
+            ("d40_bf16", 2, 4, 4, 300, 300, 40, bf, True, None, None),
+            ("d24_f16", 2, 8, 2, 301, 301, 24, f16, True, None, None),
+            ("d100_expanded_k_generic", 1, 8, 2, 257, 257, 100, bf, True,
+             None, "expand_k"),
+            ("d320_bf16_generic", 1, 8, 2, 257, 257, 320, bf, True, None,
+             None),
+            ("f32_d96", 1, 4, 2, 130, 130, 96, f32, True, None, None),
+            ("f32_d160_generic", 1, 4, 2, 130, 130, 160, f32, True, 16,
+             None),
+            ("expanded_k_copied", 1, 8, 2, 257, 257, 64, bf, True, None,
+             "expand_k_heads"),
+            ("misaligned_q_copied", 1, 8, 2, 257, 257, 64, bf, True, None,
+             "misaligned_q"),
+            ("strided_d_copied", 1, 8, 2, 257, 257, 64, bf, True, None,
+             "strided_d"),
+            ("bh_65544_l16", 2, 32772, 32772, 16, 16, 64, bf, True, None,
+             None)]
+
+
+def flash_operands(torch, g, B, H, Hkv, L, Lk, D, dt, layout, do=False):
+    """q, k, v (and do) for a case, in ``layout``: None (contiguous), an
+    expanded k (stride-0 rows; or stride-0 heads, every kv head one head's
+    keys: with the same key in every row, dq is 0 and only the kernels'
+    rounding is left of it), a q view 2 bytes past a 16-byte boundary,
+    or a q whose head_dim has stride 2."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+    q, k, v = rand(B, H, L, D), rand(B, Hkv, Lk, D), rand(B, Hkv, Lk, D)
+    if layout == "expand_k":
+        k = k[:, :, :1].expand(B, Hkv, Lk, D)
+    elif layout == "expand_k_heads":
+        k = k[:, :1].expand(B, Hkv, Lk, D)
+    elif layout == "misaligned_q":
+        q = rand(B * H * L * D + 1)[1:].view(B, H, L, D)
+    elif layout == "strided_d":
+        q = rand(B, H, L, 2 * D)[..., ::2]
+    return (q, k, v, rand(B, H, L, D)) if do else (q, k, v)
+
+
 def flash_cases(torch, F, flash, _build):
     """Flash forward: q [B, H, L, D], k/v [B, Hkv, Lk, D].  Tolerance: f32
     2e-5 (summation order only, the reference's own test tolerance); bf16
@@ -571,7 +665,8 @@ def flash_cases(torch, F, flash, _build):
     summed in another order).  Beside the main-path shapes, the edges of
     the 128-row wgmma body: ragged tails (L 1000, 301), D 64 and 128, GQA
     groups 1 and 4, a window smaller than one tile, bidirectional with
-    Lk != L."""
+    Lk != L; then the head_dim cases (``head_dim_cases``), each naming the
+    body and padded width its ``_fwd_plan`` chose."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = [("gpt2_train", 8, 12, 12, 1024, 1024, 64, bf, True, None),
              ("main_prefill", 1, 32, 8, 509, 509, 128, bf, True, None),
@@ -591,20 +686,25 @@ def flash_cases(torch, F, flash, _build):
              ("f32_d16_causal", 2, 4, 2, 130, 130, 16, f32, True, None),
              ("f32_d16_window", 1, 4, 4, 77, 77, 16, f32, True, 4),
              ("f32_d16_cross", 2, 4, 2, 13, 37, 16, f32, False, None)]
+    once = {c[0] for c in head_dim_cases(torch)} - set(HEAD_DIM_TIMED)
+    cases = [(*c, None) for c in cases] + head_dim_cases(torch)
     g = torch.Generator(device="cuda").manual_seed(2)
     out = {}
-    for name, B, H, Hkv, L, Lk, D, dt, causal, window in cases:
-        q = torch.randn(B, H, L, D, generator=g, device="cuda").to(dt)
-        k = torch.randn(B, Hkv, Lk, D, generator=g, device="cuda").to(dt)
-        v = torch.randn(B, Hkv, Lk, D, generator=g, device="cuda").to(dt)
+    for name, B, H, Hkv, L, Lk, D, dt, causal, window, layout in cases:
+        t_case = time.perf_counter()
+        q, k, v = flash_operands(torch, g, B, H, Hkv, L, Lk, D, dt, layout)
+        timed_case = name in HEAD_DIM_TIMED or name not in once
         scale = D ** -0.5
+        plan = flash._fwd_plan(B, H, L, D, dt)
         o, lse = flash.flash_fwd(q, k, v, scale, causal, window)
         torch.cuda.synchronize()
         o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal, window)
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_l = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
         tol_o, tol_l = (2e-5, 2e-5) if dt == f32 else (2e-2, 1e-3)
-        if not (err_o <= tol_o and err_l <= tol_l) or o.dtype != dt:
+        if not (err_o <= tol_o and err_l <= tol_l) or o.dtype != dt \
+                or not bool(torch.isfinite(o).all()):
             fail(f"flash {name}: o err {err_o} (tol {tol_o}), lse err "
                  f"{err_l} (tol {tol_l})")
         pairs = visible_pairs(L, Lk, causal, window)
@@ -613,30 +713,35 @@ def flash_cases(torch, F, flash, _build):
             + 4 * B * H * L
         b_ms, b_by = bound(4 * B * H * D * pairs, nbytes,
                            PEAK_16BIT if esz == 2 else PEAK_F32)
-        mask = None
-        if window is not None:
-            qp = torch.arange(L, device="cuda")[:, None]
-            kp = torch.arange(Lk, device="cuda")[None, :]
-            mask = (kp <= qp) & (qp - kp < window)
-
-        def library():
-            return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
-                enable_gqa=Hkv != H)
-
         rec = {"phase": "kernel", "kernel": "flash_fwd", "case": name,
                "B": B, "H": H, "Hkv": Hkv, "L": L, "Lk": Lk, "D": D,
                "dtype": str(dt), "causal": causal, "window": window,
+               "layout": layout, "plan": dataclasses.asdict(plan),
                "max_abs_err": err_o, "lse_max_abs_err": err_l,
                "tol_o": tol_o, "tol_lse": tol_l,
-               **timed(torch, "", lambda: flash.flash_fwd(
-                   q, k, v, scale, causal, window)),
-               **timed(torch, "plain_", lambda: flash.flash_fwd_plain(
-                   q, k, v, scale, causal, window), iters=5),
-               **timed(torch, "library_", library),
                "bound_ms": b_ms, "bound_by": b_by,
                "visible_pairs": pairs,
-               **build_report(_build, "flash_fwd", dt, D)}
+               **build_report(_build, "flash_fwd", dt, plan)}
+        if timed_case:
+            mask = None
+            if window is not None:
+                qp = torch.arange(L, device="cuda")[:, None]
+                kp = torch.arange(Lk, device="cuda")[None, :]
+                mask = (kp <= qp) & (qp - kp < window)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=Hkv != H)
+
+            rec.update(
+                **timed(torch, "", lambda: flash.flash_fwd(
+                    q, k, v, scale, causal, window)),
+                **timed(torch, "plain_", lambda: flash.flash_fwd_plain(
+                    q, k, v, scale, causal, window), iters=5),
+                **timed(torch, "library_", library))
+            rec["bound_share"] = b_ms / rec["ms"]
+        rec["case_s"] = time.perf_counter() - t_case
         emit(rec)
         REPORT["cases"].append(rec)
         out[name] = rec
@@ -654,12 +759,13 @@ def flash_bwd_cases(torch, F, flash, _build):
     must come out bit-identical from a second run on the same inputs, on
     the dk/dv kernel's split path (f32 partials summed by the wrapper) and
     its unsplit path alike; ``_dkv_plan`` puts gpt2_train and llama_509 on
-    different sides, and each record names its side; each dq record names
-    its ``_dq_plan``, whose body must be the one the build reports.  The
+    different sides, and each record names its side; each record names
+    its plan's body and padded width, which the build must have.  The
     delta the dq kernel writes (f32 ``rowsum(do * o)``) must match
     ``(do.float() * o.float()).sum(-1)`` within 1e-5 of the row's
     ``sum(|do * o|)``: the two sum the same f32 products in different
-    orders."""
+    orders.  The head_dim cases (``head_dim_cases``) follow the main-path
+    ones; only phi3_2048 and gemma_2048 among them are timed."""
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = [("gpt2_train", 8, 12, 12, 1024, 1024, 64, bf, True, None),
              ("llama_509", 1, 32, 8, 509, 509, 128, bf, True, None),
@@ -675,13 +781,14 @@ def flash_bwd_cases(torch, F, flash, _build):
              ("f32_d16_causal", 2, 4, 2, 130, 130, 16, f32, True, None),
              ("f32_d16_window", 1, 4, 4, 77, 77, 16, f32, True, 4),
              ("f32_d16_cross", 2, 4, 2, 13, 37, 16, f32, False, None)]
+    once = {c[0] for c in head_dim_cases(torch)} - set(HEAD_DIM_TIMED)
+    cases = [(*c, None) for c in cases] + head_dim_cases(torch)
     g = torch.Generator(device="cuda").manual_seed(6)
     out = {}
-    for name, B, H, Hkv, L, Lk, D, dt, causal, window in cases:
-        q = torch.randn(B, H, L, D, generator=g, device="cuda").to(dt)
-        k = torch.randn(B, Hkv, Lk, D, generator=g, device="cuda").to(dt)
-        v = torch.randn(B, Hkv, Lk, D, generator=g, device="cuda").to(dt)
-        do = torch.randn(B, H, L, D, generator=g, device="cuda").to(dt)
+    for name, B, H, Hkv, L, Lk, D, dt, causal, window, layout in cases:
+        t_case = time.perf_counter()
+        q, k, v, do = flash_operands(torch, g, B, H, Hkv, L, Lk, D, dt,
+                                     layout, do=True)
         scale = D ** -0.5
         args = (scale, causal, window)
         o, lse = flash.flash_fwd(q, k, v, *args)
@@ -691,6 +798,8 @@ def flash_bwd_cases(torch, F, flash, _build):
         tol = 1e-4 if dt == f32 else 2e-2
         errs = {}
         for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            if not bool(torch.isfinite(a).all()):
+                fail(f"flash_bwd {name} {gname}: not finite")
             if a.dtype != dt or a.shape != r.shape:
                 fail(f"flash_bwd {name} {gname}: {a.dtype}{tuple(a.shape)} "
                      f"vs {r.dtype}{tuple(r.shape)}")
@@ -700,24 +809,29 @@ def flash_bwd_cases(torch, F, flash, _build):
                 fail(f"flash_bwd {name} {gname}: max abs err {err} beyond "
                      f"{tol} x max |grad| {top}")
             errs[gname] = {"max_abs_err": err, "max_abs": top}
+        del ref
         again = flash.flash_bwd(q, k, v, o, lse, do, *args)
         torch.cuda.synchronize()
-        plan = flash._dkv_plan(B, H, Hkv, L, Lk, D, causal, window, dt)
-        dq_plan = flash._dq_plan(B, H, L, D, dt)
-        path = "split" if plan.nsplit > 1 else "unsplit"
         if not torch.equal(got[0], again[0]):
             fail(f"flash_bwd {name}: dq differs between two runs on the same "
                  "inputs")
         if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
             fail(f"flash_bwd {name}: dk/dv differ between two runs on the "
-                 f"same inputs ({path} path)")
+                 "same inputs")
+        del got, again
 
-        # each kernel alone, on the operands flash_bwd hands it (the dk/dv
-        # kernel with its plan's partial sums), then the whole backward
-        do_k, o_k, lse_k, delta = flash._bwd_operands(q, o, lse, do)
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        flash._launch_bwd("bwd_dq", q, k, v, do_k, lse_k, delta, (dq,),
-                          *args, o=o_k)
+        # each kernel alone, on the operands flash_bwd hands it (read in
+        # place or copied by its body's rule; the dk/dv kernel with its
+        # plan's partial sums), then the whole backward
+        dq_plan = flash._dq_plan(B, H, L, D, dt)
+        plan = flash._dkv_plan(B, H, Hkv, L, Lk, D, causal, window, dt)
+        path = "split" if plan.nsplit > 1 else "unsplit"
+        q_k, k_k, v_k = flash._readable(
+            dq_plan.body, flash._check_launch(q, k, v, o, do), q, k, v)
+        do_k, o_k, lse_k, delta = flash._bwd_operands(q_k, o, lse, do)
+        dq, dk, dv = (torch.empty_like(t) for t in (q_k, k_k, v_k))
+        flash._launch_bwd("bwd_dq", dq_plan, q_k, k_k, v_k, do_k, lse_k,
+                          delta, (dq,), *args, o=o_k)
         prod = do.float() * o.float()
         delta_err = ((delta - prod.sum(-1)).abs()
                      / prod.abs().sum(-1).clamp_min(1e-30)).max().item()
@@ -725,72 +839,84 @@ def flash_bwd_cases(torch, F, flash, _build):
             fail(f"flash_bwd {name}: the dq kernel's delta is {delta_err} of "
                  "sum(|do * o|) off the f32 torch reduction (tol 1e-5)")
         del prod
-        t_dq = time_ms(torch, lambda: flash._launch_bwd(
-            "bwd_dq", q, k, v, do_k, lse_k, delta, (dq,), *args, o=o_k))
-        t_dkv = time_ms(torch, lambda: flash._launch_dkv(
-            q, k, v, do_k, lse_k, delta, dk, dv, *args))
-        t_pair = time_ms(torch, lambda: flash.flash_bwd(
-            q, k, v, o, lse, do, *args))
-        t_plain = time_ms(torch, lambda: flash.flash_bwd_plain(
-            q, k, v, o, lse, do, *args), iters=3)
-        # the library's backward alone: SDPA forward + backward minus SDPA
-        # forward, timed the same way
-        mask = None
-        if window is not None:
-            qp = torch.arange(L, device="cuda")[:, None]
-            kp = torch.arange(Lk, device="cuda")[None, :]
-            mask = (kp <= qp) & (qp - kp < window)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qg, kg, vg, attn_mask=mask, is_causal=causal and mask is None,
-                enable_gqa=Hkv != H)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(), (qg, kg, vg), do)
-
-        lib_f, lib_fb = time_ms(torch, sdpa), time_ms(torch, sdpa_fwd_bwd)
-        library_ms = lib_fb["ms"] - lib_f["ms"]
         pairs = visible_pairs(L, Lk, causal, window)
         esz = q.element_size()
         q_bytes, kv_bytes = esz * B * H * L * D, esz * B * Hkv * Lk * D
         row_bytes = 2 * 4 * B * H * L  # lse and delta
         peak = PEAK_16BIT if esz == 2 else PEAK_F32
-        dq_rep = build_report(_build, "flash_bwd_dq", dt, D)
-        if dq_rep["body"] != "flash_bwd_dq:" + dq_plan.body:
-            fail(f"flash_bwd {name}: _dq_plan names body {dq_plan.body}, the "
-                 f"build runs {dq_rep['body']}")
-        for kname, flops_per, nbytes, t, extra in (
+        timing = {}
+        if name in HEAD_DIM_TIMED or name not in once:
+            t_dq = time_ms(torch, lambda: flash._launch_bwd(
+                "bwd_dq", dq_plan, q_k, k_k, v_k, do_k, lse_k, delta, (dq,),
+                *args, o=o_k))
+            t_dkv = time_ms(torch, lambda: flash._launch_dkv(
+                q_k, k_k, v_k, do_k, lse_k, delta, dk, dv, *args))
+            t_pair = time_ms(torch, lambda: flash.flash_bwd(
+                q, k, v, o, lse, do, *args))
+            t_plain = time_ms(torch, lambda: flash.flash_bwd_plain(
+                q, k, v, o, lse, do, *args), iters=3)
+            # the library's backward alone: SDPA forward + backward minus
+            # SDPA forward, timed the same way
+            mask = None
+            if window is not None:
+                qp = torch.arange(L, device="cuda")[:, None]
+                kp = torch.arange(Lk, device="cuda")[None, :]
+                mask = (kp <= qp) & (qp - kp < window)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qg, kg, vg, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=Hkv != H)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+
+            lib_f, lib_fb = time_ms(torch, sdpa), time_ms(torch, sdpa_fwd_bwd)
+            library_ms = lib_fb["ms"] - lib_f["ms"]
+            shared = {"plain_ms": t_plain["ms"],
+                      "plain_wall_ms": t_plain["wall_ms"],
+                      "plain_is": "flash_bwd_plain (dq, dk and dv together)",
+                      "library_ms": library_ms,
+                      "library_is": "SDPA forward+backward minus SDPA "
+                                    "forward",
+                      "bwd_pair_ms": t_pair["ms"],
+                      "bwd_pair_is": "flash_bwd: K3 (with delta) and K4 "
+                                     "together"}
+            timing = {"flash_bwd_dq": {"ms": t_dq["ms"],
+                                       "wall_ms": t_dq["wall_ms"], **shared},
+                      "flash_bwd_dkv": {"ms": t_dkv["ms"],
+                                        "wall_ms": t_dkv["wall_ms"],
+                                        **shared}}
+        for kname, flops_per, nbytes, extra in (
                 ("flash_bwd_dq", 6, 4 * q_bytes + 2 * kv_bytes + row_bytes,
-                 t_dq, {**dq_rep, "plan": dataclasses.asdict(dq_plan),
-                        "blocks": dq_plan.blocks, "delta_rel_err": delta_err,
-                        "deterministic": True}),
+                 {**build_report(_build, "flash_bwd_dq", dt, dq_plan),
+                  "plan": dataclasses.asdict(dq_plan),
+                  "blocks": dq_plan.blocks, "delta_rel_err": delta_err,
+                  "deterministic": True}),
                 ("flash_bwd_dkv", 8, 2 * q_bytes + 4 * kv_bytes + row_bytes,
-                 t_dkv, {**build_report(_build, "flash_bwd_dkv", dt, D,
-                                        split=plan.nsplit > 1),
-                         "dkv_path": path, "nsplit": plan.nsplit,
-                         "blocks": plan.blocks, "deterministic": True})):
+                 {**build_report(_build, "flash_bwd_dkv", dt, plan,
+                                 split=plan.nsplit > 1),
+                  "plan": dataclasses.asdict(plan),
+                  "dkv_path": path, "nsplit": plan.nsplit,
+                  "blocks": plan.blocks, "deterministic": True})):
             b_ms, b_by = bound(flops_per * B * H * D * pairs, nbytes, peak)
             rec = {"phase": "kernel", "kernel": kname, "case": name,
                    "B": B, "H": H, "Hkv": Hkv, "L": L, "Lk": Lk, "D": D,
                    "dtype": str(dt), "causal": causal, "window": window,
+                   "layout": layout,
                    "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                    "errors": errs, "tol_share_of_max": tol,
-                   "ms": t["ms"], "wall_ms": t["wall_ms"],
-                   "plain_ms": t_plain["ms"],
-                   "plain_wall_ms": t_plain["wall_ms"],
-                   "plain_is": "flash_bwd_plain (dq, dk and dv together)",
-                   "library_ms": library_ms,
-                   "library_is": "SDPA forward+backward minus SDPA forward",
-                   "bwd_pair_ms": t_pair["ms"],
-                   "bwd_pair_is": "flash_bwd: K3 (with delta) and K4 "
-                                  "together",
+                   **timing.get(kname, {}),
                    "bound_ms": b_ms, "bound_by": b_by,
                    "visible_pairs": pairs, **extra}
+            if "ms" in rec:
+                rec["bound_share"] = b_ms / rec["ms"]
+            rec["case_s"] = time.perf_counter() - t_case  # both kernels
             emit(rec)
             REPORT["cases"].append(rec)
             out[(kname, name)] = rec
+        del q, k, v, do, o, lse, q_k, k_k, v_k, do_k, o_k, dq, dk, dv
     sides = {n: out[("flash_bwd_dkv", n)]["dkv_path"]
              for n in ("gpt2_train", "llama_509")}
     if sides["gpt2_train"] == sides["llama_509"]:
@@ -1692,7 +1818,8 @@ def serve_disagg(torch, tlib, server, common, requestlog, sd, trace):
     on the decode server only is fetched through ``kv_src`` by the
     prefill server: a hit, and a tail-only prefill.  Counters zeroed
     just before the kv_dest requests and read after the fetch: RMSNorm
-    at 2·16+1 launches per model call of both engines, no flash kernel.
+    at 2·CUT_LAYERS+1 launches per model call of both engines, no flash
+    kernel.
     Then one more migration under a caller's W3C traceparent, tracing on
     (``traced_migration``: its ``kv_migrate`` span and the frame's trace
     id), and each stage of a 509-token migration timed on its own."""
@@ -2049,7 +2176,7 @@ def llama_lane_equivalence(torch, tlib, decode, bench_serve, cfg, sd,
 def bench_serve_llama(torch, tlib, bridge, decode, common, sd, bench_serve):
     """``k8s_tpu_torch.harness.bench_serve``'s phases at the served width
     (``llama_8b``, bf16, both forward kernels, on ``serve_engine``'s
-    weights, cut to their first 16 layers by ``cut_depth``), in
+    weights, cut to their first ``CUT_LAYERS`` layers by ``cut_depth``), in
     ``run_bench``'s order, each the twin's ``run_phase`` (a real HTTP
     server, closed-loop clients, the recorder cleared at the warm-up
     boundary): single_flight (slots 0), batched
@@ -2058,8 +2185,8 @@ def bench_serve_llama(torch, tlib, bridge, decode, common, sd, bench_serve):
     spec_exclusive and spec_batched (twice the slots, clients and
     requests).  Slots 4, 4 clients, 1 request a client, 16 / 32 new
     tokens.  Each phase must answer every request; its counters, zeroed
-    just before and read just after, must equal 2·16+1 K1 launches a
-    model call (``ModelCalls``) and 16 K2 launches (one a layer) a
+    just before and read just after, must equal 2·CUT_LAYERS+1 K1 launches
+    a model call (``ModelCalls``) and one K2 launch a layer a
     prefill-mode call, with K2 in the single-flight and exclusive phases
     and none in the batched ones.  The twin's lane checks must hold exactly on the tiny
     model in f32 on the card; at the served width each differing token
@@ -2214,7 +2341,7 @@ def bench_kvtier_llama(torch, tlib, common, sd, bench_kvtier):
     rate, and the identity and dedup stages report no failure (each lane
     equal through promote, dedup skips blocks and saves bytes, deduped
     answers equal the local oracle).  Spill against evict-recompute
-    tokens/s is a reading.  K1 runs 2·16+1 times a model call; nothing
+    tokens/s is a reading.  K1 runs 2·CUT_LAYERS+1 times a model call; nothing
     prefills in prefill mode, so no K2."""
     kv = bench_kvtier
     cfg, sd = cut_depth(dataclasses.replace(
@@ -2399,13 +2526,15 @@ def bench_disagg_card(torch, tlib, decode, engine_lib, _build, bench_disagg):
     ``measure`` with the twin's workload, call for call, on three pod
     processes a topology (1 prefill + 2 decode, then 3 collapsed), each
     pinned to a third of the host's cores and holding its own llama_8b
-    weights (16 of 32 layers, bf16, K1 and K2 on, ``max_seq_len`` 128)
+    weights (``CUT_LAYERS`` of 32 layers, bf16, K1 and K2 on,
+    ``max_seq_len`` 128)
     drawn by ``bridge.init_params`` from seed 0, all on this card; then
     ``judge``.  The kernels are built first (no pod runs nvcc) and this
     process's cached blocks returned.  Held exactly: no request error in
     any phase of either arm, the identity probes migrated, blocks migrated
     in the storm phases, collapsed convoys, each pod's weight digest equal
-    to this process's draw, and on every pod K1 = (2·16+1) x its engine's
+    to this process's draw, and on every pod K1 = (2·CUT_LAYERS+1) x its
+    engine's
     ``model_calls`` with K2-K4 at 0 (engine prefill runs through the paged
     attention).  Identity: the routed greedy and sampled answers must
     equal the same hop run in this process (``disagg_hop``), which is
@@ -2503,7 +2632,8 @@ def bench_disagg_card(torch, tlib, decode, engine_lib, _build, bench_disagg):
             if k in p} for n, p in arm["phases"].items()}
     value, col_ratio = result["value"], result["collapsed_ratio"]
     rec = {"phase": "bench_disagg", "card": REPORT["card"],
-           "config": "llama_8b bf16 flash+fused, 16 layers, max_seq_len "
+           "config": f"llama_8b bf16 flash+fused, {CUT_LAYERS} layers, "
+                     "max_seq_len "
                      "128, bridge.init_params seed 0 in each pod; "
                      "k8s_tpu_torch.harness.bench_disagg measure + judge",
            "model": model,
@@ -2548,10 +2678,11 @@ def serve_spec(torch, tlib, server, common, sd):
     same server, in turns (vanilla, spec, spec, vanilla).  Prompts: a
     seeded 23-token pattern repeated to 509 tokens, the same to 128, and
     a random 64.  Each lane's requests run with the counters zeroed just
-    before and read just after: K1 must show 2·16+1 launches per model
+    before and read just after: K1 must show 2·CUT_LAYERS+1 launches per
+    model
     call (the engine's ``model_calls``; on single-flight every
-    ``Transformer`` call, counted by ``ModelCalls``), K2 32 launches per
-    single-flight prefill and none on the batched lane.  Spec tokens are
+    ``Transformer`` call, counted by ``ModelCalls``), K2 one launch a layer
+    per single-flight prefill and none on the batched lane.  Spec tokens are
     held against vanilla greedy's on the same lane and across the lanes
     by ``token_check``."""
     cfg, sd = cut_depth(dataclasses.replace(
@@ -3050,6 +3181,197 @@ def llama_width_training(torch, tlib, bridge, train_lib, common):
     emit(rec)
     REPORT["train_llama_width"] = rec
     return launches
+
+
+# -- phase 6b: head_dims other than 64 and 128 at full width ------------------
+
+
+def head_dim_configs(tlib) -> dict:
+    """The attention and MLP widths of two public models with head_dims
+    the Llama presets lack, on the repo's Llama-architecture Transformer
+    (SwiGLU, RMSNorm, RoPE, tied head): their shapes, not their weights.
+    Phi-3-mini-4k-instruct (config.json: hidden 3072, intermediate 8192,
+    32 layers, 32 heads and kv heads, head_dim 3072 / 32 = 96, vocab
+    32064) runs D 96 on the D-128 wgmma body; Gemma-7B (config.json:
+    hidden 3072, intermediate 24576, 28 layers, 16 heads and kv heads,
+    head_dim 256, so heads x D = 4096 != hidden, vocab 256000) runs the
+    Dp-256 body."""
+    base = tlib.TransformerConfig
+    return {
+        "phi3_mini_d96": base(vocab_size=32064, hidden=3072, ffn_hidden=8192,
+                              layers=32, heads=32, kv_heads=32, head_dim=96,
+                              max_seq_len=4096, rope_theta=10000.0),
+        "gemma_7b_d256": base(vocab_size=256000, hidden=3072,
+                              ffn_hidden=24576, layers=28, heads=16,
+                              kv_heads=16, head_dim=256, max_seq_len=8192,
+                              rope_theta=10000.0)}
+
+
+# the training cut of each: 2 layers, and the batch each trains on
+HEAD_DIM_TRAIN = {"phi3_mini_d96": (2, 2048), "gemma_7b_d256": (1, 4096)}
+HEAD_DIM_PROMPT, HEAD_DIM_NEW = 509, 32
+
+
+def head_dim_serve(torch, tlib, bridge, server, common, decode, cfg, seed):
+    """Single-flight serving at full depth over HTTP (the lane whose
+    prefill runs K2): one 509-token prompt, 32 greedy tokens; exact K1 and
+    K2 launches; the tokens against the plain path's on the same weights
+    (``token_check``)."""
+    cfg = dataclasses.replace(cfg, use_flash_attention=True,
+                              use_fused_norm=True, dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bridge.init_params(cfg, seed=seed, device="cuda")
+    lm = server.LmServer(config=cfg, params=params, slots=0, device="cuda",
+                         default_max_new_tokens=HEAD_DIM_NEW)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    httpd = server.serve(lm, "127.0.0.1", 0)
+    url = "http://%s:%d" % httpd.server_address[:2]
+    prompt = torch.randint(0, cfg.vocab_size, (HEAD_DIM_PROMPT,),
+                           generator=torch.Generator().manual_seed(seed)
+                           ).tolist()
+    try:
+        common.reset_launches()
+        code, body, secs = http(url + "/v1/generate", dict(
+            tokens=prompt, max_new_tokens=HEAD_DIM_NEW))
+        torch.cuda.synchronize()
+        launches = common.launches()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        lm.close()
+    toks = body.get("tokens")
+    if code != 200 or not isinstance(toks, list) or \
+            len(toks) != HEAD_DIM_NEW or \
+            not all(0 <= t < cfg.vocab_size for t in toks):
+        fail(f"head_dims {cfg.head_dim} serve: {code} {str(body)[:300]}")
+    want = {"flash_fwd": cfg.layers,
+            "rms_norm": (2 * cfg.layers + 1) * HEAD_DIM_NEW,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want:
+        fail(f"head_dims {cfg.head_dim} serve launches {launches}, expected "
+             f"{want}")
+    ref_cfg = dataclasses.replace(cfg, use_flash_attention=False,
+                                  use_fused_norm=False)
+    plain = decode.generate(ref_cfg, lm.model.state_dict(), [prompt],
+                            HEAD_DIM_NEW, device="cuda")[0].tolist()
+    check = token_check(torch, lm.model, prompt, toks, plain,
+                        f"head_dims {cfg.head_dim} serve vs plain",
+                        decode.prefill_buckets_for(cfg))
+    rec = {"prompt_len": HEAD_DIM_PROMPT, "new_tokens": HEAD_DIM_NEW,
+           "seconds": secs, "setup_s": setup_s, "launches": launches,
+           "expected_launches": want, "vs_plain": check,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30}
+    del lm
+    return rec, launches
+
+
+def head_dim_train(torch, tlib, bridge, train_lib, common, cfg, seed, B, L):
+    """The ``models/train.py`` step at 2 layers (bf16, flash and RMSNorm
+    kernels on, no remat) on one batch: exact K1-K4 launches for the step;
+    its gradients (taken before the update) and loss against the same
+    weights and batch through the plain attention, both held against the
+    plain step in f32, by ``grads_at_width``'s bounds (kernels vs plain
+    within 5e-2 a tensor, relative Frobenius; the kernels no further from
+    f32 than twice the plain path's distance, or 1e-2; losses within
+    1e-2)."""
+    cfg = dataclasses.replace(cfg, layers=2, remat=False,
+                              use_flash_attention=True, use_fused_norm=True,
+                              dtype=torch.bfloat16)
+    params = bridge.init_params(cfg, seed, "cuda", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (B, L),
+                           generator=torch.Generator().manual_seed(seed + 1)
+                           ).cuda()
+    grads, loss = {}, {}
+    # the references first: the kernels' step updates the shared weights
+    for name, kw in (("plain", {"use_flash_attention": False}),
+                     ("f32", {"use_flash_attention": False,
+                              "dtype": torch.float32})):
+        model = tlib.Transformer(dataclasses.replace(cfg, **kw), params,
+                                 device="cuda", trainable=True)
+        lv = train_lib.lm_loss(model(tokens), tokens)
+        lv.backward()
+        loss[name] = lv.item()
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        del model, lv
+    model = tlib.Transformer(cfg, params, device="cuda", trainable=True)
+    opt = train_lib.default_optimizer(1e-4)
+    state = train_lib.init_state(model, opt)
+    step = train_lib.make_train_step(lambda m, x: m(x), train_lib.lm_loss,
+                                     opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    state, lv = step(state, (tokens, tokens))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = common.launches()
+    loss["kernels"] = lv.item()
+    grads["kernels"] = {n: p.grad for n, p in model.named_parameters()}
+    want = {"flash_fwd": cfg.layers, "flash_bwd_dq": cfg.layers,
+            "flash_bwd_dkv": cfg.layers, "rms_norm": 2 * cfg.layers + 1}
+    if launches != want or not all(map(math.isfinite, loss.values())):
+        fail(f"head_dims {cfg.head_dim} train launches {launches} (expected "
+             f"{want}), losses {loss}")
+    missing = [n for g in grads.values() for n, x in g.items() if x is None]
+    if missing:
+        fail(f"head_dims {cfg.head_dim} train left no gradient on {missing}")
+
+    def rel(a, b):
+        return {n: ((grads[a][n].float() - g.float()).norm()
+                    / g.float().norm()).item() for n, g in grads[b].items()}
+
+    k_p, k_f, p_f = rel("kernels", "plain"), rel("kernels", "f32"), \
+        rel("plain", "f32")
+    bad = [n for n in k_p if not (k_p[n] <= 5e-2
+                                  and k_f[n] <= max(2 * p_f[n], 1e-2))]
+    if bad or abs(loss["kernels"] - loss["plain"]) > 1e-2:
+        n = (bad or [max(k_p, key=k_p.get)])[0]
+        fail(f"head_dims {cfg.head_dim} grads: {n} kernels vs plain {k_p[n]},"
+             f" vs f32 {k_f[n]} (plain vs f32 {p_f[n]}), losses {loss}")
+    rec = {"batch": [B, L], "reduced": {"layers": [None, 2]},
+           "losses": loss, "step_s": step_s, "launches": launches,
+           "expected_launches": want, "tol_kernels_vs_plain": 5e-2,
+           "max_rel_err_kernels_vs_plain": max(k_p.values()),
+           "max_rel_err_kernels_vs_f32": max(k_f.values()),
+           "max_rel_err_plain_vs_f32": max(p_f.values()),
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30}
+    del model, state, opt, step, grads, params
+    return rec, launches
+
+
+def head_dims(torch, tlib, bridge, server, train_lib, common, decode) -> dict:
+    """Each configuration of ``head_dim_configs``: single-flight serving
+    at full depth, then the 2-layer training step; returns each path's
+    launches (the serve run's and the train step's, each counted from
+    zero just before it and read just after, summed)."""
+    paths = {}
+    for i, (name, cfg) in enumerate(head_dim_configs(tlib).items()):
+        serve, s_l = head_dim_serve(torch, tlib, bridge, server, common,
+                                    decode, cfg, 40 + i)
+        gc.collect()
+        torch.cuda.empty_cache()
+        B, L = HEAD_DIM_TRAIN[name]
+        train, t_l = head_dim_train(torch, tlib, bridge, train_lib, common,
+                                    cfg, 50 + i, B, L)
+        train["reduced"]["layers"][0] = cfg.layers
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = {k: s_l[k] + t_l[k] for k in s_l}
+        rec = {"phase": "head_dims", "config": name,
+               "widths": {k: getattr(cfg, k) for k in (
+                   "vocab_size", "hidden", "ffn_hidden", "layers", "heads",
+                   "kv_heads", "head_dim")},
+               "serve": serve, "train": train, "launches": launches}
+        emit(rec)
+        REPORT.setdefault("head_dims", {})[name] = rec
+        paths[f"head_dims_{name}"] = launches
+    return paths
 
 
 # -- phase 7: tracing, the MoE Transformer and the token-shard dataset --------
@@ -6369,7 +6691,8 @@ PHASES = ("kernels", "parity", "engine_parity", "spec_parity",
           "mesh_parity", "train_parity", "moe_parity", "vision_parity",
           "serve", "serve_engine", "spill", "disagg", "bench_serve",
           "bench_kvtier", "bench_serve_mp", "bench_disagg", "serve_spec",
-          "beam", "mesh_serve", "train", "grads", "llama_train", "moe_train",
+          "beam", "mesh_serve", "train", "grads", "llama_train", "head_dims",
+          "moe_train",
           "data", "native_reader", "profile_hook", "resnet", "vit", "bench",
           "mnist",
           "dist_parity", "fsdp_train", "gang", "mesh_nccl", "sp_kernels",
@@ -6473,9 +6796,13 @@ def main(argv=None) -> int:
     # after), in the order the paths run
     paths: dict = {}
     if "kernels" in run:
+        t0 = time.perf_counter()
         rms = rms_cases(torch, F, fused_norm, _build)
         fl = flash_cases(torch, F, flash, _build)
         bw = flash_bwd_cases(torch, F, flash, _build)
+        REPORT["kernels_s"] = time.perf_counter() - t0
+        emit({"phase": "kernels_done", "s": REPORT["kernels_s"]})
+        free()
     if "parity" in run:
         parity(torch, tlib, bridge, decode)
     if "engine_parity" in run:
@@ -6555,6 +6882,13 @@ def main(argv=None) -> int:
     if "llama_train" in run:
         paths["train_llama_width_2_layers"] = llama_width_training(
             torch, tlib, bridge, train_lib, _common)
+        free()
+    if "head_dims" in run:
+        t0 = time.perf_counter()
+        paths.update(head_dims(torch, tlib, bridge, server, train_lib,
+                               _common, decode))
+        REPORT["head_dims_s"] = time.perf_counter() - t0
+        emit({"phase": "head_dims_done", "s": REPORT["head_dims_s"]})
         free()
     if "moe_train" in run:
         paths["train_moe_llama_width_e8_2_layers"] = moe_train(
@@ -6676,6 +7010,18 @@ def main(argv=None) -> int:
                                 "spill_loads", "smem_static_bytes",
                                 "smem_dynamic_bytes")
                                if key in rec}})
+            if kname.startswith("flash"):
+                # the padded and Dp-256 bodies at the Phi-3-mini and
+                # Gemma-7B attention shapes
+                kernels[-1]["head_dim_cases"] = {
+                    case: {key: r[key] for key in (
+                        "D", "plan", "max_abs_err", "ms", "plain_ms",
+                        "library_ms", "bound_ms", "bound_by", "bound_share",
+                        "registers", "spill_stores", "spill_loads",
+                        "smem_dynamic_bytes") if key in r}
+                    for case in HEAD_DIM_TIMED
+                    for r in [fl[case] if kname == "flash_fwd"
+                              else bw[(kname, case)]]}
         # K1 at the ViT-B/16 training shape, the first shape no earlier
         # path gave it
         vit_case = rms["vit_b16_train"]

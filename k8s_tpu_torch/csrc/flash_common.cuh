@@ -21,6 +21,10 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half(x);
 }
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -89,11 +93,81 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Columns i * N .. i * N + N - 1 of an accumulator array, as an array of
+// their own (the operand of one product of width N).
+template <int N, int M>
+__device__ __forceinline__ float (&cols(float (&a)[M], int i))[N] {
+  static_assert(M % N == 0, "whole chunks only");
+  return *reinterpret_cast<float(*)[N]>(a + i * N);
+}
+
 // The element mask of every flash kernel, the forward's: key kp is visible
 // to query qp when it exists, is not in the future (causal) and lies inside
 // the window (0 <= qp - kp < window).
 __device__ __forceinline__ bool visible(int qp, int kp, int Lk, int causal, int window) {
   return kp < Lk && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
+}
+
+// Whether a tiled body exists for dtype (0 f32, 1 bf16, 2 fp16) at padded
+// width Dp and takes head_dim D: f32 at Dp 16..128, 16-bit at Dp 16..256
+// with D a multiple of 8 (ops/flash_attention.py:_body is the caller's
+// rule).
+inline bool tiled(int dtype, int D, int Dp) {
+  if (D < 1 || D > Dp || (dtype != 0 && D % 8)) return false;
+  if (Dp == 16 || Dp == 32 || Dp == 64 || Dp == 128) return dtype >= 0 && dtype <= 2;
+  return Dp == 256 && (dtype == 1 || dtype == 2);
+}
+
+// Grids.  A forward block covers (batch and head, q tile) and a dk/dv block
+// (batch and kv head, key tile): the tile on grid.x and the head on grid.y
+// (the forward's last q tile, the heaviest, first), as long as the head
+// count fits grid.y's 65535; past it, tile_grid folds both into grid.x,
+// tile fastest, in the same order.  (A dq block has the head on grid.x
+// and its q tile on grid.y: no count of heads meets a limit there.)
+inline dim3 tile_grid(int tiles, int heads, int z = 1) {
+  return heads <= 65535 ? dim3(tiles, heads, z) : dim3((unsigned)tiles * heads, 1, z);
+}
+
+// The block's (head, tile) on tile_grid's grid: the 2-D grid's own index
+// where there is one (a grid.y of 1 folds to the same block).
+__device__ __forceinline__ void grid_tile(int tiles, int& head, int& tile) {
+  if (gridDim.y > 1) {
+    head = blockIdx.y;
+    tile = blockIdx.x;
+  } else {
+    head = blockIdx.x / tiles;
+    tile = blockIdx.x % tiles;
+  }
+}
+
+// A forward block's (batch and head, first q row), the last q tile first.
+__device__ __forceinline__ void fwd_block(int L, int bq, int& bh, int& q_lo) {
+  const int nqt = (L + bq - 1) / bq;
+  int t;
+  grid_tile(nqt, bh, t);
+  q_lo = (nqt - 1 - t) * bq;
+}
+
+// A dk/dv block's (batch and kv head, first key).
+__device__ __forceinline__ void dkv_block(int Lk, int bk, int& bhk, int& k_lo) {
+  int t;
+  grid_tile((Lk + bk - 1) / bk, bhk, t);
+  k_lo = t * bk;
+}
+
+// Stores the first D of a row's Dp values, 8 columns a call of
+// store(j) for group j: at D == Dp every group, unpredicated, as a body
+// built for that width alone stores them.
+template <int DP, typename F>
+__device__ __forceinline__ void store_groups(int D, F&& store) {
+  if (D == DP) {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) store(j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < D) store(j);
+  }
 }
 
 }  // namespace flash

@@ -224,8 +224,11 @@ inline EncodeTiledFn encoder() {
 
 // A 4-D map (D, head, row, batch) over a 16-bit tensor with element strides
 // (sb, sh, sl) and a contiguous head_dim, read in boxes of [box_rows][64]
-// with a 128-byte swizzle.  A stride of a dimension of size 1 is never used;
-// it is replaced by one TMA accepts.  Returns 0 or an error code.
+// with a 128-byte swizzle.  D is the tensor's real head_dim (a multiple of
+// 8): a body built for a padded width Dp > D reads its last boxes past D,
+// and TMA fills those columns with zeros, as it fills rows past the end.
+// A stride of a dimension of size 1 is never used; it is replaced by one
+// TMA accepts.  Returns 0 or an error code.
 inline int make_map(CUtensorMap* map, const void* base, int dtype, int D, int heads, int rows,
                     int batch, int64_t sb, int64_t sh, int64_t sl, int box_rows) {
   EncodeTiledFn enc = encoder();

@@ -28,7 +28,15 @@ a sequential grid dimension (see the notes at the top of the sources):
   plain versions repeat K/V as the reference's wrapper does.
 
 Dispatch follows the tensors: CPU tensors take the plain versions, CUDA
-tensors launch the kernels or raise.
+tensors launch the kernels or raise.  Every head_dim, layout and number of
+heads has a kernel: the plans (``_fwd_plan``, ``_dq_plan``, ``_dkv_plan``,
+all from ``_body``) name the CUDA body and the padded width Dp >= D it
+runs at from D and the type alone (wgmma at Dp 64/128/256 and mma.sync at
+16/32 for 16-bit D a multiple of 8; FMA at 16-128 for f32), and the
+generic body takes every other head_dim.  An operand whose layout its body
+cannot read (``_aligned``) is copied to a contiguous one (``_readable``).
+``_check_launch`` refuses only other types, mixed types and shapes that do
+not match.
 """
 
 from __future__ import annotations
@@ -44,7 +52,6 @@ from k8s_tpu_torch.ops._common import (
 )
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns: dict = {}
 # what a launch's nonzero return means (csrc/flash_sm90.cuh)
@@ -54,21 +61,26 @@ _ERRORS = ("error (a cudaError_t; 990: no tensor-map encoder in the driver; "
 
 def _kernel(name: str = "fwd"):
     """The ctypes entry point ``fwd``, ``bwd_dq`` or ``bwd_dkv`` of
-    ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` (built at first use)."""
+    ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` (built at first use), or
+    its ``*_generic`` twin (any head_dim; an f32 scratch in place of the
+    padded width)."""
     fn = _fns.get(name)
     if fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        generic = name.endswith("_generic")
+        base = name[:-len("_generic")] if generic else name
         # dtype, B, H, Hkv, L, Lk, D, strides, scale, causal, window
         shape = [i, i, i, i, i, i, i, p, ctypes.c_float, i, i]
-        if name == "fwd":
-            fn = _build.load("flash_fwd").k8s_flash_fwd
-            fn.argtypes = [p] * 5 + shape + [p]
-        elif name == "bwd_dq":
-            fn = _build.load("flash_bwd").k8s_flash_bwd_dq
-            fn.argtypes = [p] * 8 + shape + [p]
-        else:  # bwd_dkv also takes nsplit
-            fn = _build.load("flash_bwd").k8s_flash_bwd_dkv
-            fn.argtypes = [p] * 8 + shape + [i, p]
+        lib = _build.load("flash_fwd" if base == "fwd" else "flash_bwd")
+        fn = getattr(lib, f"k8s_flash_{base}" + ("_generic" if generic
+                                                  else ""))
+        n_ptrs = 5 if base == "fwd" else 8
+        if generic:  # then the scratch
+            fn.argtypes = [p] * n_ptrs + shape + [p, p]
+        elif base == "bwd_dkv":  # then nsplit and the padded width
+            fn.argtypes = [p] * n_ptrs + shape + [i, i, p]
+        else:  # then the padded width
+            fn.argtypes = [p] * n_ptrs + shape + [i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -173,46 +185,79 @@ def _dtype_code(*ts) -> int:
     return code
 
 
-def _aligned(t, code: int) -> bool:
-    """The kernels' layout: a contiguous head_dim and, for the 16-bit
-    bodies (which copy rows in 16-byte chunks, by TMA at D 64 and 128),
-    16-byte aligned data and batch/head/row strides that are nonzero
-    multiples of 8."""
-    if t.stride(3) != 1:
+def _aligned(t, code: int, body: str) -> bool:
+    """Whether ``body`` reads ``t`` in place.  Every body takes any batch,
+    head and row strides with a contiguous head_dim; the 16-bit tiled
+    bodies (which copy rows in 16-byte chunks, by TMA from D 33 on) also
+    need 16-byte aligned data and those strides nonzero multiples of 8."""
+    st = t.stride()
+    if st[3] != 1:
         return False
-    return not code or not (
+    return not code or body == "generic" or not (
         t.data_ptr() % 16
-        or any(t.stride(i) % 8 or not t.stride(i)
-               for i in range(3) if t.shape[i] > 1))
+        or any(s % 8 or not s for s, n in zip(st[:3], t.shape) if n > 1))
+
+
+def _readable(body: str, code: int, *ts) -> tuple:
+    """The operands as ``body`` reads them: each one it cannot read in place
+    (``_aligned``: a strided head_dim; for the 16-bit tiled bodies also
+    misaligned, expanded or odd-strided rows) copied to a contiguous
+    tensor, the rest as they are.  The layout never picks the body."""
+    return tuple(t if _aligned(t, code, body)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
 
 
 def _check_launch(q, k, v, *outs) -> int:
     """The kernels' checks on ``[B, H, L, D]``-indexed q and ``[B, Hkv, Lk,
-    D]``-indexed k/v (and the other operands); returns the dtype code."""
+    D]``-indexed k/v (and the other operands): one type of f32, bf16 and
+    fp16 for all, and shapes that match.  Every head_dim, layout and
+    ``B * H`` has a body (``_body``).  Returns the dtype code."""
     B, H, L, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     code = _dtype_code(q, k, v, *outs)
-    if D not in HEAD_DIMS or k.shape[3] != D or v.shape[3] != D:
-        raise ValueError(f"flash kernel head_dim must be one of {HEAD_DIMS}, "
-                         f"got {D}")
-    if k.shape != v.shape or k.shape[0] != B:
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
-                         f"match, with batch {B}")
-    if min(L, Lk) < 1 or B * H > 65535:
-        raise ValueError(f"flash kernel needs L, Lk >= 1 and B*H <= 65535 "
-                         f"(B={B}, H={H}, L={L}, Lk={Lk})")
-    for t in (q, k, v, *outs):
-        if not _aligned(t, code):
-            if t.stride(3) != 1:
-                raise ValueError("flash kernel needs a contiguous head_dim")
-            raise ValueError(
-                "flash kernel needs 16-byte aligned bf16/fp16 rows (data "
-                "and batch/head/row strides nonzero multiples of 8)")
+                         f"match, with batch {B} and head_dim {D}")
+    if min(L, Lk, D) < 1:
+        raise ValueError(f"flash kernel needs L, Lk, D >= 1 (L={L}, Lk={Lk}, "
+                         f"D={D})")
     return code
 
 
+# The padded head_dims each tiled body is built for (csrc/flash_fwd.cu,
+# csrc/flash_bwd.cu): a head_dim D runs at the least width Dp >= D of its
+# body; columns D..Dp read as zeros (TMA's out-of-bounds fill, or the
+# body's own masked loads), so every product is exact, and are never
+# written.
+FMA_WIDTHS = (16, 32, 64, 128)   # f32, FMAs on the CUDA cores
+MMA_WIDTHS = (16, 32)            # bf16 / fp16, mma.sync
+WGMMA_WIDTHS = (64, 128, 256)    # bf16 / fp16, wgmma (256: its own tiles)
+GENERIC_TILE = 32                # the generic body's q rows and keys a tile
+
+
+def _body(D: int, dtype) -> tuple:
+    """``(body, Dp)``: the body that runs head_dim ``D`` of ``dtype`` and
+    the padded width it runs at.  f32 takes the FMA bodies up to D 128; 16
+    bits take mma.sync up to D 32 and wgmma up to D 256 where D is a
+    multiple of 8 (whole 16-byte chunks).  Every other D (a 16-bit D that
+    is not a multiple of 8; D past the widest body) takes the generic body
+    at Dp = D.  Never a failure: every D has a body."""
+    if dtype == torch.float32:
+        body, widths = "fma", FMA_WIDTHS
+    elif D % 8:
+        body, widths = "generic", ()
+    else:
+        body, widths = ("mma", MMA_WIDTHS) if D <= 32 else \
+            ("wgmma", WGMMA_WIDTHS)
+    for w in widths:
+        if D <= w:
+            return body, w
+    return "generic", D
+
+
 def _strides(*ts):
-    vals = [t.stride(i) for t in ts for i in (0, 1, 2)]
+    vals = [t.stride(i) for t in ts for i in range(3)]
     return ctypes.cast((ctypes.c_int64 * len(vals))(*vals), ctypes.c_void_p)
 
 
@@ -221,45 +266,63 @@ def _stream(t) -> int:
 
 
 def _launch(q, k, v, o, lse, scale: float, causal: bool, window) -> None:
-    """Launch the forward kernel over ``[B, H, L, D]``-indexed views (any
-    batch, head and row strides; the last dim contiguous) into ``o`` and
-    the contiguous ``[B, H, L]`` f32 ``lse``."""
+    """Launch the forward kernel over ``[B, H, L, D]``-indexed views into
+    ``o`` (allocated by the caller: contiguous rows, which every body
+    writes) and the contiguous ``[B, H, L]`` f32 ``lse``, by its plan, with
+    q, k and v as its body reads them (``_readable``)."""
     B, H, L, D = q.shape
     code = _check_launch(q, k, v, o)
-    strides = _strides(q, k, v, o)
+    plan = _fwd_plan(B, H, L, D, q.dtype)
+    q, k, v = _readable(plan.body, code, q, k, v)
+    head = (code, B, H, k.shape[1], L, k.shape[2], D)
+    tail = (float(scale), int(causal), 0 if window is None else int(window))
     bind_context(q.device)
     with torch.cuda.device(q.device):
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(), code, B, H, k.shape[1],
-                        L, k.shape[2], D, strides, float(scale), int(causal),
-                        0 if window is None else int(window), _stream(q))
+        if plan.body == "generic":
+            # the generic body's f32 rows of o, each written before read
+            scratch = torch.empty(B * H * L * D, dtype=torch.float32,
+                                  device=q.device)
+            fn, last = _kernel("fwd_generic"), scratch.data_ptr()
+        else:
+            fn, last = _kernel(), plan.dp
+        err = fn(*(t.data_ptr() for t in (q, k, v, o, lse)), *head,
+                 _strides(q, k, v, o), *tail, last, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: {_ERRORS} {err}")
     count_launch("flash_fwd")
 
 
 def _bwd_operands(q, o, lse, do):
-    """``do`` and ``o`` in the kernels' layout, ``lse`` as a contiguous
-    ``[B, H, L]`` f32, and an empty ``[B, H, L]`` f32 buffer for ``delta =
-    rowsum(do * o)``, which the dq kernel computes and the dk/dv kernel
-    reads."""
-    B, H, L, _ = q.shape
-    code = _dtype_code(q, do, o)
+    """``do`` and ``o`` as the backward's body reads them (``_readable``),
+    ``lse`` as a contiguous ``[B, H, L]`` f32, and an empty ``[B, H, L]``
+    f32 buffer for ``delta = rowsum(do * o)``, which the dq kernel computes
+    and the dk/dv kernel reads."""
+    B, H, L, D = q.shape
     # autograd may hand in an expanded (stride 0) or strided gradient
-    do, o = (t if _aligned(t, code) else t.contiguous() for t in (do, o))
+    do, o = _readable(_body(D, q.dtype)[0], _dtype_code(q, do, o), do, o)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     return do, o, lse.reshape(B, H, L).contiguous(), delta
 
 
+def _tile_grid(tiles: int, heads: int, z: int = 1) -> tuple:
+    """The CUDA grid of the forward and dk/dv launches
+    (csrc/flash_common.cuh:tile_grid): ``(tiles, heads, z)`` while the
+    head count fits grid.y's 65535, else the two folded into grid.x."""
+    return (tiles, heads, z) if heads <= 65535 else (tiles * heads, 1, z)
+
+
 @dataclasses.dataclass(frozen=True)
-class DqPlan:
-    """How the dq kernel covers a problem: its ``body`` (``wgmma``,
-    ``mma`` or ``fma``), the q rows a block owns (``block_rows``), the keys
-    of each tile it streams (``block_keys``), and the launch ``grid`` ``(B
-    * H, q tiles)``: one block per (batch and head, q tile), each visiting
-    its tile's keys once, so dq needs no second pass."""
+class QPlan:
+    """How the forward or the dq kernel covers a problem (the two tile
+    alike): its ``body`` (``wgmma``, ``mma``, ``fma`` or ``generic``) at
+    padded head_dim ``dp``, the q rows a block owns (``block_rows``), the
+    keys of each tile it streams (``block_keys``), and the dq launch
+    ``grid`` ``(B * H, q tiles)``: one block per (batch and head, q tile),
+    each visiting its tile's keys once, so dq needs no second pass.  The
+    forward launches the same blocks on ``fwd_launch``."""
 
     body: str
+    dp: int
     block_rows: int
     block_keys: int
     grid: tuple
@@ -267,6 +330,10 @@ class DqPlan:
     @property
     def blocks(self) -> int:
         return self.grid[0] * self.grid[1]
+
+    @property
+    def fwd_launch(self) -> tuple:
+        return _tile_grid(self.grid[1], self.grid[0])
 
 
 def _k_span(q_lo: int, block_rows: int, Lk: int, causal: bool, window):
@@ -277,27 +344,32 @@ def _k_span(q_lo: int, block_rows: int, Lk: int, causal: bool, window):
     return begin, end
 
 
-def _dq_plan(B: int, H: int, L: int, D: int,
-             dtype=torch.bfloat16) -> DqPlan:
-    """The dq kernel's body, tiles and grid for a shape; shape only, never
-    a failure.  The wgmma body (16-bit, D 64 and 128) owns 128 q rows a
-    block and streams 128-key tiles; the mma (16-bit, D 16 and 32) and fma
-    (f32) bodies own 64 rows and stream 64 keys.  The grid's second axis
-    runs from the last q tile down, so the heaviest tiles of every (batch,
-    head) launch first and the short ones fill the tail.  The plan never
-    splits a q tile's keys over blocks: at B1 H32 L509, 128 blocks for
-    132 SMs, a split's f32 partials and their sum would cost more than the
-    SMs left idle, and without it dq is written once, with no atomics."""
-    if dtype == torch.float32:
-        body, bq, bk = "fma", 64, 64
-    elif D < 64:
-        body, bq, bk = "mma", 64, 64
+def _dq_plan(B: int, H: int, L: int, D: int, dtype=torch.bfloat16) -> QPlan:
+    """The dq (and forward) kernel's body, tiles and grid; shape and type
+    only, never a failure.  The wgmma body owns 128 q rows a block
+    and streams 128-key tiles (at Dp 256: 64-key tiles, in one stage for
+    dq, since q and do alone take 128 KiB of shared memory, and in two for
+    the forward, whose Q takes 64); the mma and fma bodies own 64 rows and
+    stream 64 keys.  The heaviest q tiles of every (batch, head)
+    launch first, so the short ones fill the tail.  The plan never splits
+    a q tile's keys over blocks: at B1 H32 L509, 128 blocks for 132 SMs, a
+    split's f32 partials and their sum would cost more than the SMs left
+    idle, and without it dq is written once, with no atomics."""
+    body, dp = _body(D, dtype)
+    if body == "wgmma":
+        bq, bk = 128, 64 if dp == 256 else 128
+    elif body == "generic":
+        bq = bk = GENERIC_TILE
     else:
-        body, bq, bk = "wgmma", 128, 128
-    return DqPlan(body, bq, bk, (B * H, -(-L // bq)))
+        bq = bk = 64
+    return QPlan(body, dp, bq, bk, (B * H, -(-L // bq)))
 
 
-def _dq_block_tiles(plan: DqPlan, q_tile: int, Lk: int, causal: bool,
+# the forward kernel covers its q tiles as the dq kernel does
+_fwd_plan = _dq_plan
+
+
+def _dq_block_tiles(plan: QPlan, q_tile: int, Lk: int, causal: bool,
                     window):
     """The first keys of the key tiles the block for q tile ``q_tile``
     (rows from ``q_tile * block_rows``) visits, in the kernel's order."""
@@ -309,13 +381,15 @@ def _dq_block_tiles(plan: DqPlan, q_tile: int, Lk: int, causal: bool,
 @dataclasses.dataclass(frozen=True)
 class DkvPlan:
     """How the dk/dv kernel covers a problem: its ``body`` (``wgmma``,
-    ``mma`` or ``fma``), the keys a block owns (``block_keys``), the q rows
-    it streams at a time (``q_tile``), into how many chunks each block's
-    (query head, q tile) list is split (``nsplit``; above 1 each chunk
-    writes an f32 partial that the wrapper sums), and the launch ``grid``
-    ``(key tiles, B * Hkv, nsplit)``."""
+    ``mma``, ``fma`` or ``generic``) at padded head_dim ``dp``, the keys a
+    block owns (``block_keys``), the q rows it streams at a time
+    (``q_tile``), into how many chunks each block's (query head, q tile)
+    list is split (``nsplit``; above 1 each chunk writes an f32 partial
+    that the wrapper sums), and the ``grid`` ``(key tiles, B * Hkv,
+    nsplit)``, launched as ``launch``."""
 
     body: str
+    dp: int
     block_keys: int
     q_tile: int
     nsplit: int
@@ -324,6 +398,10 @@ class DkvPlan:
     @property
     def blocks(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def launch(self) -> tuple:
+        return _tile_grid(*self.grid)
 
 
 def _q_span(k_lo: int, block_keys: int, L: int, causal: bool, window):
@@ -337,18 +415,20 @@ def _q_span(k_lo: int, block_keys: int, L: int, causal: bool, window):
 def _dkv_plan(B: int, H: int, Hkv: int, L: int, Lk: int, D: int,
               causal: bool, window=None, dtype=torch.bfloat16,
               sms: int = N_SMS) -> DkvPlan:
-    """The dk/dv kernel's body, tiles and grid for a shape; shape only,
-    never a failure.  The wgmma body (16-bit, D 64 and 128) owns 128 keys
-    a block.  When ``B * Hkv * ceil(Lk / 128)`` blocks would not fill the
-    ``sms`` SMs, each block's group list is split: into one chunk per
-    query head of the group, and into ``r`` chunks per head when that is
-    still too few, never more chunks than the busiest key tile has items."""
-    if dtype == torch.float32:
-        body, bk, bq = "fma", 64, 64
-    elif D < 64:
-        body, bk, bq = "mma", 64, 64
+    """The dk/dv kernel's body, tiles and grid; shape and type only, never
+    a failure.  The wgmma body owns 128 keys a block (64 at Dp
+    256, where its two consumer warpgroups split D instead of the keys).
+    When ``B * Hkv * key tiles`` blocks would not fill the ``sms`` SMs,
+    each wgmma block's group list is split: into one chunk per query head
+    of the group, and into ``r`` chunks per head when that is still too
+    few, never more chunks than the busiest key tile has items."""
+    body, dp = _body(D, dtype)
+    if body == "wgmma":
+        bk, bq = 64 if dp == 256 else 128, 64
+    elif body == "generic":
+        bk = bq = GENERIC_TILE
     else:
-        body, bk, bq = "wgmma", 128, 64
+        bk = bq = 64
     tiles = -(-Lk // bk)
     base = B * Hkv * tiles
     G = H // Hkv
@@ -358,7 +438,7 @@ def _dkv_plan(B: int, H: int, Hkv: int, L: int, Lk: int, D: int,
         begin, end = _q_span(0, bk, L, causal, window)
         most = G * max(0, -(-(end - begin) // bq))
         nsplit = max(1, min(nsplit, most))
-    return DkvPlan(body, bk, bq, nsplit, (tiles, B * Hkv, nsplit))
+    return DkvPlan(body, dp, bk, bq, nsplit, (tiles, B * Hkv, nsplit))
 
 
 def _dkv_block_items(plan: DkvPlan, key_tile: int, chunk: int, H: int,
@@ -375,24 +455,32 @@ def _dkv_block_items(plan: DkvPlan, key_tile: int, chunk: int, H: int,
             for it in range(lo, hi)]
 
 
-def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
-                causal: bool, window, nsplit: int = 1, o=None) -> None:
-    """Launch the backward kernel ``name``: ``bwd_dq`` (which also takes
-    ``o`` and writes ``delta``) into ``outs = (dq,)``, ``bwd_dkv`` (which
-    reads ``delta``) into ``(dk, dv)``, or with ``nsplit`` > 1 into the two
-    f32 ``[B, Hkv * nsplit, Lk, D]`` partials."""
+def _launch_bwd(name: str, plan, q, k, v, do, lse, delta, outs,
+                scale: float, causal: bool, window, o=None) -> None:
+    """Launch the backward kernel ``name`` by its ``plan``, over operands
+    its body reads (``flash_bwd`` checked them and made them so):
+    ``bwd_dq`` (which also takes ``o`` and writes ``delta``) into ``outs =
+    (dq,)``; or ``bwd_dkv`` (which reads ``delta``) into ``(dk, dv)``, or
+    with ``plan.nsplit`` > 1 into the two f32 ``[B, Hkv * nsplit, Lk, D]``
+    partials."""
     B, H, L, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
     ins = (q, k, v, do, o) if name == "bwd_dq" else (q, k, v, do)
-    code = _check_launch(*ins, *(outs if nsplit == 1 else ()))
-    extra = (nsplit,) if name == "bwd_dkv" else ()
+    head = (_DTYPE_CODES[q.dtype], B, H, Hkv, L, Lk, D)
+    tail = (float(scale), int(causal), 0 if window is None else int(window))
     bind_context(q.device)
     with torch.cuda.device(q.device):
-        err = _kernel(name)(
-            *(t.data_ptr() for t in (*ins, lse, delta, *outs)), code,
-            B, H, k.shape[1], L, k.shape[2], D,
-            _strides(q, k, v, do, *outs, *ins[4:]), float(scale),
-            int(causal), 0 if window is None else int(window), *extra,
-            _stream(q))
+        if plan.body == "generic":
+            # the generic body's f32 rows of dq (or dk and dv)
+            n = B * H * L * D if name == "bwd_dq" else 2 * B * Hkv * Lk * D
+            scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+            fn, last = _kernel(name + "_generic"), (scratch.data_ptr(),)
+        else:
+            nsplit = (plan.nsplit,) if name == "bwd_dkv" else ()
+            fn, last = _kernel(name), (*nsplit, plan.dp)
+        err = fn(*(t.data_ptr() for t in (*ins, lse, delta, *outs)), *head,
+                 _strides(q, k, v, do, *outs, *ins[4:]), *tail, *last,
+                 _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_{name} kernel launch failed: {_ERRORS} "
                            f"{err}")
@@ -401,20 +489,21 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
 
 def _launch_dkv(q, k, v, do, lse, delta, dk, dv, scale: float, causal: bool,
                 window) -> None:
-    """The dk/dv kernel by its plan: straight into ``dk``/``dv``, or into
-    f32 partials summed over each block's chunks in a fixed order (no
-    atomics, so the result does not change from run to run)."""
+    """The dk/dv kernel by its plan, over operands its body reads (as
+    ``flash_bwd`` passes them): straight into ``dk``/``dv``, or into f32
+    partials summed over each block's chunks in a fixed order (no atomics,
+    so the result does not change from run to run)."""
     B, H, L, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     plan = _dkv_plan(B, H, Hkv, L, Lk, D, causal, window, q.dtype)
     if plan.nsplit == 1:
-        _launch_bwd("bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale,
+        _launch_bwd("bwd_dkv", plan, q, k, v, do, lse, delta, (dk, dv), scale,
                     causal, window)
         return
     part = torch.empty((2, B, Hkv * plan.nsplit, Lk, D), dtype=torch.float32,
                        device=q.device)
-    _launch_bwd("bwd_dkv", q, k, v, do, lse, delta, (part[0], part[1]),
-                scale, causal, window, plan.nsplit)
+    _launch_bwd("bwd_dkv", plan, q, k, v, do, lse, delta, (part[0], part[1]),
+                scale, causal, window)
     total = _dkv_group_sum(part, Hkv, plan.nsplit)
     dk.copy_(total[0])
     dv.copy_(total[1])
@@ -433,16 +522,21 @@ def flash_bwd(q, k, v, o, lse, do, scale: float, causal: bool = True,
     """Counterpart of the reference's ``_flash_bwd``: ``q``, ``o``, ``do``
     ``[B, H, L, D]``, ``k``/``v`` ``[B, Hkv, Lk, D]``, ``lse`` the
     forward's ``[B, H, L(, 1)]`` f32.  Returns ``(dq [B, H, L, D], dk, dv
-    [B, Hkv, Lk, D])`` in the input types, each laid out like its input.
+    [B, Hkv, Lk, D])`` in the input types, each laid out like its input
+    (like its contiguous copy where the kernel could not read the input).
     CUDA tensors launch the dq kernel (which also computes ``delta``),
     then the dk/dv kernel."""
     _check_window(causal, window)
     _check_heads(q.shape[1], k.shape[1])
     if use_plain(q, k, v, o, lse, do):
         return flash_bwd_plain(q, k, v, o, lse, do, scale, causal, window)
+    B, H, L, D = q.shape
+    code = _check_launch(q, k, v, o, do)
+    plan = _dq_plan(B, H, L, D, q.dtype)
+    q, k, v = _readable(plan.body, code, q, k, v)
     do, o, lse, delta = _bwd_operands(q, o, lse, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _launch_bwd("bwd_dq", q, k, v, do, lse, delta, (dq,), scale, causal,
+    _launch_bwd("bwd_dq", plan, q, k, v, do, lse, delta, (dq,), scale, causal,
                 window, o=o)
     _launch_dkv(q, k, v, do, lse, delta, dk, dv, scale, causal, window)
     return dq, dk, dv

@@ -9,9 +9,10 @@ Python.  The tests hold that every visible (q, k) pair is covered exactly
 once and no tile is visited for nothing (against brute force from
 ``_keep_mask``), that walking the tiles with the kernel's formulas, delta
 included, gives the JAX reference's dq (Pallas in interpret mode) and
-``flash_bwd_plain``'s, that the dq launch's new ``o`` operand is held to
-the 16-byte rules, and that the launch hands the C entry point its
-operands in the order it reads them.  The kernels themselves are held
+``flash_bwd_plain``'s, that an ``o`` the tiled bodies cannot read (not
+16-byte aligned, expanded) keeps the tiled body and reaches it as a
+contiguous copy, and that the launch hands the C entry point its operands
+in the order it reads them.  The kernels themselves are held
 against the plain versions on the card by chip_smoke.py.  Inputs are made
 with numpy from a seed.
 """
@@ -181,6 +182,16 @@ def _dq_operands():
     return {"q": q, "k": k, "v": k.clone(), "do": q.clone(), "o": q.clone()}
 
 
+def _dq_body_and_o(ops):
+    """The dq plan's body for these operands, after the wrapper's checks
+    (which no layout fails), and ``o`` as that body reads it."""
+    _check_launch(*ops.values())
+    B, H, L, D = ops["q"].shape
+    lse = torch.zeros(B, H, L)
+    _, o, _, _ = _bwd_operands(ops["q"], ops["o"], lse, ops["do"])
+    return _dq_plan(B, H, L, D, ops["q"].dtype).body, o
+
+
 def test_check_launch_accepts_the_dq_operands():
     ops = _dq_operands()
     assert _check_launch(*ops.values()) == 1
@@ -191,18 +202,23 @@ def test_check_launch_accepts_the_dq_operands():
     (0, 4),   # rows 68 elements apart: not a multiple of 8
     (0, 1),
 ])
-def test_check_launch_refuses_misaligned_o(offset, row_pad):
+def test_misaligned_o_is_copied_for_the_tiled_body(offset, row_pad):
     ops = _dq_operands()
+    body, o = _dq_body_and_o(ops)
+    assert body == "wgmma" and o is ops["o"]
     ops["o"] = _bf16((1, 4, 33, 64), offset, row_pad)
-    with pytest.raises(ValueError, match="16-byte aligned bf16/fp16 rows"):
-        _check_launch(*ops.values())
+    body, o = _dq_body_and_o(ops)
+    assert body == "wgmma" and o.data_ptr() != ops["o"].data_ptr()
+    assert o.is_contiguous() and o.data_ptr() % 16 == 0
+    assert torch.equal(o, ops["o"])
 
 
-def test_check_launch_refuses_broadcast_o():
+def test_broadcast_o_is_copied_for_the_tiled_body():
     ops = _dq_operands()
-    ops["o"] = torch.zeros(1, 4, 1, 64, dtype=BF16).expand(1, 4, 33, 64)
-    with pytest.raises(ValueError, match="16-byte aligned bf16/fp16 rows"):
-        _check_launch(*ops.values())
+    ops["o"] = torch.ones(1, 4, 1, 64, dtype=BF16).expand(1, 4, 33, 64)
+    body, o = _dq_body_and_o(ops)
+    assert body == "wgmma" and o.is_contiguous() and o.stride(2) == 64
+    assert torch.equal(o, ops["o"])
 
 
 def test_check_launch_refuses_o_of_another_type():
@@ -232,8 +248,8 @@ def test_bwd_operands_make_o_and_do_kernel_ready():
 
 def test_dq_launch_hands_the_entry_point_its_operands(monkeypatch):
     """``k8s_flash_bwd_dq(q, k, v, do, o, lse, delta, dq, dtype, B, H, Hkv,
-    L, Lk, D, strides, scale, causal, window, stream)`` with 18 strides: q,
-    k, v, do, dq, then o (csrc/flash_bwd.cu)."""
+    L, Lk, D, strides, scale, causal, window, Dp, stream)`` with 18
+    strides: q, k, v, do, dq, then o (csrc/flash_bwd.cu)."""
     seen = {}
 
     def fake(*args):
@@ -250,8 +266,9 @@ def test_dq_launch_hands_the_entry_point_its_operands(monkeypatch):
     monkeypatch.setattr(flash.torch.cuda, "device", contextlib.nullcontext)
     monkeypatch.setattr(flash, "_stream", lambda t: 0)
     monkeypatch.setattr(_common, "LAUNCHES", {})
-    flash._launch_bwd("bwd_dq", ops["q"], ops["k"], ops["v"], ops["do"], lse,
-                      delta, (dq,), 0.125, True, 7, o=ops["o"])
+    plan = _dq_plan(1, 4, 33, 64, BF16)
+    flash._launch_bwd("bwd_dq", plan, ops["q"], ops["k"], ops["v"], ops["do"],
+                      lse, delta, (dq,), 0.125, True, 7, o=ops["o"])
     args = seen["args"]
     order = (ops["q"], ops["k"], ops["v"], ops["do"], ops["o"], lse, delta, dq)
     assert list(args[:8]) == [t.data_ptr() for t in order]

@@ -8,7 +8,9 @@ unsplit grid would leave SMs idle.  ``_dkv_block_items`` is the kernel's
 walk of one block, written out in Python; the tests hold that every key
 tile and every (head, visible q tile) pair is covered exactly once, that
 the split-then-group-sum order gives ``flash_bwd_plain``'s dk/dv, and that
-misaligned 16-bit operands are refused before any launch.  The kernels
+16-bit operands no tensor map can describe (misaligned, expanded, a strided
+head_dim) pass the wrapper's checks, keep the tiled body their head_dim
+has, and reach it as contiguous copies.  The kernels
 themselves are held against the plain versions on the card by
 chip_smoke.py.  Inputs are made with numpy from a seed.
 """
@@ -24,6 +26,8 @@ from k8s_tpu_torch.ops.flash_attention import (
     _dkv_block_items,
     _dkv_group_sum,
     _dkv_plan,
+    _fwd_plan,
+    _readable,
     flash_bwd_plain,
     flash_fwd_plain,
 )
@@ -175,30 +179,59 @@ def test_check_launch_accepts_aligned_operands():
     assert _check_launch(q, k, k.clone()) == 1
 
 
+def _bodies_and_operands(q, k, v):
+    """The body each kernel's plan names for these operands, after the
+    wrapper's checks (which no layout fails), and the operands as that body
+    reads them."""
+    code = _check_launch(q, k, v)
+    B, H, L, D = q.shape
+    bodies = {_fwd_plan(B, H, L, D, q.dtype).body,
+              _dkv_plan(B, H, k.shape[1], L, L, D, True, None,
+                        q.dtype).body}
+    (body,) = bodies
+    return bodies, _readable(body, code, q, k, v)
+
+
+def _is_tensor_map_ready(t):
+    """Contiguous, 16-byte aligned rows: what the 16-bit tiled bodies read."""
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
 @pytest.mark.parametrize("which,offset,row_pad", [
     ("q", 1, 0),   # data 2 bytes past a 16-byte boundary
     ("k", 0, 4),   # rows 68 elements apart: not a multiple of 8
     ("v", 0, 1),
 ])
-def test_check_launch_refuses_misaligned_16bit(which, offset, row_pad):
+def test_misaligned_16bit_is_copied_for_the_tiled_body(which, offset,
+                                                      row_pad):
     ops = {"q": _bf16((1, 4, 33, 64)), "k": _bf16((1, 2, 33, 64)),
            "v": _bf16((1, 2, 33, 64))}
     ops[which] = _bf16(tuple(ops[which].shape), offset, row_pad)
-    with pytest.raises(ValueError, match="16-byte aligned bf16/fp16 rows"):
-        _check_launch(ops["q"], ops["k"], ops["v"])
+    bodies, got = _bodies_and_operands(ops["q"], ops["k"], ops["v"])
+    assert bodies == {"wgmma"}
+    for name, t in zip(("q", "k", "v"), got):
+        if name == which:
+            assert t.data_ptr() != ops[name].data_ptr()
+            assert _is_tensor_map_ready(t) and torch.equal(t, ops[name])
+        else:
+            assert t is ops[name]
 
 
-def test_check_launch_refuses_broadcast_rows():
+def test_broadcast_rows_are_copied_for_the_tiled_body():
     """A stride of 0 (an expanded tensor) is no row layout a tensor map
-    can describe."""
+    can describe: the tiled body reads a contiguous copy."""
     q = _bf16((1, 4, 33, 64))
     k = torch.zeros(1, 2, 1, 64, dtype=BF16).expand(1, 2, 33, 64)
-    with pytest.raises(ValueError, match="16-byte aligned bf16/fp16 rows"):
-        _check_launch(q, k, k)
+    bodies, (q2, k2, v2) = _bodies_and_operands(q, k, k)
+    assert bodies == {"wgmma"} and q2 is q
+    for t in (k2, v2):
+        assert _is_tensor_map_ready(t) and torch.equal(t, k)
 
 
-def test_check_launch_refuses_strided_head_dim():
-    q = torch.zeros(1, 4, 33, 128, dtype=BF16)[..., ::2]
+def test_strided_head_dim_is_copied_for_the_tiled_body():
+    q = torch.arange(4 * 33 * 128, dtype=F32).view(1, 4, 33, 128)
+    q = q.to(BF16)[..., ::2]
     k = torch.zeros(1, 2, 33, 64, dtype=BF16)
-    with pytest.raises(ValueError, match="contiguous head_dim"):
-        _check_launch(q, k, k.clone())
+    bodies, (q2, k2, _) = _bodies_and_operands(q, k, k.clone())
+    assert bodies == {"wgmma"} and k2 is k
+    assert _is_tensor_map_ready(q2) and torch.equal(q2, q)
