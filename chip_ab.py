@@ -14,8 +14,10 @@ order base, this checkout, this checkout, base, each in a fresh process:
 - the flash kernels K2, K3 and K4 of each checkout (``--kernels flash``)
   at the main path's attention shapes (``FLASH_SHAPES``; a shape the
   checkout refuses is recorded as null), each kernel's device ``ms`` a
-  call by this checkout's ``chip_smoke.time_ms``, and the count of
-  ptxas's C7515 warnings (wgmma serialised) in the checkout's build log;
+  call by this checkout's ``chip_smoke.time_ms``, beside SDPA's forward
+  on the same inputs (``sdpa_ms``, the library yardstick of K2, timed in
+  every turn), and the count of ptxas's C7515 warnings (wgmma
+  serialised) in the checkout's build log;
 - ``chip_profile.py --path P`` of each checkout, for each path in
   ``--paths``: the single-flight decode step's host wall (``serve``) and
   the engine's host wall an iteration at k = 1 and k = 4 (``engine``).
@@ -82,6 +84,7 @@ def flash_worker(root: str) -> int:
     import inspect
 
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -122,6 +125,9 @@ def flash_worker(root: str) -> int:
                 ("flash_bwd_dkv", lambda: flash._launch_dkv(
                     q, k, v, do_k, lse_k, delta, dk, dv, *args))):
             rec[kname + "_ms"] = harness.time_ms(torch, fn)["ms"]
+        rec["sdpa_ms"] = harness.time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=Hkv != H))["ms"]
         emit(rec)
     emit({"kernel": "build", "c7515": {
         src: log.count("C7515") for src, log in _build.BUILD_LOGS.items()}})
@@ -160,7 +166,7 @@ def summarize(runs: list[dict]) -> dict:
                   for case, recs in k1.items()},
            "flash": {case: {key: mean([rec.get(key) for rec in recs])
                             for key in ("flash_fwd_ms", "flash_bwd_dq_ms",
-                                        "flash_bwd_dkv_ms")}
+                                        "flash_bwd_dkv_ms", "sdpa_ms")}
                      for case, recs in flash.items()}}
     for key in ("decode_step_s", "prefill_s", "engine_k1_s_per_iteration",
                 "engine_k4_s_per_iteration"):

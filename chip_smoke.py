@@ -23,10 +23,11 @@ names):
    dq kernel writes against a torch reduction; RMSNorm at every body its
    plan picks (row, stream, scalar; strided rows), timed over rotated
    buffers larger than the L2, its host time a call beside F.rms_norm's.
-   Then the head_dim cases of K2-K4: timed at Phi-3-mini's (D 96 on the
-   D-128 wgmma body) and Gemma-7B's (D 256 on the Dp-256 body) attention
-   shapes at L 2048, and once each for correctness at D 80 (GQA 4, window
-   48), 256 (f16 ragged, bidirectional Lk != L), 40, 24, the generic body
+   Then the head_dim cases of K2-K4: timed at Phi-3-mini's (D 96: K2's
+   Dp-96 wgmma body, K3/K4's D-128 one) and Gemma-7B's (D 256 on the
+   Dp-256 bodies) attention shapes at L 2048, and once each for
+   correctness at D 80 (GQA 4, window 48), 96 (GQA 4, window 200, ragged
+   L 1000), 256 (f16 ragged, bidirectional Lk != L), 40, 24, the generic body
    (timed at D 100 and L 2048; once at bf16 D 100 with an expanded k and
    D 320, f32 D 160), operands the tiled body reads as contiguous copies
    (an expanded k, a misaligned q, a strided head_dim) and B*H 65,544,
@@ -58,7 +59,7 @@ names):
    prompt's 31 prefix blocks demoted by a flood of distinct prompts,
    promoted back on the next ask, the answer unchanged; demote and
    promote ms a block, TTFT cold / hit / promoted); then (on the served
-   weights' first 16 of 32 layers, ``cut_depth``, as in bench_serve,
+   weights' first 4 of 32 layers, ``cut_depth``, as in bench_serve,
    bench_kvtier and serve_spec) two in-process
    ``LmServer``s, roles prefill and decode, over loopback kvxfer: 8
    prompts (17-509 tokens) through ``kv_dest`` one at a time (equal to
@@ -70,20 +71,20 @@ names):
 5d. speculative, beam: the batched speculative lane equals the exclusive
    lane and vanilla greedy on the tiny model in f32 (greedy at draft_k
    2-4, fixed-seed sampled, two draft_k groups beside a plain row); then
-   on the served Llama-3-8B-width weights (16 layers), ``speculative:
+   on the served Llama-3-8B-width weights (4 layers), ``speculative:
    4`` over HTTP on the batched lane and on single-flight against vanilla
    greedy on the same prompts (a repeated 509- and 128-token pattern, a
    random 64), with tokens per model call, both tokens/s, exact K1
-   launches (2·16+1 a model call) and K2 (16 a single-flight prefill,
+   launches (2·4+1 a model call) and K2 (4 a single-flight prefill,
    none batched); beam 1 (all 32 layers)
    equals greedy and beam 4 reports its peak memory, exact launches.
 5e. (run after 5c, before 5d) the serving benches' twins
    (``k8s_tpu_torch/harness/``) on the served Llama-3-8B-width weights
-   (16 layers):
+   (4 layers):
    ``bench_serve`` (``run_phase`` in ``run_bench``'s order: single_flight, batched and recorder-off twice
    in turns, sampled exclusive / batched, spec exclusive / batched over
-   grounded prompts; no request error, exact K1 (2·16+1 a model call) and
-   K2 (16 a prefill-mode call: in the single-flight and exclusive phases
+   grounded prompts; no request error, exact K1 (2·4+1 a model call) and
+   K2 (4 a prefill-mode call: in the single-flight and exclusive phases
    only); tokens/s, p50/p99, recorder TTFT/TPOT, the speedups and the
    recorder ratio as readings; the lane checks exact on the tiny model in
    f32 and, at Llama width, each differing token judged by its decode
@@ -98,9 +99,9 @@ names):
    phase: ``measure`` and ``judge`` with the twin's workload on three pod
    processes a topology, 1 prefill + 2 decode then 3 collapsed, each
    pinned to a third of the host's cores and drawing its own Llama-3-8B
-   width weights, 16 layers, ``max_seq_len`` 128; no request error,
+   width weights, 4 layers, ``max_seq_len`` 128; no request error,
    migrations, collapsed convoys, every pod's weight digest equal to this
-   process's draw, exact K1 (2·16+1 a pod's model call) and no K2-K4 on
+   process's draw, exact K1 (2·4+1 a pod's model call) and no K2-K4 on
    every pod, the routed greedy and sampled answers equal to the same hop
    in this process and that within ``token_check`` / ``draws_check`` of
    the twin's local oracle; the two p99 ratios beside their bounds as
@@ -134,13 +135,13 @@ names):
    ``moe_serve``, last (after the Llama-width weights are freed, and
    its profiler session after every host clock): Llama-3-8B's
    attention and vocabulary with Mixtral-8x7B's expert layout (8 experts
-   of 4096 -> 14336, top-2), cut to 20 layers, behind ``LmServer(slots=4)``
+   of 4096 -> 14336, top-2), cut to 10 layers, behind ``LmServer(slots=4)``
    with span tracing on: 8 concurrent requests, prefix-hit repeats, a
    single-flight sampled request (K2 in its prefill), a W3C traceparent
    whose trace ``/debug/traces`` shows (serve_request, prefill under it,
    decode_step spans), the drop share at decode, step time with tracing
    at 0 and 1 in turns, a decode call's device time against its host
-   wall, exact K1 (2·20+1 a model call) and K2 launches; ``moe_train``:
+   wall, exact K1 (2·10+1 a model call) and K2 launches; ``moe_train``:
    the same layout cut to 2 layers trains 3 steps (B1 L2048) on batches
    ``TokenDataset`` reads from a corpus ``write_text_corpus`` wrote, exact
    K1-K4 launches; ``data``: ``train_lm.main --data_dir`` at gpt2-small, 6
@@ -234,7 +235,7 @@ names):
    local engine on all three lanes and the CPU plain engine on greedy;
    exact K1 launches on every rank, pool shares 1/tp); ``mesh_serve``
    (after ``beam``, on ``serve_engine``'s weights: Llama-3-8B width and
-   depth at tp 4, 4 slots, its prompts with 8 greedy tokens plus a
+   depth at tp 4, 4 slots, its prompts with 4 greedy tokens plus a
    speculative request; K1 exactly 65 launches a chief model call on
    each rank, every rank's measured pool share 0.25, tokens held against
    ``serve_engine``'s by ``token_check``, one prefill's logits through
@@ -248,16 +249,23 @@ names):
    process of its own under ``gang_env``, its HTTP tokens against a
    local server's, exit 0 on SIGINT).
 
-Prints the card line first, one JSON object per phase and case, then a
+Prints the card line first, one JSON object per phase and case, each
+phase between ``{"phase": NAME, "start": true}`` and ``{"phase": NAME,
+"s": wall seconds}``, then ``{"phase": "timing", "phases": {...},
+"total_s": ...}`` (every phase's seconds, slowest first), a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or away from the repository checkout, it exits
-non-zero and prints no result.  Details go to
-``chip_reports/chip_smoke.json``.
+A run still going after ``WATCHDOG_S`` (1080 s, under the 1200 s it is
+given) dumps every thread's stack to stderr and exits 1, so the last
+``start`` line names the phase that overran.  Without a CUDA device, or
+away from the repository checkout, it exits non-zero and prints no
+result.  Details go to ``chip_reports/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import logging
@@ -292,9 +300,11 @@ KEPT: dict = {}
 
 # The serving phases after serve_engine that drive its lanes again
 # (disagg, bench_serve, bench_kvtier, serve_spec), and bench_disagg's pods,
-# run the first 16 of its 32 layers at full width: a depth cut that keeps
-# the script inside its time limit.
-CUT_LAYERS = 16
+# run the first 4 of its 32 layers at full width: a depth cut that keeps
+# the script well inside its time limit (16 until the whole script came
+# to 860 s of the 1200; at 8 it still took 592-779 s, as the host's
+# speed went).
+CUT_LAYERS = 4
 
 
 def cut_depth(cfg, sd: dict, layers: int = CUT_LAYERS):
@@ -318,17 +328,48 @@ def emit(obj: dict) -> None:
 # timed calls (~0.1 s at the H100's ~2 GHz clock).
 SPIN_CYCLES = 200_000_000
 
+# The timing of a case checked at an edge of a body but not at a shape a
+# main path runs (``QUICK_CASES``): 5 calls after one warm-up behind a
+# quarter of the spin, device time only (no host wall), the plain version
+# and K1's library call once, and SDPA not at all (but once at the
+# head_dim cases the kernels line reports): SDPA's first call at each new
+# shape takes 0.3-0.8 s of host time, most of what the flash cases cost.
+# Its check against the plain version is the same as every case's.
+QUICK = {"iters": 5, "warmup": 1, "walls": 0, "spin": SPIN_CYCLES // 4}
+QUICK_ONCE = {**QUICK, "iters": 1}
+QUICK_CASES = frozenset({
+    # K1: rows, row strides and head widths no model has
+    "ragged_rows", "small_f32", "ragged_d_f16", "strided_4104",
+    "strided_4100", "ragged_d_99_f16", "wide_d_8195_f32",
+    # K2-K4: windows, ragged tails, GQA groups, cross attention, the f32
+    # and mma bodies' test shapes, the generic body
+    "window_509", "window_2048", "ragged_1000_d64_g1",
+    "ragged_301_d128_g4_f16", "window_48_d128_g4", "cross_d128_g4",
+    "f16_d32_ragged", "bf16_cross", "f32_d16_causal", "f32_d16_window",
+    "f32_d16_cross", "d100_2048_generic",
+    # the head_dim bodies' edges (checked here, served at phi3_2048 and
+    # gemma_2048), the padded and generic widths, and layouts that copy
+    "d24_f16", "d40_bf16", "f32_d96", "d80_g4_window_48",
+    "d96_g4_window_200_ragged_1000", "d256_f16_ragged_301", "d256_cross",
+    "d320_bf16_generic", "f32_d160_generic", "d100_expanded_k_generic",
+    "bh_65544_l16", "expanded_k_copied", "misaligned_q_copied",
+    "strided_d_copied"})
+
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3, walls: int = 1,
-            wall_iters: int | None = None, wall_gc_off: bool = True) -> dict:
+            wall_iters: int | None = None, wall_gc_off: bool = True,
+            spin: int = SPIN_CYCLES) -> dict:
     """One call's times after ``warmup`` calls, from CUDA events around
     ``iters`` calls.  ``ms`` is device time: the stream is first parked on
     a spin kernel, so the host has queued every call before the device
     starts them and the events bracket device work only.  ``wall_ms`` is
     the same from an idle stream, over ``wall_iters`` calls (the median of
     ``walls`` such runs): for small inputs that is the host's launch rate,
-    not the device's time.  The cyclic garbage collector is off while the
-    calls are queued (for ``wall_ms``, unless ``wall_gc_off`` is false)."""
+    not the device's time (None with ``walls`` 0).  The cyclic garbage
+    collector is off while the calls are queued (for ``wall_ms``, unless
+    ``wall_gc_off`` is false).  ``spin``: the spin kernel's cycles
+    (``SPIN_CYCLES``, ~0.1 s, by default); queueing the calls must take
+    less than half as long as it holds the stream."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -336,11 +377,11 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3, walls: int = 1,
 
     def bracket(park: bool, n: int, gc_off: bool = True) -> float:
         # no cyclic garbage collection inside a bracket: a full pass over
-        # the process's objects takes tens of ms and lands on whichever
-        # call happens to trigger it
+        # the process's objects takes ~0.1 s and would land on whichever
+        # call happens to trigger it (and a pass before every bracket
+        # cost the kernels phase tens of seconds)
         if not gc_off:
             return queue(park, n)
-        gc.collect()
         gc.disable()
         try:
             return queue(park, n)
@@ -350,7 +391,7 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3, walls: int = 1,
     def queue(park: bool, n: int) -> float:
         torch.cuda.synchronize()
         if park:
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin)
         t0 = time.perf_counter()
         start.record()
         for _ in range(n):
@@ -358,13 +399,13 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3, walls: int = 1,
         end.record()
         queued_s = time.perf_counter() - t0
         end.synchronize()
-        if park and queued_s > 0.05:
+        if park and queued_s > 0.05 * spin / SPIN_CYCLES:
             fail(f"queueing {n} calls took {queued_s:.3f} s, longer "
                  "than the spin kernel holds the stream")
         return start.elapsed_time(end) / n
 
     wall_ms = sorted(bracket(False, wall_iters or iters, wall_gc_off)
-                     for _ in range(walls))[walls // 2]
+                     for _ in range(walls))[walls // 2] if walls else None
     return {"ms": bracket(True, iters), "wall_ms": wall_ms}
 
 
@@ -430,18 +471,21 @@ def ptxas_report(_build, source: str, fn: str) -> dict:
     return rep
 
 
-def build_report(_build, kernel: str, dtype, plan, split=False) -> dict:
+def build_report(_build, kernel: str, dtype, plan, split=False,
+                 smem_want=None) -> dict:
     """Registers, spills and shared memory of the body ``plan`` (the
     kernel's ``_fwd_plan`` / ``_dq_plan`` / ``_dkv_plan``) names for
     ``kernel`` (flash_fwd, flash_bwd_dq or flash_bwd_dkv) at this type: the
     first from nvcc's ptxas report in ``_build.BUILD_LOGS``, the dynamic
     shared memory from the library's own size query.  The build must agree
-    with the plan: the library takes its (type, padded width) and, where
-    nvcc ran in this process, it compiled the kernel the plan names."""
+    with the plan: the library takes its (type, padded width), reports
+    ``smem_want`` bytes where that is given (the plan's tiles and stages,
+    ``flash._fwd_smem``) and, where nvcc ran in this process, it compiled
+    the kernel the plan names."""
     code = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}[str(dtype)]
     tok = "f" if code == 0 else _TYPE_TOKENS[str(dtype)]
     body, dp = plan.body, plan.dp
-    source = "flash_fwd" if kernel == "flash_fwd" else "flash_bwd"
+    source = kernel  # csrc/flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu
     fn = f"{kernel}_{body}I"
     if body == "generic":
         fn += f"{tok}E"
@@ -459,6 +503,10 @@ def build_report(_build, kernel: str, dtype, plan, split=False) -> dict:
         if smem < 0:
             fail(f"{kernel}: the plan names {body} at Dp {dp} for {dtype}, "
                  "which the library does not build")
+        if smem_want is not None and smem != smem_want:
+            fail(f"{kernel}: the library launches {body} at Dp {dp} with "
+                 f"{smem} bytes of shared memory, the plan's tiles need "
+                 f"{smem_want}")
     rep = ptxas_report(_build, source, fn)
     if source in _build.BUILD_LOGS and rep["registers"] is None:
         fail(f"{kernel}: the plan names {fn}, which nvcc did not compile")
@@ -547,36 +595,39 @@ def rms_cases(torch, F, fused_norm, _build=None):
             fail(f"rms_norm {name}: max abs err {err} beyond rtol {rtol}")
         w16 = s.to(xd)
         per_call = N * D * (x.element_size() + got.element_size())
-        n_buf = max(2, -(-2 * L2_BYTES // per_call))
+        quick = name in QUICK_CASES
+        n_buf = 2 if quick else max(2, -(-2 * L2_BYTES // per_call))
         xs = torch.empty(n_buf, N, W, dtype=xd, device="cuda")[..., :D]
         xs.copy_(x.expand(n_buf, N, D))
         nbytes = per_call + D * s.element_size()
         b_ms, b_by = bound(4 * N * D, nbytes, PEAK_F32)
         # host time a call: the median of 3 runs of 100 calls
-        walls = {"walls": 3, "wall_iters": 100}
+        walls = {**QUICK, "warmup": n_buf} if quick else \
+            {"walls": 3, "wall_iters": 100, "warmup": n_buf}
         k1 = rotating(lambda xi: fused_norm.rms_norm(xi, s), xs, n_buf)
         lib = rotating(lambda xi: F.rms_norm(xi, (D,), w16, 1e-6), xs, n_buf)
         rec = {"phase": "kernel", "kernel": "rms_norm", "case": name,
                "shape": [N, D], "row_stride": W, "x": str(xd),
                "scale": str(sd), "max_abs_err": err, "rtol": rtol,
                "rotated_buffers": n_buf,
-               **timed(torch, "", k1, warmup=n_buf, **walls),
+               **timed(torch, "", k1, **walls),
                **timed(torch, "plain_", rotating(
                    lambda xi: fused_norm.rms_norm_plain(xi, s), xs, n_buf),
-                   warmup=n_buf, **walls),
-               **timed(torch, "library_", lib, warmup=n_buf, **walls),
+                   **walls),
+               **timed(torch, "library_", lib, **walls),
                "copy_ms": time_ms(torch, rotating(
                    lambda xi: torch.empty(N, D, dtype=got.dtype,
                                           device="cuda").copy_(xi),
-                   xs, n_buf), warmup=n_buf)["ms"],
+                   xs, n_buf), **{**walls, "walls": 0})["ms"],
                "library_same_output_type": got.dtype == xd,
                "bound_ms": b_ms, "bound_by": b_by}
         for key, fn in (("single_wall_ms", k1), ("library_single_wall_ms",
                                                  lib)):
-            rec[key] = time_ms(torch, fn, warmup=0,
-                               wall_gc_off=False)["wall_ms"]
+            rec[key] = None if quick else time_ms(
+                torch, fn, warmup=0, wall_gc_off=False)["wall_ms"]
         rec["bound_share"] = b_ms / rec["ms"]
-        rec["wall_over_library_wall"] = rec["wall_ms"] / rec["library_wall_ms"]
+        rec["wall_over_library_wall"] = None if quick else \
+            rec["wall_ms"] / rec["library_wall_ms"]
         if _build is not None:
             plan = fused_norm._rms_plan(N, D, xd, sd, x.data_ptr() % 16,
                                         x.stride(0), s.data_ptr() % 16)
@@ -597,8 +648,9 @@ def visible_pairs(L: int, Lk: int, causal: bool, window) -> int:
 
 # The head_dim cases (both directions): (name, B, H, Hkv, L, Lk, D, dtype,
 # causal, window, layout).  The first three are timed: at the attention
-# shapes of Phi-3-mini (D 96 on the D-128 wgmma body) and Gemma-7B (D 256
-# on the Dp-256 body; the FLOPs of llama_2048), and Phi-3-mini's at D 100
+# shapes of Phi-3-mini (D 96: the forward's Dp-96 wgmma body, the
+# backward's D-128 one) and Gemma-7B (D 256 on the Dp-256 bodies; the
+# FLOPs of llama_2048), and Phi-3-mini's at D 100
 # (no multiple of 8: the generic body); the rest run once each for
 # correctness: every body and padding the plans pick beside the 64/128
 # ones, the generic body's types, head_dims and row layouts (read in
@@ -614,6 +666,8 @@ def head_dim_cases(torch) -> list:
             ("d100_2048_generic", 1, 32, 32, 2048, 2048, 100, bf, True, None,
              None),
             ("d80_g4_window_48", 1, 8, 2, 509, 509, 80, bf, True, 48, None),
+            ("d96_g4_window_200_ragged_1000", 2, 8, 2, 1000, 1000, 96, bf,
+             True, 200, None),
             ("d256_f16_ragged_301", 2, 8, 2, 301, 301, 256, f16, True, None,
              None),
             ("d256_cross", 1, 8, 2, 301, 1000, 256, bf, False, None, None),
@@ -721,8 +775,11 @@ def flash_cases(torch, F, flash, _build):
                "tol_o": tol_o, "tol_lse": tol_l,
                "bound_ms": b_ms, "bound_by": b_by,
                "visible_pairs": pairs,
-               **build_report(_build, "flash_fwd", dt, plan)}
+               **build_report(_build, "flash_fwd", dt, plan,
+                              smem_want=flash._fwd_smem(plan)
+                              if plan.body == "wgmma" else None)}
         if timed_case:
+            quick = name in QUICK_CASES
             mask = None
             if window is not None:
                 qp = torch.arange(L, device="cuda")[:, None]
@@ -736,10 +793,15 @@ def flash_cases(torch, F, flash, _build):
 
             rec.update(
                 **timed(torch, "", lambda: flash.flash_fwd(
-                    q, k, v, scale, causal, window)),
+                    q, k, v, scale, causal, window),
+                    **(QUICK if quick else {})),
                 **timed(torch, "plain_", lambda: flash.flash_fwd_plain(
-                    q, k, v, scale, causal, window), iters=5),
-                **timed(torch, "library_", library))
+                    q, k, v, scale, causal, window),
+                    **(QUICK_ONCE if quick else {"iters": 5})),
+                **(timed(torch, "library_", library,
+                         **(QUICK_ONCE if quick else {}))
+                   if not quick or name in HEAD_DIM_TIMED
+                   else {"library_ms": None, "library_wall_ms": None}))
             rec["bound_share"] = b_ms / rec["ms"]
         rec["case_s"] = time.perf_counter() - t_case
         emit(rec)
@@ -846,15 +908,17 @@ def flash_bwd_cases(torch, F, flash, _build):
         peak = PEAK_16BIT if esz == 2 else PEAK_F32
         timing = {}
         if name in HEAD_DIM_TIMED or name not in once:
+            quick = name in QUICK_CASES
+            kw, once_kw = (QUICK, QUICK_ONCE) if quick else ({}, {})
             t_dq = time_ms(torch, lambda: flash._launch_bwd(
                 "bwd_dq", dq_plan, q_k, k_k, v_k, do_k, lse_k, delta, (dq,),
-                *args, o=o_k))
+                *args, o=o_k), **kw)
             t_dkv = time_ms(torch, lambda: flash._launch_dkv(
-                q_k, k_k, v_k, do_k, lse_k, delta, dk, dv, *args))
+                q_k, k_k, v_k, do_k, lse_k, delta, dk, dv, *args), **kw)
             t_pair = time_ms(torch, lambda: flash.flash_bwd(
-                q, k, v, o, lse, do, *args))
+                q, k, v, o, lse, do, *args), **kw)
             t_plain = time_ms(torch, lambda: flash.flash_bwd_plain(
-                q, k, v, o, lse, do, *args), iters=3)
+                q, k, v, o, lse, do, *args), **(once_kw or {"iters": 3}))
             # the library's backward alone: SDPA forward + backward minus
             # SDPA forward, timed the same way
             mask = None
@@ -872,8 +936,11 @@ def flash_bwd_cases(torch, F, flash, _build):
             def sdpa_fwd_bwd():
                 torch.autograd.grad(sdpa(), (qg, kg, vg), do)
 
-            lib_f, lib_fb = time_ms(torch, sdpa), time_ms(torch, sdpa_fwd_bwd)
-            library_ms = lib_fb["ms"] - lib_f["ms"]
+            library_ms = None
+            if not quick or name in HEAD_DIM_TIMED:
+                lib_f, lib_fb = (time_ms(torch, sdpa, **once_kw),
+                                 time_ms(torch, sdpa_fwd_bwd, **once_kw))
+                library_ms = lib_fb["ms"] - lib_f["ms"]
             shared = {"plain_ms": t_plain["ms"],
                       "plain_wall_ms": t_plain["wall_ms"],
                       "plain_is": "flash_bwd_plain (dq, dk and dv together)",
@@ -2487,9 +2554,11 @@ def bench_serve_mp_card(torch, server, mp_serve, bench_serve_mp):
 DISAGG_MODEL = {"preset": "llama_8b", "layers": CUT_LAYERS,
                 "max_seq_len": 128, "dtype": "bfloat16",
                 "use_flash_attention": True, "use_fused_norm": True}
-DISAGG_WORKLOAD = dict(shorts=4, longs=3, slots=12, duration_s=4.0,
+# the twin's workload, but each measured phase 2 s long, not 4 (the
+# smoke's time limit)
+DISAGG_WORKLOAD = dict(shorts=4, longs=3, slots=12, duration_s=2.0,
                        max_new_short=17, max_new_long=5, long_len=112,
-                       phase_tokens=48, hidden=256, layers=4)  # the twin's
+                       phase_tokens=48, hidden=256, layers=4)
 
 
 def disagg_hop(torch, engine_lib, cfg, sd, body) -> list:
@@ -3612,7 +3681,9 @@ def moe_parity(torch, tlib, bridge, decode, train_lib, moe):
     REPORT["moe_parity"] = rec
 
 
-MOE_SERVE_LAYERS = 20  # llama_8b's 32 cut to fit 8 bf16 experts a layer
+# llama_8b's 32 layers cut to fit 8 bf16 experts a layer (20 until the
+# whole script came to 860 s of the 1200)
+MOE_SERVE_LAYERS = 10
 
 
 def host_and_device_ms(torch, fn, n: int = 4) -> dict:
@@ -3656,8 +3727,8 @@ def host_and_device_ms(torch, fn, n: int = 4) -> dict:
 
 
 def moe_serve(torch, tlib, bridge, server, common, requestlog, moe, trace):
-    """The MoE Transformer served at Llama-3-8B width with 8 experts, 20
-    layers (``reduced``: 32 -> 20; 32 bf16 layers of experts are 92 GB),
+    """The MoE Transformer served at Llama-3-8B width with 8 experts, 10
+    layers (``reduced``: 32 -> 10; 32 bf16 layers of experts are 92 GB),
     random bf16 weights drawn on the card, behind ``LmServer(slots=4,
     batch_sampling=False)`` with span tracing on: eight concurrent greedy
     requests (prompts 17-509, 32 new tokens), a repeat of the longest
@@ -3665,8 +3736,8 @@ def moe_serve(torch, tlib, bridge, server, common, requestlog, moe, trace):
     repeat gives the same 32 tokens), then a fixed-seed sampled request
     twice (the exclusive lane: the single-flight program, K2 in its
     prefill; both answers equal).  Counters zeroed just before and read
-    just after: K1 at 2·20+1 launches a model call (``ModelCalls``), K2
-    20 a single-flight prefill.  Then a POST with a W3C traceparent whose
+    just after: K1 at 2·10+1 launches a model call (``ModelCalls``), K2
+    10 a single-flight prefill.  Then a POST with a W3C traceparent whose
     trace ``/debug/traces`` shows (``serve_request`` under the caller,
     ``prefill`` under it) beside the ``decode_step`` spans; the share of
     (token, choice) pairs dropped at decode with 4 rows (C = 2 a call);
@@ -5270,12 +5341,14 @@ def gang_path(torch):
 
         t0 = time.perf_counter()
         procs = {k: start(*v) for k, v in runs.items()}
-        out = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+        # the preempted worker resumes as soon as it has exited, beside
+        # the runs still going
+        out = {"preempted": procs["preempted"].communicate(timeout=600)[0]}
+        procs["resumed"] = start(worker, {**runs["preempted"][1],
+                                          "K8S_TPU_E2E_FAIL": ""})
+        out.update({k: p.communicate(timeout=600)[0]
+                    for k, p in procs.items() if k not in out})
         rcs = {k: p.returncode for k, p in procs.items()}
-        resumed = start(worker, {**runs["preempted"][1],
-                                 "K8S_TPU_E2E_FAIL": ""})
-        out["resumed"] = resumed.communicate(timeout=600)[0]
-        rcs["resumed"] = resumed.returncode
         wall_s = time.perf_counter() - t0
 
     def rdzv(text):
@@ -6381,7 +6454,7 @@ def mesh_serve_llama(torch, tlib, engine_lib, mesh_serve, common, weights):
     at tp 4 over ``ThreadRing`` ranks on the one card (rank 0 the engine
     with 4 slots, three followers replaying its plan over the plan bus),
     each rank's model built from its Megatron shard of those weights.
-    ``serve_engine``'s 17/64/128/509-token prompts with 8 greedy tokens
+    ``serve_engine``'s 17/64/128/509-token prompts with 4 greedy tokens
     each and one speculative request (draft_k 4, its 128-token prompt),
     submitted together after a one-call warm-up; then its 128-token
     prompt once more through the mesh engine's prefill body, whose
@@ -6392,7 +6465,7 @@ def mesh_serve_llama(torch, tlib, engine_lib, mesh_serve, common, weights):
     all have ended (a follower may launch a call's last norm after the
     chief's last all-reduce), must show K1 at 2·32+1 launches a chief
     model call on each of the 4 ranks and no flash launch.  The greedy
-    and speculative tokens are held against ``serve_engine``'s first 8
+    and speculative tokens are held against ``serve_engine``'s first 4
     for the same prompts by ``token_check``; every rank's measured pool
     share must be 0.25.  Reports each rank's pool and params shares, the
     plan bus's counters, peak memory and the aggregate decode tokens/s
@@ -6404,7 +6477,7 @@ def mesh_serve_llama(torch, tlib, engine_lib, mesh_serve, common, weights):
     kept = KEPT["serve_engine"]
     prompts = kept["prompts"]
     whole = tlib.Transformer(cfg, weights, device="cuda")
-    new = 8
+    new = 4  # of serve_engine's 8: each chief call takes ~1 s
     reqs = {f"greedy_{n}": dict(ids=prompts[n], max_new_tokens=new)
             for n in (17, 64, 128, 509)}
     reqs["spec_128"] = dict(ids=prompts[128], max_new_tokens=new,
@@ -6685,6 +6758,26 @@ def mesh_nccl(torch, engine_lib, server, serving, mesh_serve, collectives,
     return launches
 
 
+def kernel_bodies(recs) -> dict:
+    """Every body a kernel's cases ran (``body`` at its padded width
+    ``dp``, when the plan has one), with its cases, their largest error,
+    its registers, spills and shared memory: the ``kernels`` line's
+    ``bodies``."""
+    out: dict = {}
+    for r in recs:
+        if "body" not in r:
+            continue
+        key = r["body"].split(":", 1)[1] + (f"@{r['dp']}" if "dp" in r
+                                            else "")
+        b = out.setdefault(key, {"entry": r.get("entry"), "cases": [],
+                                 "max_abs_err": 0.0, **{
+            f: r.get(f) for f in ("registers", "spill_stores",
+                                  "spill_loads", "smem_dynamic_bytes")}})
+        b["cases"].append(r["case"])
+        b["max_abs_err"] = max(b["max_abs_err"], r.get("max_abs_err") or 0.0)
+    return out
+
+
 # every phase by name, in the order a whole run drives them, and what a
 # phase needs run before it (``--phases``)
 PHASES = ("kernels", "parity", "engine_parity", "spec_parity",
@@ -6701,6 +6794,26 @@ NEEDS = {name: ("serve_engine",) for name in (
     "spill", "disagg", "bench_serve", "bench_kvtier", "serve_spec", "beam",
     "mesh_serve")}
 NEEDS["mesh_nccl"] = ("train",)  # serves train's gpt2-small export
+
+
+# Wall seconds of each phase of this run (``phase``), and the watchdog: a
+# run still going after WATCHDOG_S seconds dumps every thread's stack and
+# exits 1 (``faulthandler``), below the ``start`` line of the phase it was
+# in, rather than being cut without a word at the run's 1200 s limit.
+WATCHDOG_S = 1080
+PHASE_S: dict = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print ``{"phase": name, "start": true}``, run the body, then print
+    ``{"phase": name, "s": wall seconds}`` and add them to ``PHASE_S``."""
+    emit({"phase": name, "start": True})
+    t0 = time.perf_counter()
+    yield
+    secs = time.perf_counter() - t0
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + secs
+    emit({"phase": name, "s": secs})
 
 
 def selected_phases(argv) -> frozenset:
@@ -6730,6 +6843,10 @@ def selected_phases(argv) -> frozenset:
 
 
 def main(argv=None) -> int:
+    # an overrun dumps every thread's stack (below the start line of the
+    # phase it is in) and exits 1, inside a run's 1200 s limit
+    t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
 
     run = selected_phases(sys.argv[1:] if argv is None else argv)
@@ -6764,7 +6881,6 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
-    t_start = time.perf_counter()
 
     card = card_line()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -6775,18 +6891,17 @@ def main(argv=None) -> int:
           "phases": [p for p in PHASES if p in run]})
     REPORT["card"] = card
 
-    t0 = time.perf_counter()
-    nvcc_s = _build.build_all()
-    x = torch.ones(4, 64, device="cuda")
-    fused_norm.rms_norm(x, torch.ones(64, device="cuda"))
-    torch.cuda.synchronize()
-    build = {"phase": "build", "nvcc_s": nvcc_s,
-             "total_s": time.perf_counter() - t0}
-    emit(build)
-    REPORT["build"] = build
-    with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as f:
-        for src, text in _build.BUILD_LOGS.items():
-            f.write(f"== {src}\n{text}\n")
+    with phase("build"):
+        nvcc_s = _build.build_all()
+        x = torch.ones(4, 64, device="cuda")
+        fused_norm.rms_norm(x, torch.ones(64, device="cuda"))
+        torch.cuda.synchronize()
+        build = {"phase": "build_report", "nvcc_s": nvcc_s}
+        emit(build)
+        REPORT["build"] = build
+        with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as f:
+            for src, text in _build.BUILD_LOGS.items():
+                f.write(f"== {src}\n{text}\n")
 
     def free():
         gc.collect()
@@ -6796,188 +6911,204 @@ def main(argv=None) -> int:
     # after), in the order the paths run
     paths: dict = {}
     if "kernels" in run:
-        t0 = time.perf_counter()
-        rms = rms_cases(torch, F, fused_norm, _build)
-        fl = flash_cases(torch, F, flash, _build)
-        bw = flash_bwd_cases(torch, F, flash, _build)
-        REPORT["kernels_s"] = time.perf_counter() - t0
-        emit({"phase": "kernels_done", "s": REPORT["kernels_s"]})
-        free()
+        with phase("kernels"):
+            rms = rms_cases(torch, F, fused_norm, _build)
+            fl = flash_cases(torch, F, flash, _build)
+            bw = flash_bwd_cases(torch, F, flash, _build)
+            free()
     if "parity" in run:
-        parity(torch, tlib, bridge, decode)
+        with phase("parity"):
+            parity(torch, tlib, bridge, decode)
     if "engine_parity" in run:
-        engine_parity(torch, tlib, bridge, decode, engine_lib)
+        with phase("engine_parity"):
+            engine_parity(torch, tlib, bridge, decode, engine_lib)
     if "spec_parity" in run:
-        spec_parity(torch, tlib, bridge, decode, engine_lib)
-    mesh_s = 0.0
+        with phase("spec_parity"):
+            spec_parity(torch, tlib, bridge, decode, engine_lib)
     if "mesh_parity" in run:
-        t0 = time.perf_counter()
-        paths["mesh_parity"] = mesh_parity(torch, tlib, bridge, engine_lib,
-                                           mesh_serve, _common)
-        mesh_s += time.perf_counter() - t0
+        with phase("mesh_parity"):
+            paths["mesh_parity"] = mesh_parity(torch, tlib, bridge,
+                                               engine_lib, mesh_serve,
+                                               _common)
     if "train_parity" in run:
-        train_parity(torch, tlib, bridge, train_lib, _common)
+        with phase("train_parity"):
+            train_parity(torch, tlib, bridge, train_lib, _common)
     if "moe_parity" in run:
-        moe_parity(torch, tlib, bridge, decode, train_lib, moe)
+        with phase("moe_parity"):
+            moe_parity(torch, tlib, bridge, decode, train_lib, moe)
     if "vision_parity" in run:
-        vision_parity(torch, resnet, vit, mnist, train_lib)
+        with phase("vision_parity"):
+            vision_parity(torch, resnet, vit, mnist, train_lib)
     if "serve" in run:
-        paths["serve_llama_8b"] = serve_main_path(torch, tlib, bridge,
-                                                  server, _common)
-        free()
+        with phase("serve"):
+            paths["serve_llama_8b"] = serve_main_path(torch, tlib, bridge,
+                                                      server, _common)
+            free()
     if "serve_engine" in run:
-        paths["serve_engine_llama_8b"], weights = serve_engine(
-            torch, tlib, bridge, server, _common, requestlog)
-        free()
+        with phase("serve_engine"):
+            paths["serve_engine_llama_8b"], weights = serve_engine(
+                torch, tlib, bridge, server, _common, requestlog)
+            free()
     if "spill" in run:
-        paths["serve_spill_llama_8b"] = serve_spill(
-            torch, tlib, server, _common, requestlog, weights)
-        free()
+        with phase("spill"):
+            paths["serve_spill_llama_8b"] = serve_spill(
+                torch, tlib, server, _common, requestlog, weights)
+            free()
     if "disagg" in run:
-        paths["serve_disagg_llama_8b"] = serve_disagg(
-            torch, tlib, server, _common, requestlog, weights, trace)
-        free()
-    t0 = time.perf_counter()
+        with phase("disagg"):
+            paths["serve_disagg_llama_8b"] = serve_disagg(
+                torch, tlib, server, _common, requestlog, weights, trace)
+            free()
     if "bench_serve" in run:
-        paths["bench_serve_llama_8b"] = bench_serve_llama(
-            torch, tlib, bridge, decode, _common, weights, bench_serve)
-        free()
+        with phase("bench_serve"):
+            paths["bench_serve_llama_8b"] = bench_serve_llama(
+                torch, tlib, bridge, decode, _common, weights, bench_serve)
+            free()
     if "bench_kvtier" in run:
-        paths["bench_kvtier_llama_8b_seq128"] = bench_kvtier_llama(
-            torch, tlib, _common, weights, bench_kvtier)
-        free()
+        with phase("bench_kvtier"):
+            paths["bench_kvtier_llama_8b_seq128"] = bench_kvtier_llama(
+                torch, tlib, _common, weights, bench_kvtier)
+            free()
     if "bench_serve_mp" in run:
-        paths["bench_serve_mp_nccl_world1"] = bench_serve_mp_card(
-            torch, server, mp_serve, bench_serve_mp)
-        free()
+        with phase("bench_serve_mp"):
+            paths["bench_serve_mp_nccl_world1"] = bench_serve_mp_card(
+                torch, server, mp_serve, bench_serve_mp)
+            free()
     if "bench_disagg" in run:
-        paths["bench_disagg_llama_8b_3_pods"] = bench_disagg_card(
-            torch, tlib, decode, engine_lib, _build, bench_disagg)
-        free()
-    REPORT["bench_phases_s"] = time.perf_counter() - t0
-    emit({"phase": "bench_done", "s": REPORT["bench_phases_s"]})
+        with phase("bench_disagg"):
+            paths["bench_disagg_llama_8b_3_pods"] = bench_disagg_card(
+                torch, tlib, decode, engine_lib, _build, bench_disagg)
+            free()
     if "serve_spec" in run:
-        spec = serve_spec(torch, tlib, server, _common, weights)
-        paths["serve_spec_batched_llama_8b"] = spec["batched"]
-        paths["serve_spec_single_flight_llama_8b"] = spec["single_flight"]
-        free()
+        with phase("serve_spec"):
+            spec = serve_spec(torch, tlib, server, _common, weights)
+            paths["serve_spec_batched_llama_8b"] = spec["batched"]
+            paths["serve_spec_single_flight_llama_8b"] = \
+                spec["single_flight"]
+            free()
     if "beam" in run:
-        paths["beam_llama_8b"] = beam_llama(torch, tlib, decode, _common,
-                                            weights)
-        free()
+        with phase("beam"):
+            paths["beam_llama_8b"] = beam_llama(torch, tlib, decode,
+                                                _common, weights)
+            free()
     if "mesh_serve" in run:
-        t0 = time.perf_counter()
-        paths["serve_mesh_tp4_llama_8b"] = mesh_serve_llama(
-            torch, tlib, engine_lib, mesh_serve, _common, weights)
-        mesh_s += time.perf_counter() - t0
+        with phase("mesh_serve"):
+            paths["serve_mesh_tp4_llama_8b"] = mesh_serve_llama(
+                torch, tlib, engine_lib, mesh_serve, _common, weights)
     weights = None
     free()
     if "train" in run:
-        paths["train_gpt2_small"], lm_runs = train_main_path(
-            torch, train_lm, server, serving, _common, tlib)
-        for mode, r in lm_runs.items():
-            paths[f"serve_lm_{mode}_gpt2_small"] = r
+        with phase("train"):
+            paths["train_gpt2_small"], lm_runs = train_main_path(
+                torch, train_lm, server, serving, _common, tlib)
+            for mode, r in lm_runs.items():
+                paths[f"serve_lm_{mode}_gpt2_small"] = r
     if "grads" in run:
-        grads_at_width(torch, tlib, bridge, train_lib, train_lm)
+        with phase("grads"):
+            grads_at_width(torch, tlib, bridge, train_lib, train_lm)
     if "llama_train" in run:
-        paths["train_llama_width_2_layers"] = llama_width_training(
-            torch, tlib, bridge, train_lib, _common)
-        free()
+        with phase("llama_train"):
+            paths["train_llama_width_2_layers"] = llama_width_training(
+                torch, tlib, bridge, train_lib, _common)
+            free()
     if "head_dims" in run:
-        t0 = time.perf_counter()
-        paths.update(head_dims(torch, tlib, bridge, server, train_lib,
-                               _common, decode))
-        REPORT["head_dims_s"] = time.perf_counter() - t0
-        emit({"phase": "head_dims_done", "s": REPORT["head_dims_s"]})
-        free()
+        with phase("head_dims"):
+            paths.update(head_dims(torch, tlib, bridge, server, train_lib,
+                                   _common, decode))
+            free()
     if "moe_train" in run:
-        paths["train_moe_llama_width_e8_2_layers"] = moe_train(
-            torch, tlib, bridge, train_lib, _common, dataset, moe)
+        with phase("moe_train"):
+            paths["train_moe_llama_width_e8_2_layers"] = moe_train(
+                torch, tlib, bridge, train_lib, _common, dataset, moe)
     if "data" in run:
-        paths["train_lm_data_dir_gpt2_small"] = data_path(
-            torch, train_lm, _common, dataset, native_dl)
-        free()
+        with phase("data"):
+            paths["train_lm_data_dir_gpt2_small"] = data_path(
+                torch, train_lm, _common, dataset, native_dl)
+            free()
     if "native_reader" in run or "profile_hook" in run:
-        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as root:
-            corpus = write_corpus(dataset, root)
+            with phase("corpus"):
+                corpus = write_corpus(dataset, root)
             if "native_reader" in run:
-                paths["native_reader_gpt2_small"] = native_reader(
-                    torch, train_lm, _common, dataset, native_dl, root,
-                    corpus)
-                free()
+                with phase("native_reader"):
+                    paths["native_reader_gpt2_small"] = native_reader(
+                        torch, train_lm, _common, dataset, native_dl, root,
+                        corpus)
+                    free()
             if "profile_hook" in run:
-                paths["profile_hook_gpt2_small"] = profile_hook(
-                    torch, corpus[0])
-        REPORT["native_phases_s"] = time.perf_counter() - t0
-        emit({"phase": "native_done", "s": REPORT["native_phases_s"]})
+                with phase("profile_hook"):
+                    paths["profile_hook_gpt2_small"] = profile_hook(
+                        torch, corpus[0])
     if "resnet" in run:
-        paths["train_resnet50_both_stems"] = resnet_path(torch, bench,
-                                                         _common)
+        with phase("resnet"):
+            paths["train_resnet50_both_stems"] = resnet_path(torch, bench,
+                                                             _common)
     if "vit" in run:
-        paths["train_vit_b16_fused_norm"] = vit_path(torch, vit, train_lib,
-                                                     bench, _common)
+        with phase("vit"):
+            paths["train_vit_b16_fused_norm"] = vit_path(
+                torch, vit, train_lib, bench, _common)
     if "bench" in run:
-        paths["bench"] = bench_cells(torch, bench, _common)
-        free()
+        with phase("bench"):
+            paths["bench"] = bench_cells(torch, bench, _common)
+            free()
     if "mnist" in run:
-        paths["dist_mnist"] = mnist_path(torch, dist_mnist, mnist,
-                                         mnist_data, train_lib, _common)
-        free()
+        with phase("mnist"):
+            paths["dist_mnist"] = mnist_path(torch, dist_mnist, mnist,
+                                             mnist_data, train_lib, _common)
+            free()
     if run & {"dist_parity", "fsdp_train", "gang", "mesh_nccl"}:
         # one process: make_training_mesh makes the one-rank NCCL group
-        t0 = time.perf_counter()
-        mesh, _ = bootstrap.make_training_mesh(
-            config=bootstrap.LauncherConfig())
+        with phase("nccl_group"):
+            mesh, _ = bootstrap.make_training_mesh(
+                config=bootstrap.LauncherConfig())
         if "dist_parity" in run:
-            dist_parity(torch, tlib, bridge, train_lib, mesh)
+            with phase("dist_parity"):
+                dist_parity(torch, tlib, bridge, train_lib, mesh)
         if "fsdp_train" in run:
-            paths["train_gpt2_small_fsdp_nccl_world1"] = fsdp_train(
-                torch, tlib, bridge, train_lib, train_lm, _common,
-                checkpoint, mesh)
+            with phase("fsdp_train"):
+                paths["train_gpt2_small_fsdp_nccl_world1"] = fsdp_train(
+                    torch, tlib, bridge, train_lib, train_lm, _common,
+                    checkpoint, mesh)
         if "gang" in run:
-            paths["rendezvous_worker"] = gang_path(torch)
+            with phase("gang"):
+                paths["rendezvous_worker"] = gang_path(torch)
         if "mesh_nccl" in run:
-            t1 = time.perf_counter()
-            paths["mesh_nccl_world1_gpt2_small"] = mesh_nccl(
-                torch, engine_lib, server, serving, mesh_serve, collectives,
-                _common)
-            mesh_s += time.perf_counter() - t1
+            with phase("mesh_nccl"):
+                paths["mesh_nccl_world1_gpt2_small"] = mesh_nccl(
+                    torch, engine_lib, server, serving, mesh_serve,
+                    collectives, _common)
         torch.distributed.destroy_process_group()
-        REPORT["dist_phases_s"] = time.perf_counter() - t0
-        emit({"phase": "dist_done", "s": REPORT["dist_phases_s"]})
     if "gpt2_export" in KEPT:
         shutil.rmtree(KEPT.pop("gpt2_export"), ignore_errors=True)
-    REPORT["mesh_phases_s"] = mesh_s
-    emit({"phase": "mesh_done", "s": mesh_s})
-    t0 = time.perf_counter()
     if "sp_kernels" in run:
-        paths["sp_kernels_thread_ring_sp4"] = sp_kernels(
-            torch, flash, ring_flash, ulysses, collectives, _common)
+        with phase("sp_kernels"):
+            paths["sp_kernels_thread_ring_sp4"] = sp_kernels(
+                torch, flash, ring_flash, ulysses, collectives, _common)
     if "sp_model" in run:
-        paths["sp_model_gpt2_small_l8192"] = sp_model(
-            torch, tlib, bridge, collectives, _common)
-    REPORT["sp_phases_s"] = time.perf_counter() - t0
-    emit({"phase": "sp_done", "s": REPORT["sp_phases_s"]})
-    t0 = time.perf_counter()
+        with phase("sp_model"):
+            paths["sp_model_gpt2_small_l8192"] = sp_model(
+                torch, tlib, bridge, collectives, _common)
     if "pp_train" in run:
-        paths["pp_train_gpt2_small_4_ranks"] = pp_train(
-            torch, tlib, bridge, train_lib, train_lm, pp_lm, pipeline,
-            collectives, flash, _common)
+        with phase("pp_train"):
+            paths["pp_train_gpt2_small_4_ranks"] = pp_train(
+                torch, tlib, bridge, train_lib, train_lm, pp_lm, pipeline,
+                collectives, flash, _common)
     if "pp_llama" in run:
-        paths["pp_llama_8b_width_4_layers"] = pp_llama(
-            torch, tlib, bridge, train_lib, pp_lm, pipeline, collectives,
-            flash, _common)
+        with phase("pp_llama"):
+            paths["pp_llama_8b_width_4_layers"] = pp_llama(
+                torch, tlib, bridge, train_lib, pp_lm, pipeline,
+                collectives, flash, _common)
     if "ep_moe" in run:
-        paths["ep_moe_llama_width_e8_2_layers"] = ep_moe(
-            torch, tlib, bridge, _common, moe, collectives)
+        with phase("ep_moe"):
+            paths["ep_moe_llama_width_e8_2_layers"] = ep_moe(
+                torch, tlib, bridge, _common, moe, collectives)
     free()
-    REPORT["pp_ep_phases_s"] = time.perf_counter() - t0
-    emit({"phase": "pp_ep_done", "s": REPORT["pp_ep_phases_s"]})
     # last: its profiler session slows every later host clock
     if "moe_serve" in run:
-        paths["serve_moe_llama_8b_e8_20_layers"] = moe_serve(
-            torch, tlib, bridge, server, _common, requestlog, moe, trace)
+        with phase("moe_serve"):
+            paths["serve_moe_llama_8b_e8_10_layers"] = moe_serve(
+                torch, tlib, bridge, server, _common, requestlog, moe,
+                trace)
 
     # launches: every main path's count, summed, and each path's beside it
     kernels = []
@@ -6987,10 +7118,10 @@ def main(argv=None) -> int:
                  "k8s_tpu/ops/flash_attention.py:99", fl["gpt2_train"]),
                 ("rms_norm", "cuda", "k8s_tpu_torch/csrc/rms_norm.cu",
                  "k8s_tpu/ops/fused_norm.py:29", rms["bf16x_bf16s"]),
-                ("flash_bwd_dq", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cu",
+                ("flash_bwd_dq", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cuh",
                  "k8s_tpu/ops/flash_attention.py:233",
                  bw[("flash_bwd_dq", "gpt2_train")]),
-                ("flash_bwd_dkv", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cu",
+                ("flash_bwd_dkv", "cuda", "k8s_tpu_torch/csrc/flash_bwd.cuh",
                  "k8s_tpu/ops/flash_attention.py:289",
                  bw[("flash_bwd_dkv", "gpt2_train")])):
             by_path = {path: counts[kname] for path, counts in paths.items()}
@@ -7031,13 +7162,24 @@ def main(argv=None) -> int:
                 "library_ms", "bound_ms", "bound_by", "bound_share", "body",
                 "plan", "registers", "spill_stores", "spill_loads")
             if key in vit_case}
+    if kernels:
+        for k, recs in zip(kernels, (
+                fl.values(), rms.values(),
+                [r for (kn, _), r in bw.items() if kn == "flash_bwd_dq"],
+                [r for (kn, _), r in bw.items() if kn == "flash_bwd_dkv"])):
+            k["bodies"] = kernel_bodies(recs)
     REPORT["kernels"] = kernels
-    REPORT["total_s"] = time.perf_counter() - t_start
-    emit({"phase": "done", "total_s": REPORT["total_s"]})
+    REPORT["timing"] = {
+        "phase": "timing",
+        "phases": dict(sorted(PHASE_S.items(), key=lambda kv: -kv[1])),
+        "total_s": time.perf_counter() - t_start,
+        "watchdog_s": WATCHDOG_S}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
+    emit(REPORT["timing"])
     if kernels:
         emit({"kernels": kernels})
+    faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})
     return 0

@@ -1,5 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
 //
+// Built as two libraries, each its own translation unit so that nvcc
+// compiles them in parallel: flash_bwd_dq.cu (FLASH_BWD_PART 0: the dq
+// kernels and entries) and flash_bwd_dkv.cu (FLASH_BWD_PART 1: dk/dv).
+//
 // Replaces the two Pallas TPU kernels of k8s_tpu/ops/flash_attention.py's
 // backward (launched by _flash_bwd):
 //   - K3 _dq_kernel:  dq = sum_k ds.k;
@@ -97,13 +101,22 @@
 // p and ds are rounded to the input type before their products, as the
 // forward rounds p.
 
+#pragma once
+
 #include <type_traits>
 
 #include "flash_sm90.cuh"
 
+#ifndef FLASH_BWD_PART
+#error "include through flash_bwd_dq.cu (FLASH_BWD_PART 0) or flash_bwd_dkv.cu (1)"
+#endif
+
 namespace {
 
 using namespace flash;
+
+// the kernels this library holds: 0 = dq, 1 = dk/dv
+constexpr int PART = FLASH_BWD_PART;
 
 constexpr int BQ = 64;            // dq: q rows per block (fma: also per q tile)
 constexpr int BK = 64;            // k rows per block (dk/dv) or per tile (dq)
@@ -1539,25 +1552,30 @@ dim3 k_grid(const BwdArgs& a, int bk, int z = 1) {
 template <typename T, int DP>
 int launch(int which, const BwdArgs& a, cudaStream_t s) {
   constexpr bool wgmma = !std::is_same<T, float>::value && DP >= 64;
-  if (a.nsplit < 1 || (a.nsplit > 1 && (which == 0 || !wgmma)))
+  if (which != PART || a.nsplit < 1 || (a.nsplit > 1 && (which == 0 || !wgmma)))
     return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == 0) return run(flash_bwd_dq_fma<DP>, q_grid(a, BQ), NT, DqFma<DP>::bytes, a, s);
-    return run(flash_bwd_dkv_fma<DP>, k_grid(a, BK), NT, DkvFma<DP>::bytes, a, s);
-  } else if constexpr (wgmma) {
-    if (which == 0)
+  if constexpr (PART == 0) {
+    if constexpr (std::is_same<T, float>::value)
+      return run(flash_bwd_dq_fma<DP>, q_grid(a, BQ), NT, DqFma<DP>::bytes, a, s);
+    else if constexpr (wgmma)
       return run_tma<T>(flash_bwd_dq_wgmma<T, DP>, q_grid(a, wq::BQ), DqSmem<DP>::bytes, wq::BQ,
                         DqSmem<DP>::BK, a, s);
-    using S = DkvSmem<DP>;
-    const dim3 grid = k_grid(a, S::BK, a.nsplit);
-    return a.nsplit > 1 ? run_tma<T>(flash_bwd_dkv_wgmma<T, float, DP>, grid, S::bytes, wg::BQ,
-                                     S::BK, a, s)
-                        : run_tma<T>(flash_bwd_dkv_wgmma<T, T, DP>, grid, S::bytes, wg::BQ,
-                                     S::BK, a, s);
-  } else {
-    if (which == 0)
+    else
       return run(flash_bwd_dq_mma<T, DP>, q_grid(a, BQ), MMA_THREADS, DqMma<T, DP>::bytes, a, s);
-    return run(flash_bwd_dkv_mma<T, DP>, k_grid(a, BK), MMA_THREADS, DkvMma<T, DP>::bytes, a, s);
+  } else {
+    if constexpr (std::is_same<T, float>::value) {
+      return run(flash_bwd_dkv_fma<DP>, k_grid(a, BK), NT, DkvFma<DP>::bytes, a, s);
+    } else if constexpr (wgmma) {
+      using S = DkvSmem<DP>;
+      const dim3 grid = k_grid(a, S::BK, a.nsplit);
+      return a.nsplit > 1 ? run_tma<T>(flash_bwd_dkv_wgmma<T, float, DP>, grid, S::bytes, wg::BQ,
+                                       S::BK, a, s)
+                          : run_tma<T>(flash_bwd_dkv_wgmma<T, T, DP>, grid, S::bytes, wg::BQ,
+                                       S::BK, a, s);
+    } else {
+      return run(flash_bwd_dkv_mma<T, DP>, k_grid(a, BK), MMA_THREADS, DkvMma<T, DP>::bytes, a,
+                 s);
+    }
   }
 }
 
@@ -1587,7 +1605,8 @@ int dispatch(int which, int dtype, int Dp, const BwdArgs& a, void* stream) {
 template <typename T>
 int run_generic(int which, const BwdArgs& a, void* acc, cudaStream_t s) {
   float* f = static_cast<float*>(acc);
-  if (which == 0)
+  if (which != PART) return (int)cudaErrorInvalidValue;
+  if constexpr (PART == 0)
     flash_bwd_dq_generic<T><<<q_grid(a, gen::BQ), gen::THREADS, 0, s>>>(a, f);
   else
     flash_bwd_dkv_generic<T><<<k_grid(a, gen::BK), gen::THREADS, 0, s>>>(a, f);
@@ -1655,6 +1674,7 @@ BwdArgs dq_args(const void* q, const void* k, const void* v, const void* dout, c
 // wgmma bodies flash::NO_ENCODER / flash::MAP_ERROR + CUresult when a
 // tensor map cannot be made.
 
+#if FLASH_BWD_PART == 0
 // dq [B, H, L, D] in the input type, and delta = rowsum(do * o) into
 // `delta`; 18 strides (q, k, v, do, dq, o).
 extern "C" int k8s_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1666,6 +1686,21 @@ extern "C" int k8s_flash_bwd_dq(const void* q, const void* k, const void* v,
                             scale, causal, window);
   return dispatch(0, dtype, Dp, a, stream);
 }
+
+// The generic body: any dtype and head_dim, the same strides as above
+// (rows of any stride, 0 and misaligned ones included).  acc: an f32
+// scratch of B * H * L * D elements, every one written before it is read.
+extern "C" int k8s_flash_bwd_dq_generic(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* o, const void* lse,
+                                        void* delta, void* dq, int dtype, int B, int H,
+                                        int Hkv, int L, int Lk, int D, const int64_t* strides,
+                                        float scale, int causal, int window, void* acc,
+                                        void* stream) {
+  const BwdArgs a = dq_args(q, k, v, dout, o, lse, delta, dq, B, H, Hkv, L, Lk, D, strides,
+                            scale, causal, window);
+  return dispatch_generic(0, dtype, a, acc, stream);
+}
+#else
 
 // dk, dv [B, Hkv, Lk, D] in the input type, each summed over its GQA group,
 // from the delta the dq launch wrote; 18 strides (q, k, v, do, dk, dv).
@@ -1683,21 +1718,9 @@ extern "C" int k8s_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(1, dtype, Dp, a, stream);
 }
 
-// The generic bodies: any dtype and head_dim, the same strides as above
-// (rows of any stride, 0 and misaligned ones included).  acc: an f32
-// scratch of B * H * L * D elements (dq) or 2 * B * Hkv * Lk * D (dk/dv),
-// every one written before it is read.
-extern "C" int k8s_flash_bwd_dq_generic(const void* q, const void* k, const void* v,
-                                        const void* dout, const void* o, const void* lse,
-                                        void* delta, void* dq, int dtype, int B, int H,
-                                        int Hkv, int L, int Lk, int D, const int64_t* strides,
-                                        float scale, int causal, int window, void* acc,
-                                        void* stream) {
-  const BwdArgs a = dq_args(q, k, v, dout, o, lse, delta, dq, B, H, Hkv, L, Lk, D, strides,
-                            scale, causal, window);
-  return dispatch_generic(0, dtype, a, acc, stream);
-}
-
+// The generic body: any dtype and head_dim, the same strides as above.
+// acc: an f32 scratch of 2 * B * Hkv * Lk * D elements, every one written
+// before it is read.
 extern "C" int k8s_flash_bwd_dkv_generic(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* delta,
                                          void* dk, void* dv, int dtype, int B, int H, int Hkv,
@@ -1708,6 +1731,7 @@ extern "C" int k8s_flash_bwd_dkv_generic(const void* q, const void* k, const voi
                               L, Lk, D, strides, 18, scale, causal, window, 1);
   return dispatch_generic(1, dtype, a, acc, stream);
 }
+#endif
 
 // The dynamic shared memory of the tiled body k8s_flash_bwd_dq (which = 0)
 // or k8s_flash_bwd_dkv (which = 1) launches for dtype and Dp (a report for

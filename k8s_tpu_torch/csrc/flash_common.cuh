@@ -1,5 +1,5 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): the masking constant, 16-bit conversions, cp.async,
+// flash_bwd.cuh): the masking constant, 16-bit conversions, cp.async,
 // ldmatrix and the m16n8k16 tensor-core product.
 #pragma once
 

@@ -26,18 +26,17 @@
 // one and the padded head_dim Dp it runs at.  A tiled body built for Dp
 // takes any real head_dim D <= Dp: columns D..Dp read as zeros (TMA's
 // out-of-bounds fill for wgmma, masked loads elsewhere), so q.k^T, the
-// softmax and p.v are exact, and o is written for its first D columns only
-// (D 96 on the D-128 body pays 128/96 of the tensor-core work):
+// softmax and p.v are exact, and o is written for its first D columns only:
 //   - bf16 / fp16, D a multiple of 8 in 33..256, rows a tensor map can
-//     describe: flash_fwd_wgmma at Dp 64, 128 or 256.  One block per
+//     describe: flash_fwd_wgmma at Dp 64, 96, 128 or 256.  One block per
 //     (batch, head, 128-row q tile): a producer warpgroup whose first
 //     thread issues every TMA load (Q once, then K and V tiles into a
-//     two-stage ring, completion on mbarriers; 4-D tensor maps over the
+//     ring of stages, completion on mbarriers; 4-D tensor maps over the
 //     caller's strides, whose out-of-bounds zero fill replaces tail masking
 //     on loads) and gives up its registers (setmaxnreg) to two consumer
 //     warpgroups of 64 q rows each.  A consumer runs S = Q.K^T as wgmma
-//     from shared memory (128-byte swizzle, Dp split into 64-column boxes),
-//     the online softmax in registers with
+//     from shared memory (swizzled boxes of Dp's columns), the online
+//     softmax in registers with
 //     exp2 and scale * log2(e) folded together, the element mask only on
 //     tiles that straddle the diagonal, the window edge or the end of the
 //     keys, then O += P.V as wgmma with P rounded to the input type
@@ -45,10 +44,26 @@
 //     and V read [keys, D] with the transpose bit.  The two consumers share
 //     the tensor cores, so one's softmax overlaps the other's products; a
 //     consumer hands each stage back to the producer through an mbarrier,
-//     never __syncthreads.  Key tiles are 128 keys, and 64 at Dp 256: Q
-//     (64 KiB) and two stages of 64-key K and V (128 KiB) fill 192 of the
-//     227 KiB, and a consumer's O is 128 f32 registers a thread, run as
-//     two m64n128 products a k-step;
+//     never __syncthreads.  By width:
+//       Dp 64, 128: 128-key tiles in two stages, 64-column boxes with the
+//         128-byte swizzle, O one m64nDp product a k-step;
+//       Dp 96 (D 72..96: Phi-3-mini's 96, Phi-2's 80): its own width, not
+//         D 128's, since a quarter of that body's tensor-core work and Q/K/V
+//         shared-memory traffic was zero columns.  S in 6 k-steps, O one
+//         m64n96k16 product a k-step (48 f32 a thread).  96 columns are
+//         three 32-column boxes with the 64-byte swizzle: the only swizzle
+//         whose atom divides 96, so one descriptor spans V's 96 columns
+//         (a 64 + 32 split would need two swizzles and two products).  Q
+//         takes 24 KiB and a 128-key K/V stage 48, so the ring holds three
+//         (1.6% faster than two on the card);
+//       Dp 256: 64-key tiles in two stages (Q 64 KiB, the ring 128 KiB),
+//         O 128 f32 registers a thread, run as two m64n128 products a
+//         k-step, p by ex2.approx.ftz.  80-key tiles, O rescaled only
+//         where a row's max moved, and the next tile's S product issued
+//         before this tile's softmax were each tried and none was faster
+//         (PERF.md, Findings): the overlap keeps S, P and O live at once,
+//         past the 168 registers a thread of this block is compiled for,
+//         and spilled;
 //   - bf16 / fp16, D a multiple of 8 up to 32 (the tiny test shapes):
 //     flash_fwd_mma at Dp 16 or 32, four warps of 16 q rows on mma.sync
 //     m16n8k16 with a cp.async double buffer and ldmatrix (a wgmma tile is
@@ -428,22 +443,27 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(
 }
 
 // wgmma body: tiles, warpgroups and shared memory.  Each box is
-// [rows][64] (128 bytes a row), so Dp = 128 keeps two boxes ("halves") and
-// Dp = 256 four.
+// [rows][BOX]: 64 columns (128 bytes a row, 128-byte swizzle), so Dp = 128
+// keeps two boxes ("halves") and Dp = 256 four; at Dp 96, 32 columns with
+// the 64-byte swizzle, three boxes (flash_sm90.cuh).
 namespace wg {
 constexpr int BQ = 128;       // q rows per block: two consumer warpgroups of 64
-constexpr int STAGES = 2;     // K/V ring depth
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 }  // namespace wg
 
 template <int DP>
 struct FwdSmem {
   static constexpr int BK = DP == 256 ? 64 : 128;  // keys per streamed tile
-  static constexpr int HALVES = DP / 64;
+  // K/V ring depth: three at Dp 96 (Q 24 KiB, 48 KiB a stage), else two
+  static constexpr int STAGES = DP == 96 ? 3 : 2;
+  static constexpr int BOX = DP == 96 ? 32 : 64;  // columns a TMA box
+  static constexpr int BOXES = DP / BOX;
   static constexpr int Q_BYTES = wg::BQ * DP * 2;
   static constexpr int KV_BYTES = BK * DP * 2;
+  // q_full, then k_full, v_full and empty a stage
+  static constexpr int BAR_BYTES = 8 * (1 + 3 * STAGES) > 64 ? 8 * (1 + 3 * STAGES) : 64;
   // 1024 bytes of alignment slack, Q, the K and V rings, the mbarriers
-  static constexpr size_t bytes = 1024 + Q_BYTES + 2 * wg::STAGES * KV_BYTES + 64;
+  static constexpr size_t bytes = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES;
 };
 
 template <typename T, int DP>
@@ -453,16 +473,17 @@ __global__ void __launch_bounds__(wg::THREADS, 1) flash_fwd_wgmma(
     int Hkv, int L, int Lk, int D, int64_t o_sb, int64_t o_sh, int64_t o_sl, float scale,
     int causal, int window) {
   using S = FwdSmem<DP>;
-  constexpr int BQ = wg::BQ, BK = S::BK, STAGES = wg::STAGES;
-  constexpr int HALVES = S::HALVES;
-  constexpr int NS = BK / 2;  // score accumulators a thread (m64nBK)
-  constexpr int NO = DP / 2;  // output accumulators a thread (m64nDp)
+  constexpr int BQ = wg::BQ, BK = S::BK, STAGES = S::STAGES;
+  constexpr int BOX = S::BOX, BOXES = S::BOXES;
+  constexpr int KPB = BOX / 16;  // 16-deep k-steps a box row holds
+  constexpr int NS = BK / 2;     // score accumulators a thread (m64nBK)
+  constexpr int NO = DP / 2;     // output accumulators a thread (m64nDp)
   constexpr int NC = DP > 128 ? 128 : DP;  // columns of one p.v product
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_base1024(smem_raw);
-  T* qs = reinterpret_cast<T*>(base);               // [half][BQ][64]
-  T* ks = reinterpret_cast<T*>(base + S::Q_BYTES);  // [stage][half][BK][64]
-  T* vs = ks + STAGES * BK * DP;                    // [stage][half][BK][64]
+  T* qs = reinterpret_cast<T*>(base);               // [box][BQ][BOX]
+  T* ks = reinterpret_cast<T*>(base + S::Q_BYTES);  // [stage][box][BK][BOX]
+  T* vs = ks + STAGES * BK * DP;                    // [stage][box][BK][BOX]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + S::Q_BYTES + 2 * STAGES * S::KV_BYTES);
   uint64_t* k_full = q_full + 1;       // [stage]
   uint64_t* v_full = k_full + STAGES;  // [stage]
@@ -494,8 +515,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1) flash_fwd_wgmma(
     setmaxnreg_dec<24>();
     if (tid == 0) {
       mbar_arrive_tx(q_full, S::Q_BYTES);
-      for (int hf = 0; hf < HALVES; ++hf)
-        tma_load4(qs + hf * BQ * 64, &tq, q_full, hf * 64, h, q_lo, b);
+      for (int hf = 0; hf < BOXES; ++hf)
+        tma_load4(qs + hf * BQ * BOX, &tq, q_full, hf * BOX, h, q_lo, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % STAGES, use = i / STAGES;
         if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
@@ -503,11 +524,11 @@ __global__ void __launch_bounds__(wg::THREADS, 1) flash_fwd_wgmma(
         T* kd = ks + st * BK * DP;
         T* vd = vs + st * BK * DP;
         mbar_arrive_tx(k_full + st, S::KV_BYTES);
-        for (int hf = 0; hf < HALVES; ++hf)
-          tma_load4(kd + hf * BK * 64, &tk, k_full + st, hf * 64, hk, t0, b);
+        for (int hf = 0; hf < BOXES; ++hf)
+          tma_load4(kd + hf * BK * BOX, &tk, k_full + st, hf * BOX, hk, t0, b);
         mbar_arrive_tx(v_full + st, S::KV_BYTES);
-        for (int hf = 0; hf < HALVES; ++hf)
-          tma_load4(vd + hf * BK * 64, &tv, v_full + st, hf * 64, hk, t0, b);
+        for (int hf = 0; hf < BOXES; ++hf)
+          tma_load4(vd + hf * BK * BOX, &tv, v_full + st, hf * BOX, hk, t0, b);
       }
     }
   } else {
@@ -541,9 +562,9 @@ __global__ void __launch_bounds__(wg::THREADS, 1) flash_fwd_wgmma(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
-          const uint64_t da =
-              desc_sw128(qs + (kk / 4) * BQ * 64 + c * 64 * 64 + (kk % 4) * 16, 16, 1024);
-          const uint64_t db = desc_sw128(kt + (kk / 4) * BK * 64 + (kk % 4) * 16, 16, 1024);
+          const uint64_t da = desc_box<BOX>(
+              qs + (kk / KPB) * BQ * BOX + c * 64 * BOX + (kk % KPB) * 16, 16);
+          const uint64_t db = desc_box<BOX>(kt + (kk / KPB) * BK * BOX + (kk % KPB) * 16, 16);
           wgmma_ss(s, da, db, kk > 0, (T*)nullptr);
         }
         wgmma_commit();
@@ -575,11 +596,14 @@ __global__ void __launch_bounds__(wg::THREADS, 1) flash_fwd_wgmma(
           m[r] = m_new;
           l[r] *= alpha[r];
         }
-        // p in place of s (a masked score gives exp2(-1.4e30) = 0)
+        // p in place of s (a masked score gives exp2(-1.4e30) = 0); at Dp
+        // 256 on ex2.approx.ftz (flash_sm90.cuh:exp2_ftz), which read 2%
+        // faster there (PERF.md, Findings)
 #pragma unroll
         for (int e = 0; e < NS; ++e) {
           const int r = (e >> 1) & 1;
-          s[e] = exp2f(fmaf(s[e], sl2, -safe[r]));
+          const float x = fmaf(s[e], sl2, -safe[r]);
+          s[e] = DP == 256 ? exp2_ftz(x) : exp2f(x);
           l[r] += s[e];
         }
 #pragma unroll
@@ -588,19 +612,20 @@ __global__ void __launch_bounds__(wg::THREADS, 1) flash_fwd_wgmma(
 #pragma unroll
         for (int j = 0; j < BK / 16; ++j) acc_to_a<T>(s, j, pa[j]);
 
-        // O += P.V: V [keys][Dp] is the MN-major B operand, NC columns (two
-        // 64-column boxes) a product
+        // O += P.V: V [keys][Dp] is the MN-major B operand, NC columns a
+        // product (one m64n96 at Dp 96, two m64n128 at Dp 256)
         mbar_wait(v_full + st, ph);
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < BK / 16; ++j) {
           if constexpr (DP == NC) {
-            wgmma_rs(acc, pa[j], desc_sw128(vt + j * 16 * 64, BK * 128, 1024), (T*)nullptr);
+            wgmma_rs(acc, pa[j], desc_box<BOX>(vt + j * 16 * BOX, BK * BOX * 2), (T*)nullptr);
           } else {
 #pragma unroll
             for (int n = 0; n < DP / NC; ++n)
               wgmma_rs(cols<NC / 2>(acc, n), pa[j],
-                       desc_sw128(vt + n * (NC / 64) * BK * 64 + j * 16 * 64, BK * 128, 1024),
+                       desc_box<BOX>(vt + n * (NC / BOX) * BK * BOX + j * 16 * BOX,
+                                     BK * BOX * 2),
                        (T*)nullptr);
           }
         }
@@ -766,9 +791,9 @@ int run_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, i
   constexpr int dtype = std::is_same<T, __nv_bfloat16>::value ? 1 : 2;
   using S = FwdSmem<DP>;
   CUtensorMap mq, mk, mv;
-  int e = make_map(&mq, q, dtype, D, H, L, B, st[0], st[1], st[2], wg::BQ);
-  if (!e) e = make_map(&mk, k, dtype, D, Hkv, Lk, B, st[3], st[4], st[5], S::BK);
-  if (!e) e = make_map(&mv, v, dtype, D, Hkv, Lk, B, st[6], st[7], st[8], S::BK);
+  int e = make_map(&mq, q, dtype, D, H, L, B, st[0], st[1], st[2], wg::BQ, S::BOX);
+  if (!e) e = make_map(&mk, k, dtype, D, Hkv, Lk, B, st[3], st[4], st[5], S::BK, S::BOX);
+  if (!e) e = make_map(&mv, v, dtype, D, Hkv, Lk, B, st[6], st[7], st[8], S::BK, S::BOX);
   if (e) return e;
   auto kern = flash_fwd_wgmma<T, DP>;
   const size_t smem = S::bytes;
@@ -807,6 +832,10 @@ int dispatch_d(int Dp, const void* q, const void* k, const void* v, void* o, voi
     case 32: return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, L, Lk, D, st, scale, causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, L, Lk, D, st, scale, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, L, Lk, D, st, scale, causal, window, stream);
+    case 96:
+      if constexpr (!std::is_same<T, float>::value)
+        return launch<T, 96>(q, k, v, o, lse, B, H, Hkv, L, Lk, D, st, scale, causal, window, stream);
+      return (int)cudaErrorInvalidValue;
     default:
       if constexpr (!std::is_same<T, float>::value)
         return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, L, Lk, D, st, scale, causal, window, stream);
@@ -828,6 +857,13 @@ int run_generic(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+// Whether the forward has a tiled body for (dtype, D, Dp): the shared
+// widths (flash_common.cuh:tiled), and the 16-bit Dp-96 body of this file.
+bool fwd_tiled(int dtype, int D, int Dp) {
+  if (Dp == 96) return (dtype == 1 || dtype == 2) && D >= 1 && D <= 96 && D % 8 == 0;
+  return tiled(dtype, D, Dp);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  D: the real head_dim;
@@ -843,7 +879,7 @@ extern "C" int k8s_flash_fwd(const void* q, const void* k, const void* v, void* 
                              void* lse, int dtype, int B, int H, int Hkv, int L,
                              int Lk, int D, const int64_t* strides, float scale,
                              int causal, int window, int Dp, void* stream) {
-  if (!tiled(dtype, D, Dp)) return (int)cudaErrorInvalidValue;
+  if (!fwd_tiled(dtype, D, Dp)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_d<float>(Dp, q, k, v, o, lse, B, H, Hkv, L, Lk, D, strides, scale, causal, window, s);
@@ -872,7 +908,7 @@ extern "C" int k8s_flash_fwd_generic(const void* q, const void* k, const void* v
 // dtype and Dp (a report for the smoke test), or -1 where there is none.
 // The generic body uses static shared memory only (0).
 extern "C" int k8s_flash_fwd_smem(int dtype, int Dp) {
-  if (dtype < 0 || dtype > 2 || !tiled(dtype, 8, Dp)) return -1;
+  if (dtype < 0 || dtype > 2 || !fwd_tiled(dtype, 8, Dp)) return -1;
   if (dtype == 0) {
     switch (Dp) {
       case 16: return (int)Tiles<float, 16>::bytes;
@@ -885,6 +921,7 @@ extern "C" int k8s_flash_fwd_smem(int dtype, int Dp) {
     case 16: return (int)MmaTiles<__half, 16>::bytes;
     case 32: return (int)MmaTiles<__half, 32>::bytes;
     case 64: return (int)FwdSmem<64>::bytes;
+    case 96: return (int)FwdSmem<96>::bytes;
     case 128: return (int)FwdSmem<128>::bytes;
     default: return (int)FwdSmem<256>::bytes;
   }

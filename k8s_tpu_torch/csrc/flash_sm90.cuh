@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the wgmma flash-attention bodies
-// (flash_fwd.cu K2, flash_bwd.cu K4): mbarriers, TMA tensor maps and loads,
+// (flash_fwd.cu K2, flash_bwd.cuh K4): mbarriers, TMA tensor maps and loads,
 // wgmma shared-memory descriptors and products, register reallocation.
 //
 // Tiles live in shared memory in the layout a TMA load with a 128-byte
@@ -12,6 +12,10 @@
 //   - MN-major (rows are the reduction dim, M or N contiguous): 8-row groups
 //     1024 bytes apart (SBO), the second 64-column half LBO bytes away; a
 //     16-deep k-step starts 16 rows (2048 bytes) further.
+// The Dp-96 forward keeps [rows][32] boxes with the 64-byte swizzle
+// instead (64 bytes a row, 8-row groups 512 bytes apart, two k-steps a
+// row), the only swizzle whose atom (32 columns) divides 96, so that one
+// MN-major descriptor spans all 96 columns of V.
 #pragma once
 
 #include <cuda.h>
@@ -72,6 +76,19 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
   const uint64_t a = smem_addr(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
          (1ull << 62);
+}
+// The same over a 64-byte swizzle (layout type 2).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (2ull << 62);
+}
+// A box of BOX columns (64: 128-byte swizzle, 32: 64-byte swizzle): its
+// descriptor, with 8-row groups 16 * BOX bytes apart.
+template <int BOX>
+__device__ __forceinline__ uint64_t desc_box(const void* p, uint32_t lbo) {
+  static_assert(BOX == 64 || BOX == 32, "128- or 64-byte rows");
+  return BOX == 64 ? desc_sw128(p, lbo, 16 * BOX) : desc_sw64(p, lbo, 16 * BOX);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -197,6 +214,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+// The Dp-96 forward's 96-column output (flash_fwd.cu).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db, __nv_bfloat16*) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db, __half*) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
 // -- host: tensor maps -------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -223,14 +259,16 @@ inline EncodeTiledFn encoder() {
 }
 
 // A 4-D map (D, head, row, batch) over a 16-bit tensor with element strides
-// (sb, sh, sl) and a contiguous head_dim, read in boxes of [box_rows][64]
-// with a 128-byte swizzle.  D is the tensor's real head_dim (a multiple of
+// (sb, sh, sl) and a contiguous head_dim, read in boxes of
+// [box_rows][box_cols] with a 128-byte swizzle (box_cols 64) or a 64-byte
+// one (box_cols 32).  D is the tensor's real head_dim (a multiple of
 // 8): a body built for a padded width Dp > D reads its last boxes past D,
 // and TMA fills those columns with zeros, as it fills rows past the end.
 // A stride of a dimension of size 1 is never used; it is replaced by one
 // TMA accepts.  Returns 0 or an error code.
 inline int make_map(CUtensorMap* map, const void* base, int dtype, int D, int heads, int rows,
-                    int batch, int64_t sb, int64_t sh, int64_t sl, int box_rows) {
+                    int batch, int64_t sb, int64_t sh, int64_t sl, int box_rows,
+                    int box_cols = 64) {
   EncodeTiledFn enc = encoder();
   if (!enc) return NO_ENCODER;
   const int64_t any = (int64_t)D * 2;
@@ -239,12 +277,13 @@ inline int make_map(CUtensorMap* map, const void* base, int dtype, int D, int he
   const cuuint64_t strides[3] = {(cuuint64_t)(heads > 1 ? sh * 2 : any),
                                  (cuuint64_t)(rows > 1 ? sl * 2 : any),
                                  (cuuint64_t)(batch > 1 ? sb * 2 : any)};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r =
       enc(map, dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
           const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : MAP_ERROR + (int)r;
 }

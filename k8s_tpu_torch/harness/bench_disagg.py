@@ -173,11 +173,15 @@ class _Fleet:
         self.pods: list[_SubprocPod] = []
         self.server = None
         try:
+            # the pods come up together: each draws its weights and
+            # starts its server on its own cores
             for i in range(len(roles)):
                 self.pods.append(_SubprocPod(
                     role=roles[i], cpus=cpu_sets[i], slots=slots,
                     hidden=hidden, layers=layers, model=model,
                     device=device))
+            for pod in self.pods:
+                pod.wait_ready()
             self.ports = [p.port for p in self.pods]
             targets = []
             for i, role in enumerate(roles):
@@ -255,9 +259,11 @@ class _SubprocPod:
     """One serving pod as an OS process (``bench_disagg --pod``), maybe
     pinned to a CPU set: builds the seed-deterministic model, runs
     LmServer and its HTTP listener, prints its ports, and serves until
-    SIGTERM, when it prints its counters (``stats``).  A pod that dies
-    or stays silent for ``timeout`` seconds during bring-up raises with
-    its output's tail."""
+    SIGTERM, when it prints its counters (``stats``).  The constructor
+    starts the process and returns; ``wait_ready`` blocks until it is up
+    (so that a fleet's pods come up together), and a pod that dies or
+    stays silent for ``timeout`` seconds during bring-up raises there
+    with its output's tail."""
 
     def __init__(self, *, role: str, cpus, slots: int, hidden: int,
                  layers: int, timeout: float = 300.0, model=None,
@@ -293,11 +299,15 @@ class _SubprocPod:
         # unbounded
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
-        deadline = t0 + timeout
+        self._t0, self._deadline = t0, t0 + timeout
+
+    def wait_ready(self) -> None:
+        """Block until the pod prints its ready line (its ports)."""
+        role = self.role
         while True:
             try:
                 line = self._lines.get(
-                    timeout=max(0.0, deadline - time.monotonic()))
+                    timeout=max(0.0, self._deadline - time.monotonic()))
             except queue.Empty:
                 self.stop()
                 raise RuntimeError(
@@ -314,7 +324,7 @@ class _SubprocPod:
                 self.kvxfer_port = info["kvxfer_port"]
                 self.weights = info.get("weights")
                 break
-        self.bringup_s = time.monotonic() - t0
+        self.bringup_s = time.monotonic() - self._t0
 
     def _read(self) -> None:
         for line in self.proc.stdout:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator, Optional, Sequence
+from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,7 +66,10 @@ class PrefetchIterator:
     ``device`` into a bounded queue.  ``device`` is required: the
     caller names where its step runs (``cuda``, or ``cpu`` for tests).
     ``shard`` (a ``parallel.mesh.DataSharding``) keeps only this rank's
-    rows of every array.  Call ``close()`` (use try/finally around the
+    rows of every array.  ``transform(batch) -> batch``, when given, runs
+    on the producer thread on each host batch before it is staged (as the
+    reference's: e.g. a host-side augmentation or a cast), so it overlaps
+    the step too.  Call ``close()`` (use try/finally around the
     consuming loop) to stop the producer: the live thread keeps the
     iterator reachable, so garbage collection alone will not stop it.
     """
@@ -74,11 +77,12 @@ class PrefetchIterator:
     _DONE = object()
 
     def __init__(self, it: Iterable, *, device, buffer_size: int = 2,
-                 shard=None):
+                 shard=None, transform: Optional[Callable] = None):
         if buffer_size < 1:
             raise ValueError("buffer_size must be >= 1")
         self._device = torch.device(device)
         self._shard = shard
+        self._transform = transform
         self._source = it
         self._q: queue.Queue = queue.Queue(maxsize=buffer_size)
         self._stop = threading.Event()
@@ -108,6 +112,8 @@ class PrefetchIterator:
             self._thread.start()
 
     def _stage(self, batch):
+        if self._transform is not None:
+            batch = self._transform(batch)
         cuda = self._device.type == "cuda"
         staged: dict = {}  # one copy of an array that appears twice
 
@@ -187,14 +193,18 @@ def prefetch_to_device(it: Iterable, device, *, buffer_size: int = 2
 
 def prefetch_to_mesh(it: Iterable, mesh, device, *,
                      axes: Sequence[str] = ("dp", "fsdp"),
-                     buffer_size: int = 2) -> PrefetchIterator:
+                     buffer_size: int = 2,
+                     transform: Optional[Callable] = None
+                     ) -> PrefetchIterator:
     """The one-call path for a sharded fit(): from each global batch of
-    ``it``, stage this rank's rows over ``axes`` of ``mesh`` and its
-    chunk of the sequence over sp, inputs and targets alike
-    (``parallel.mesh.data_sharding``), on ``device``, ``buffer_size``
-    batches ahead.  ``skip(n)`` still skips n global batches."""
+    ``it`` (after ``transform``, when given), stage this rank's rows over
+    ``axes`` of ``mesh`` and its chunk of the sequence over sp, inputs
+    and targets alike (``parallel.mesh.data_sharding``), on ``device``,
+    ``buffer_size`` batches ahead.  ``skip(n)`` still skips n global
+    batches."""
     from k8s_tpu_torch.parallel.mesh import data_sharding
 
     return PrefetchIterator(it, device=device, buffer_size=buffer_size,
-                            shard=data_sharding(mesh, axes))
+                            shard=data_sharding(mesh, axes),
+                            transform=transform)
 

@@ -163,6 +163,12 @@ def member_main(args) -> int:
     from k8s_tpu_torch.models import mesh_serve
     from k8s_tpu_torch.ops import _common
 
+    pin = os.environ.get("K8S_TPU_SERVE_MP_CPU", "")
+    if pin and hasattr(os, "sched_setaffinity"):
+        # one core a member (run_serve_gang(pin_cpus=True)): a per-process
+        # comparison on a CPU gang means something only when each process
+        # gets one core's worth of compute
+        os.sched_setaffinity(0, {int(pin) % (os.cpu_count() or 1)})
     lcfg = bootstrap.initialize_distributed(
         device=bootstrap.default_device())
     device = bootstrap.process_device()
@@ -210,6 +216,9 @@ def member_main(args) -> int:
         "launches": _common.launches(),
         "pool_local_fraction": placement.pool_local_fraction,
         "params_local_fraction": placement.params_local_fraction,
+        # the cores this process may run on (one when pinned)
+        "cpu_affinity": sorted(os.sched_getaffinity(0))
+        if hasattr(os, "sched_getaffinity") else None,
         **out,
     }
     print(CHIEF_OK + json.dumps(payload, sort_keys=True), flush=True)
@@ -267,7 +276,8 @@ def run_serve_gang(n_processes: int, *, script: Optional[list] = None,
                    timeout: float = 420.0,
                    kill_chief_after: Optional[float] = None,
                    kill_chief_when: Optional[str] = None,
-                   extra_env: Optional[dict] = None, warmup: bool = False):
+                   extra_env: Optional[dict] = None,
+                   pin_cpus: bool = False, warmup: bool = False):
     """Spawn an n-process serving gang as real OS processes under the
     launcher env contract and supervise it with gang semantics.  Returns
     ``(GangResult, [each follower's SERVE_MP_WORKER payload])``.
@@ -279,7 +289,10 @@ def run_serve_gang(n_processes: int, *, script: Optional[list] = None,
     the bring-up): the chief-crash drill, whose bar is that the followers
     exit non-zero rather than hang (plan-bus EOF -> rc 1, or a collective
     that fails within ``mesh_serve.COLLECTIVE_TIMEOUT_S``), so the
-    operator's whole-gang restart policy fires."""
+    operator's whole-gang restart policy fires.
+
+    ``pin_cpus`` pins member i to core i (modulo the host's count) through
+    ``K8S_TPU_SERVE_MP_CPU``, as the reference's does."""
     script = script if script is not None else default_script()
     port = free_port()
     plan_port = free_port()
@@ -304,6 +317,8 @@ def run_serve_gang(n_processes: int, *, script: Optional[list] = None,
             env["OMP_NUM_THREADS"] = env.get("OMP_NUM_THREADS", "1")
             env["PYTHONPATH"] = REPO_ROOT + os.pathsep \
                 + env.get("PYTHONPATH", "")
+            if pin_cpus:
+                env["K8S_TPU_SERVE_MP_CPU"] = str(i)
             if extra_env:
                 env.update(extra_env)
             logf = tempfile.TemporaryFile()

@@ -614,10 +614,14 @@ def fit(apply_fn: Callable, loss_fn: Callable, optimizer: Optimizer,
         eval_every: int = 0, grad_accum: int = 1,
         metrics_path: str = "", mesh=None,
         step_fn: Optional[Callable] = None,
-        state_shardings: Optional[StateShardings] = None) -> FitResult:
+        state_shardings: Optional[StateShardings] = None,
+        skip_data_on_resume: bool = True) -> FitResult:
     """The training loop, with the reference's contract: resume from the
     latest checkpoint under ``checkpoint_dir`` (fast-forwarding the data
-    stream), save every ``checkpoint_every`` steps, and on SIGTERM (with
+    stream past the batches the checkpointed run consumed, unless
+    ``skip_data_on_resume`` is False: then the resumed run reads the
+    stream from its head, as the reference's does), save every
+    ``checkpoint_every`` steps, and on SIGTERM (with
     ``preemption_save``) save at the next step boundary and return with
     ``preempted=True``.  ``eval_fn`` runs every ``eval_every`` steps and
     after the last; ``metrics_path`` appends JSONL scalars (every
@@ -650,7 +654,7 @@ def fit(apply_fn: Callable, loss_fn: Callable, optimizer: Optimizer,
         ckpt = Checkpointer(checkpoint_dir,
                             save_interval_steps=checkpoint_every)
         state, start_step = ckpt.restore_or_init(state)
-        if start_step > 0:
+        if start_step > 0 and skip_data_on_resume:
             # continue the (deterministic, seeded) stream where training
             # stopped; data_iter must be freshly positioned at its start
             skip = getattr(data_iter, "skip", None)

@@ -9,7 +9,9 @@ back: a missing nvcc or a failed compile raises.
 
 Building this way (no PyTorch headers, no ``torch.utils.cpp_extension``)
 takes seconds per source instead of minutes.  ``build_all`` starts one
-nvcc per source, all at once.
+nvcc per source, all at once, so the slowest source sets the build's
+time: the flash backward (``csrc/flash_bwd.cuh``) is two sources,
+``flash_bwd_dq.cu`` and ``flash_bwd_dkv.cu``, each with one half of it.
 """
 
 from __future__ import annotations

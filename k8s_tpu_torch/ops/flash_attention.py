@@ -1,5 +1,6 @@
 """Flash attention: hand-written CUDA kernels for Hopper
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) beside their plain PyTorch
+(``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cuh``, built as
+``flash_bwd_dq.cu`` and ``flash_bwd_dkv.cu``) beside their plain PyTorch
 versions, joined by an autograd Function.
 
 Port of ``k8s_tpu/ops/flash_attention.py``.  Each Pallas kernel becomes one
@@ -32,8 +33,9 @@ tensors launch the kernels or raise.  Every head_dim, layout and number of
 heads has a kernel: the plans (``_fwd_plan``, ``_dq_plan``, ``_dkv_plan``,
 all from ``_body``) name the CUDA body and the padded width Dp >= D it
 runs at from D and the type alone (wgmma at Dp 64/128/256 and mma.sync at
-16/32 for 16-bit D a multiple of 8; FMA at 16-128 for f32), and the
-generic body takes every other head_dim.  An operand whose layout its body
+16/32 for 16-bit D a multiple of 8, and for the forward alone wgmma at Dp
+96 for D 72..96; FMA at 16-128 for f32), and the generic body takes every
+other head_dim.  An operand whose layout its body
 cannot read (``_aligned``) is copied to a contiguous one (``_readable``).
 ``_check_launch`` refuses only other types, mixed types and shapes that do
 not match.
@@ -61,9 +63,9 @@ _ERRORS = ("error (a cudaError_t; 990: no tensor-map encoder in the driver; "
 
 def _kernel(name: str = "fwd"):
     """The ctypes entry point ``fwd``, ``bwd_dq`` or ``bwd_dkv`` of
-    ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu`` (built at first use), or
-    its ``*_generic`` twin (any head_dim; an f32 scratch in place of the
-    padded width)."""
+    ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` or
+    ``csrc/flash_bwd_dkv.cu`` (built at first use), or its ``*_generic``
+    twin (any head_dim; an f32 scratch in place of the padded width)."""
     fn = _fns.get(name)
     if fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -71,7 +73,7 @@ def _kernel(name: str = "fwd"):
         base = name[:-len("_generic")] if generic else name
         # dtype, B, H, Hkv, L, Lk, D, strides, scale, causal, window
         shape = [i, i, i, i, i, i, i, p, ctypes.c_float, i, i]
-        lib = _build.load("flash_fwd" if base == "fwd" else "flash_bwd")
+        lib = _build.load("flash_" + base)
         fn = getattr(lib, f"k8s_flash_{base}" + ("_generic" if generic
                                                   else ""))
         n_ptrs = 5 if base == "fwd" else 8
@@ -226,7 +228,7 @@ def _check_launch(q, k, v, *outs) -> int:
 
 
 # The padded head_dims each tiled body is built for (csrc/flash_fwd.cu,
-# csrc/flash_bwd.cu): a head_dim D runs at the least width Dp >= D of its
+# csrc/flash_bwd.cuh): a head_dim D runs at the least width Dp >= D of its
 # body; columns D..Dp read as zeros (TMA's out-of-bounds fill, or the
 # body's own masked loads), so every product is exact, and are never
 # written.
@@ -313,13 +315,14 @@ def _tile_grid(tiles: int, heads: int, z: int = 1) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class QPlan:
-    """How the forward or the dq kernel covers a problem (the two tile
-    alike): its ``body`` (``wgmma``, ``mma``, ``fma`` or ``generic``) at
-    padded head_dim ``dp``, the q rows a block owns (``block_rows``), the
-    keys of each tile it streams (``block_keys``), and the dq launch
-    ``grid`` ``(B * H, q tiles)``: one block per (batch and head, q tile),
-    each visiting its tile's keys once, so dq needs no second pass.  The
-    forward launches the same blocks on ``fwd_launch``."""
+    """How the forward or the dq kernel covers a problem (the two own the
+    same q tiles): its ``body`` (``wgmma``, ``mma``, ``fma`` or
+    ``generic``) at padded head_dim ``dp``, the q rows a block owns
+    (``block_rows``), the keys of each tile it streams (``block_keys``),
+    and the dq launch ``grid`` ``(B * H, q tiles)``: one block per (batch
+    and head, q tile), each visiting its tile's keys once, so dq needs no
+    second pass.  The forward launches the same blocks on
+    ``fwd_launch``."""
 
     body: str
     dp: int
@@ -365,8 +368,37 @@ def _dq_plan(B: int, H: int, L: int, D: int, dtype=torch.bfloat16) -> QPlan:
     return QPlan(body, dp, bq, bk, (B * H, -(-L // bq)))
 
 
-# the forward kernel covers its q tiles as the dq kernel does
-_fwd_plan = _dq_plan
+# The forward's own wgmma widths and tiles, as csrc/flash_fwd.cu:FwdSmem
+# fixes them: Dp -> (keys a tile, K/V stages).  Dp 96 is the forward's
+# alone (the backward runs D 72..96 at 128).  Only ``_fwd_smem`` reads the
+# stages: the kernel takes its tiles from Dp.
+FWD_WGMMA_TILES = {64: (128, 2), 96: (128, 3), 128: (128, 2), 256: (64, 2)}
+
+
+def _fwd_plan(B: int, H: int, L: int, D: int, dtype=torch.bfloat16) -> QPlan:
+    """The forward kernel's body, tiles and grid; shape and type only,
+    never a failure.  It owns the q tiles the dq kernel does
+    (``_dq_plan``), except that a 16-bit D in 72..96 runs at Dp 96 (its
+    own wgmma body) instead of D 128's."""
+    plan = _dq_plan(B, H, L, D, dtype)
+    if plan.body != "wgmma":
+        return plan
+    dp = 96 if 64 < D <= 96 else plan.dp
+    return dataclasses.replace(plan, dp=dp,
+                               block_keys=FWD_WGMMA_TILES[dp][0])
+
+
+def _fwd_smem(plan: QPlan) -> int:
+    """The dynamic shared memory the forward's wgmma body launches with
+    for ``plan`` (``FwdSmem<Dp>::bytes``, which ``k8s_flash_fwd_smem``
+    reports, and chip_smoke.py's ``build_report`` compares): 1024 bytes of
+    alignment slack, Q, the K and V ring, and its mbarriers (one for Q and
+    three a stage, 64 bytes at least)."""
+    assert plan.body == "wgmma", plan
+    bk, stages = FWD_WGMMA_TILES[plan.dp]
+    q = plan.block_rows * plan.dp * 2
+    kv = bk * plan.dp * 2
+    return 1024 + q + 2 * stages * kv + max(64, 8 * (1 + 3 * stages))
 
 
 def _dq_block_tiles(plan: QPlan, q_tile: int, Lk: int, causal: bool,

@@ -90,27 +90,31 @@ def ulysses_flash_backward(saved, do, ring: Ring, *, causal: bool = True,
 
 class _UlyssesFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, ring, causal):
-        out, saved = ulysses_flash_forward(q, k, v, ring, causal=causal)
+    def forward(ctx, q, k, v, ring, causal, scale):
+        out, saved = ulysses_flash_forward(q, k, v, ring, causal=causal,
+                                           scale=scale)
         ctx.save_for_backward(*saved)
-        ctx.ring, ctx.causal = ring, causal
+        ctx.ring, ctx.causal, ctx.scale = ring, causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
         grads = ulysses_flash_backward(ctx.saved_tensors, do, ctx.ring,
-                                       causal=ctx.causal)
-        return (*grads, None, None)
+                                       causal=ctx.causal, scale=ctx.scale)
+        return (*grads, None, None, None)
 
 
 def ulysses_attention_local(q, k, v, ring: Ring, *, causal: bool = True,
+                            scale: float | None = None,
                             use_flash: bool = False):
     """One rank's Ulysses attention: q, k, v ``[B, chunk, H, D]`` with H
     divisible by sp and H == Hkv.  Returns ``[B, chunk, H, D]`` in
-    q.dtype."""
+    q.dtype.  ``scale`` is the flash path's softmax scale (``D ** -0.5``
+    when None); the plain path, as the reference's, always takes ``D **
+    -0.5``."""
     check_heads(q.shape[2], k.shape[2], ring.size)
     if use_flash:
-        return _UlyssesFlash.apply(q, k, v, ring, causal)
+        return _UlyssesFlash.apply(q, k, v, ring, causal, scale)
     qh, kh, vh = (seq_to_heads(t, ring) for t in (q, k, v))
     out = reference_attention(qh, kh, vh, causal=causal).to(q.dtype)
     return heads_to_seq(out, ring)

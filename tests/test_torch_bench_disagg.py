@@ -411,7 +411,7 @@ def test_pod_asked_for_cuda_without_a_card_raises():
         pytest.skip("a card is present")  # the CPU sandbox has none
     with pytest.raises(RuntimeError) as e:
         bd._SubprocPod(role="", cpus=None, slots=2, hidden=64, layers=2,
-                       device="cuda", timeout=120)
+                       device="cuda", timeout=120).wait_ready()
     assert "died during bring-up" in str(e.value)
     assert "torch.cuda.is_available() is False" in str(e.value)
     with pytest.raises(RuntimeError, match="is_available"):

@@ -249,7 +249,7 @@ def test_bwd_operands_make_o_and_do_kernel_ready():
 def test_dq_launch_hands_the_entry_point_its_operands(monkeypatch):
     """``k8s_flash_bwd_dq(q, k, v, do, o, lse, delta, dq, dtype, B, H, Hkv,
     L, Lk, D, strides, scale, causal, window, Dp, stream)`` with 18
-    strides: q, k, v, do, dq, then o (csrc/flash_bwd.cu)."""
+    strides: q, k, v, do, dq, then o (csrc/flash_bwd.cuh)."""
     seen = {}
 
     def fake(*args):

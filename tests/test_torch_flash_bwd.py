@@ -6,7 +6,7 @@ on the same forward's o and lse, and ``torch.autograd.grad`` through the
 port's differentiable ``flash_attention`` / ``flash_fwd`` against
 ``jax.grad`` of the reference's, at the reference's own tolerances
 (tests/test_ops.py: 5e-4 for flash grads, 5e-5 for windowed grads).  The
-CUDA kernels (csrc/flash_bwd.cu) are held against ``flash_bwd_plain`` on
+CUDA kernels (csrc/flash_bwd.cuh) are held against ``flash_bwd_plain`` on
 the card by chip_smoke.py.  Inputs are made with numpy from a seed.
 """
 

@@ -11,9 +11,12 @@ body takes what no tiled body does.  These tests hold:
   against the Pallas kernels in interpret mode at D 8 to 320, causal,
   windowed, GQA and bidirectional, at the reference's tolerance (2e-5);
 - the plans over every D in 1..512 for the three types: a body for each,
-  Dp >= D, the padded tensor-core bodies at D 40/80/96, the Dp-256 body at
-  D 136-256 in 16 bits, the generic body for a 16-bit D not a multiple of
-  8 and for D > 256, and launch grids inside CUDA's limits at B*H = 65,544;
+  Dp >= D, the padded tensor-core bodies at D 40/80/96 (the forward's own
+  Dp 96 at D 72..96, the backward's 128), the Dp-256 bodies at D 136-256
+  in 16 bits (64-key tiles), the generic body for a 16-bit
+  D not a multiple of 8 and for D > 256, the forward's shared memory
+  against what the library reports, and launch grids inside CUDA's limits
+  at B*H = 65,544;
 - that the wrappers hand the C entry points the padded width, or the
   generic entries a scratch, and copy to contiguous only an operand whose
   layout the chosen body cannot read;
@@ -115,13 +118,22 @@ def _plans(D, dtype, B=1, H=4, Hkv=2, L=300):
             flash._dkv_plan(B, H, Hkv, L, L, D, True, None, dtype))
 
 
+def _fwd_dp96(D, dtype):
+    """Whether the forward runs D at its own Dp-96 body."""
+    return dtype != F32 and D % 8 == 0 and 64 < D <= 96
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16, F16])
 def test_every_head_dim_has_a_body(dtype):
     """D 1..512: every plan names a body with Dp >= D, the three kernels
-    agree on it, and it is the rule's body."""
+    agree on it (but for the forward's Dp 96 at 16-bit D 72..96, where
+    the backward runs Dp 128), and it is the rule's body."""
     bodies = {"fma", "mma", "wgmma", "generic"}
     for D in range(1, 513):
         plans = _plans(D, dtype)
+        if _fwd_dp96(D, dtype):
+            assert (plans[0].body, plans[0].dp) == ("wgmma", 96)
+            plans = plans[1:]
         assert len({(p.body, p.dp) for p in plans}) == 1
         body, dp = plans[0].body, plans[0].dp
         assert body in bodies and dp >= D
@@ -141,18 +153,120 @@ def test_every_head_dim_has_a_body(dtype):
 
 @pytest.mark.parametrize("dtype", [BF16, F16])
 def test_sixteen_bit_bodies_by_head_dim(dtype):
-    for D, dp in ((40, 64), (80, 128), (96, 128)):
-        assert [(p.body, p.dp) for p in _plans(D, dtype)] == \
-            [("wgmma", dp)] * 3
+    assert [(p.body, p.dp) for p in _plans(40, dtype)] == [("wgmma", 64)] * 3
+    for D in (80, 96):
+        fwd, dq, dkv = _plans(D, dtype)
+        assert (fwd.body, fwd.dp) == ("wgmma", 96)
+        assert {(p.body, p.dp) for p in (dq, dkv)} == {("wgmma", 128)}
     for D in range(136, 257, 8):
         fwd, dq, dkv = _plans(D, dtype)
         assert {(p.body, p.dp) for p in (fwd, dq, dkv)} == {("wgmma", 256)}
-        # Dp 256's own tiles: 64-key tiles for K2/K3, 64 keys a K4 block
+        # Dp 256's own tiles: 64-key tiles for K2 (two stages) and K3, 64
+        # keys a K4 block
         assert (fwd.block_rows, fwd.block_keys) == (128, 64)
+        assert flash.FWD_WGMMA_TILES[fwd.dp] == (64, 2)
         assert (dq.block_rows, dq.block_keys) == (128, 64)
         assert (dkv.block_keys, dkv.q_tile) == (64, 64)
     for D in [d for d in range(1, 513) if d % 8] + [264, 320, 512]:
         assert {p.body for p in _plans(D, dtype)} == {"generic"}
+
+
+@pytest.mark.parametrize("dtype", [BF16, F16])
+def test_fwd_plan_takes_its_own_wgmma_tiles(dtype):
+    """The forward's plan, 16-bit D 8..512: Dp 96 (128-key tiles, three
+    stages) at D 72..96, Dp 256 with 64-key tiles in two stages at D
+    136..256, 128-key tiles in two stages at Dp 64/128, and elsewhere the
+    dq plan itself."""
+    for D in range(8, 513):
+        fwd = flash._fwd_plan(1, 4, 300, D, dtype)
+        dq = flash._dq_plan(1, 4, 300, D, dtype)
+        assert (fwd.block_rows, fwd.grid) == (dq.block_rows, dq.grid)
+        if fwd.body != "wgmma":
+            assert fwd == dq
+            continue
+        want = {96: (128, 3), 256: (64, 2)}.get(fwd.dp, (128, 2))
+        assert (fwd.block_keys, flash.FWD_WGMMA_TILES[fwd.dp][1]) == want
+        assert fwd.dp == (96 if 64 < D <= 96 else dq.dp)
+
+
+def _old_rule(D, dtype):
+    """The body and Dp every kernel took before the forward had its own
+    Dp-96 body."""
+    if dtype == F32:
+        widths, body = (16, 32, 64, 128), "fma"
+    elif D % 8:
+        return "generic", D
+    else:
+        body, widths = ("mma", (16, 32)) if D <= 32 else \
+            ("wgmma", (64, 128, 256))
+    for w in widths:
+        if D <= w:
+            return body, w
+    return "generic", D
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+def test_backward_plans_unchanged_for_every_head_dim(dtype):
+    """D 8..512: the dq and dk/dv plans keep their bodies, widths and
+    tiles (Dp 128 at D 72..96; 64-key tiles at Dp 256)."""
+    for D in range(8, 513):
+        body, dp = _old_rule(D, dtype)
+        dq = flash._dq_plan(2, 8, 300, D, dtype)
+        dkv = flash._dkv_plan(2, 8, 2, 300, 300, D, True, None, dtype)
+        tile = {"wgmma": 64 if dp == 256 else 128,
+                "generic": flash.GENERIC_TILE}.get(body, 64)
+        assert (dq.body, dq.dp, dq.block_rows, dq.block_keys) == (
+            body, dp, flash.GENERIC_TILE if body == "generic" else
+            (128 if body == "wgmma" else 64), tile)
+        kq = {"wgmma": (64 if dp == 256 else 128, 64),
+              "generic": (flash.GENERIC_TILE,) * 2}.get(body, (64, 64))
+        assert (dkv.body, dkv.dp, dkv.block_keys, dkv.q_tile) == (
+            body, dp, *kq)
+
+
+def _fake_build(smem):
+    """A stand-in for ``ops._build`` whose flash_fwd library reports
+    ``smem(dtype, Dp)`` bytes and whose nvcc never ran."""
+    import types
+
+    lib = types.SimpleNamespace(k8s_flash_fwd_smem=smem)
+    return types.SimpleNamespace(load=lambda name: lib, BUILD_LOGS={})
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_plans", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [BF16, F16])
+def test_fwd_smem_report_is_held_to_the_plan(dtype):
+    """``k8s_flash_fwd_smem`` (csrc/flash_fwd.cu) reports the shared
+    memory each wgmma forward body launches with; chip_smoke.py's
+    ``build_report`` holds it to ``_fwd_smem(plan)``: Q, the K/V ring of
+    the forward's tiles and stages, the mbarriers, inside the 227 KiB a block
+    may take.  A library built with other tiles (a Dp-96 body with two
+    stages) is refused."""
+    cs = _chip_smoke()
+    sizes = {64: 83008, 96: 173136, 128: 164928, 256: 197696}
+    for D in (64, 96, 128, 256):
+        plan = flash._fwd_plan(1, 16, 2048, D, dtype)
+        want = flash._fwd_smem(plan)
+        assert want == sizes[plan.dp] and want <= 232448
+        rep = cs.build_report(_fake_build(lambda code, dp: sizes[dp]),
+                              "flash_fwd", dtype, plan, smem_want=want)
+        assert (rep["dp"], rep["smem_dynamic_bytes"]) == (plan.dp, want)
+    plan = flash._fwd_plan(1, 16, 2048, 96, dtype)
+    old = 1024 + 128 * 96 * 2 + 2 * 2 * 128 * 96 * 2 + 64
+    with pytest.raises(SystemExit):
+        cs.build_report(_fake_build(lambda code, dp: old), "flash_fwd",
+                        dtype, plan, smem_want=flash._fwd_smem(plan))
 
 
 def test_f32_bodies_by_head_dim():
@@ -229,8 +343,9 @@ def _strides_at(ptr, n):
 
 def test_launch_hands_the_padded_width(monkeypatch):
     """``k8s_flash_fwd(q, k, v, o, lse, dtype, B, H, Hkv, L, Lk, D, strides,
-    scale, causal, window, Dp, stream)``: D 96 runs the wgmma body at Dp
-    128; dq and dk/dv take Dp after window (dk/dv after nsplit)."""
+    scale, causal, window, Dp, stream)``: D 96 runs the forward's wgmma
+    body at Dp 96 and the backward's at 128; dq and dk/dv take Dp after
+    window (dk/dv after nsplit)."""
     seen = _fake_entries(monkeypatch)
     q, k, v = _bf16((1, 4, 33, 96)), _bf16((1, 2, 33, 96)), \
         _bf16((1, 2, 33, 96))
@@ -238,7 +353,7 @@ def test_launch_hands_the_padded_width(monkeypatch):
     flash._launch(q, k, v, o, lse, 0.125, True, None)
     args = seen["fwd"]
     assert args[5:12] == (1, 1, 4, 2, 33, 33, 96)
-    assert args[13:] == (0.125, 1, 0, 128, 0)
+    assert args[13:] == (0.125, 1, 0, 96, 0)
     delta = torch.zeros(1, 4, 33)
     flash._launch_bwd("bwd_dq", flash._dq_plan(1, 4, 33, 96, BF16), q, k, v,
                       q.clone(), lse, delta, (torch.empty_like(q),), 0.125,

@@ -250,6 +250,32 @@ def test_ulysses_matches_jax(use_flash, causal):
     _close(got, want)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_ulysses_local_scale_matches_jax(causal):
+    """``ulysses_attention_local(scale=)`` on the flash path, at a scale
+    other than ``D ** -0.5``: the reference's local body under shard_map
+    (which hands ``scale`` to its kernel) against the port's rank body."""
+    from k8s_tpu.parallel.ulysses import ulysses_attention_local as j_local
+
+    q, k, v = _inputs(4, 4, seed=5)
+    mesh = _mesh(sp=SP)
+    spec = P(None, "sp", None, None)
+    fn = shard_map(partial(j_local, axis_name="sp", causal=causal,
+                           scale=0.4, use_flash=True, block_q=16,
+                           block_k=16),
+                   mesh=mesh, in_specs=(spec,) * 3, out_specs=spec,
+                   check_vma=False)
+    want = _jax_run(fn, q, k, v)
+    got = _port_run(lambda rings, q, k, v: t_ulysses.ulysses_attention_local(
+        q, k, v, rings.sp, causal=causal, scale=0.4, use_flash=True),
+        q, k, v, SP)
+    _close(got, want)
+    # the default scale gives another answer: scale reached the kernel
+    base = _port_run(lambda rings, q, k, v: t_ulysses.ulysses_attention_local(
+        q, k, v, rings.sp, causal=causal, use_flash=True), q, k, v, SP)
+    assert np.abs(base[0] - got[0]).max() > 1e-3
+
+
 def test_ring_flash_lse_and_direct_backward():
     """The forward/backward pair the card drives directly (no autograd):
     o and lse against the whole-sequence flash, dq/dk/dv against its

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import json
 import os
+import random
+import socket
 import subprocess
 import sys
 import tempfile
@@ -54,13 +56,38 @@ def one_torch_thread():
         torch.set_num_threads(n)
 
 
+def rendezvous_port() -> int:
+    """A free TCP port below the kernel's ephemeral range, for a gang's
+    rendezvous.  A port the kernel hands out (a bind to port 0, the local
+    end of any outgoing connection) can be taken by another test worker
+    between the pick and the rank-0 store's bind seconds later, and the
+    gang then fails with EADDRINUSE; ports below the range are never
+    handed out, so only another explicit pick can take one."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    pick = random.Random()
+    for _ in range(100):
+        port = pick.randrange(max(1024, low - 10000), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in [{low - 10000}, {low})")
+
+
 def gang_envs(n: int, *, num_slices: int = 1, extra_env=None) -> list:
     """Each of an n-worker gang's envs: the operator's (``localhost_env``
-    of a TFJob from ``build_gang_tfjob``), on the CPU, the repository on
-    the path, ``extra_env`` last."""
+    of a TFJob from ``build_gang_tfjob``, its coordinator on a
+    ``rendezvous_port``), on the CPU, the repository on the path,
+    ``extra_env`` last."""
     from k8s_tpu.e2e import multiprocess
 
-    tfjob = multiprocess.build_gang_tfjob(n, multiprocess.free_port(),
+    tfjob = multiprocess.build_gang_tfjob(n, rendezvous_port(),
                                           num_slices=num_slices)
     envs = []
     for i in range(n):
@@ -77,7 +104,9 @@ def spawn(n: int, argv: list, *, num_slices: int = 1, extra_env=None,
           timeout: float = 120.0) -> tuple[list, list]:
     """Run ``argv`` (after ``python``) as an n-process gang; returns each
     worker's exit code and output.  The first failure terminates the
-    rest, as the operator restarts a whole gang."""
+    rest, as the operator restarts a whole gang.  A worker still running
+    at ``timeout`` is killed, and its output ends with a line that says
+    so and how long the gang ran."""
     procs, logs = [], []
     for env in gang_envs(n, num_slices=num_slices, extra_env=extra_env):
         log = tempfile.TemporaryFile()
@@ -93,12 +122,16 @@ def spawn(n: int, argv: list, *, num_slices: int = 1, extra_env=None,
                     p.terminate()
         time.sleep(0.05)
     outputs = []
+    took = time.time() - deadline + timeout
     for p, log in zip(procs, logs):
-        if p.poll() is None:
+        killed = p.poll() is None
+        if killed:
             p.kill()
         p.wait()
         log.seek(0)
-        outputs.append(log.read().decode(errors="replace"))
+        outputs.append(log.read().decode(errors="replace") + (
+            f"\n[killed at the {timeout:.0f} s limit, {took:.1f} s after "
+            "the gang started]" if killed else ""))
         log.close()
     return [p.returncode for p in procs], outputs
 
