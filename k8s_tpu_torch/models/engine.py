@@ -61,8 +61,10 @@ full-length rows).  ``K8S_TPU_SERVE_BATCH_SAMPLING`` and
 
 A single engine thread owns all device work.  With
 ``K8S_TPU_REQUEST_LOG=1`` every request gets a bounded timeline
-(models/requestlog.py) served at ``/debug/requests``, and every decode
-step a ledger record served at ``/debug/engine``.  With span tracing on
+(models/requestlog.py) served at ``/debug/requests``, every decode
+step a ledger record served at ``/debug/engine``, and the engine thread's
+loop is cut into phases on the profiler's clock (``_phase``; the phase
+ledger, its rollup also at ``/debug/engine``).  With span tracing on
 (``K8S_TPU_TRACE_SAMPLE``, ``k8s_tpu_torch.trace``) a request's
 ``prefill`` and ``exclusive_generate`` spans parent under the trace
 context the ingress hands to ``submit`` / ``submit_exclusive`` /
@@ -477,6 +479,9 @@ class Engine:
         # request lifecycle recorder (K8S_TPU_REQUEST_LOG=1): zero
         # overhead when off, every call site guards on the None binding
         self._reqlog = requestlog.maybe_active()
+        # its phase ledger's open boundary (time.time_ns(), set by the
+        # engine thread)
+        self._t_phase = 0
 
         # stats (mutated on the engine thread; read under _cond)
         self._steps = 0
@@ -1331,41 +1336,66 @@ class Engine:
 
     # -------------------------------------------------------- engine loop
 
+    def _phase(self, phase: str, now: Optional[int] = None,
+               **fields) -> int:
+        """Close the engine thread's open phase into the recorder's phase
+        ledger at ``now`` (a ``time.time_ns()`` reading the caller took
+        for its own use, else one taken here) and open the next phase
+        there; returns ``now``.  Call sites guard on ``self._reqlog``."""
+        if now is None:
+            now = time.time_ns()
+        self._reqlog.engine_phase(phase, self._t_phase, now - self._t_phase,
+                                  **fields)
+        self._t_phase = now
+        return now
+
     def _loop(self) -> None:
+        rlog = self._reqlog
+        self._t_phase = time.time_ns()
         try:
             while True:
                 with self._cond:
+                    waited = False
                     while (not self._closed and not self._queue
                            and not any(s.ready for s in self._slots)):
                         self._cond.wait()
+                        waited = True
                     if self._closed:
                         self._drain_locked()
                         return
+                    if waited and rlog is not None:
+                        self._phase("wait")
                     actions = self._admit_locked()
                 for req, slot in actions:
                     if req.fn is not None:
                         self._run_exclusive(req)
+                        if rlog is not None:
+                            self._phase("exclusive", rid=req.rid)
                         continue
                     if req.manifest is not None:
                         # a migrated seat: a graft, no model call, so it
                         # does not convoy the decode-ready slots
                         self._seat_prefilled(slot, req)
+                        if rlog is not None:
+                            self._phase("admit", rid=req.rid)
                         continue
                     # prefill convoy: decode-ready slots stalled behind
                     # this admission's prefill — the stall bills to each
                     # VICTIM's prefill phase
                     waiting = [s.req.rid for s in self._slots
                                if s.ready and s.req is not None]
-                    t0 = time.monotonic()
+                    t0 = self._t_phase
                     self._prefill_into(slot, req)
+                    if rlog is not None:
+                        # the seat after the read
+                        now = self._phase("admit", rid=req.rid)
                     if waiting:
                         conv = self.metrics.get("prefill_convoy")
                         if conv is not None:
                             conv.inc()
-                        if self._reqlog is not None:
-                            dur = time.monotonic() - t0
+                        if rlog is not None:
                             for rid in waiting:
-                                self._reqlog.convoy(rid, dur)
+                                rlog.convoy(rid, (now - t0) / 1e9)
                 if any(s.ready for s in self._slots):
                     self._decode_step_all()
         except BaseException:  # noqa: BLE001 - engine thread must not die silently
@@ -1489,17 +1519,26 @@ class Engine:
 
     def _run_chunks(self, req: _Request, start: int, call) -> Any:
         """Prefill ``req.ids[start:]`` in bucket-sized chunks through
-        ``call(c, chunk, positions)``; returns the last call's logits."""
+        ``call(c, chunk, positions)``; returns the last call's logits.
+        With the recorder on, the admission's phase closes here and the
+        chunks' issue is the ``prefill_issue`` phase, each chunk's share
+        of it its ``prefill_chunk`` event."""
+        rlog = self._reqlog
+        if rlog is not None:
+            tc0 = self._phase("admit", rid=req.rid)
         ids, off, last = req.ids, start, None
         for c in split_prefill(len(ids) - start, self.buckets):
-            tc0 = time.monotonic()
             chunk = ids[off:off + c][None, :]
             positions = (off + np.arange(c, dtype=np.int64))[None, :]
             last = call(c, chunk, positions)
-            if self._reqlog is not None:
-                self._reqlog.prefill_chunk(req.rid, c,
-                                           time.monotonic() - tc0, False)
+            if rlog is not None:
+                now = time.time_ns()
+                rlog.prefill_chunk(req.rid, c, (now - tc0) / 1e9, False)
+                tc0 = now
             off += c
+        if rlog is not None:
+            self._phase("prefill_issue", tc0, rid=req.rid,
+                        tokens=len(ids) - start)
         return last
 
     def _prefill_into(self, slot: _Slot, req: _Request) -> None:
@@ -1540,34 +1579,33 @@ class Engine:
                     nb = -(-(int(positions[0, -1]) + 1) // self.block_size)
                     return self._prefill_fn(c)(self._pool, table[:nb],
                                                chunk, positions)
-                with trace.span_under(
-                        req.trace_ctx, "prefill", prompt_len=len(ids),
-                        chunks=len(split_prefill(len(ids) - shared,
-                                                 self.buckets)),
-                        shared=shared):
-                    last = self._run_chunks(req, shared, call)
-                    first, slot.gen = self._first_token(req, last)
-                if self._tree is not None:
-                    # re-match NOW: block allocations above may have
-                    # evicted part of the originally-matched path, and
-                    # inserting under a detached node would leak
-                    # unreachable (unevictable) references
-                    created = self._tree.insert(
-                        self._tree.match(ids, len(ids) - 1)[0], ids,
-                        [int(b) for b in slot.table[:slot.nblocks]])
-                    for node in created:
-                        self._pool_alloc.retain(node.block)
-                    self._index_add(created)
+                span = {"shared": shared}
             else:
                 row = self._init_cache_fn(1, self.device)
-                with trace.span_under(
-                        req.trace_ctx, "prefill", prompt_len=len(ids),
-                        chunks=len(split_prefill(len(ids), self.buckets))):
-                    last = self._run_chunks(
-                        req, 0,
-                        lambda c, chunk, positions: self._prefill_fn(c)(
-                            row, chunk, positions))
-                    first, slot.gen = self._first_token(req, last)
+
+                def call(c, chunk, positions):
+                    return self._prefill_fn(c)(row, chunk, positions)
+                shared, span = 0, {}
+            with trace.span_under(
+                    req.trace_ctx, "prefill", prompt_len=len(ids),
+                    chunks=len(split_prefill(len(ids) - shared,
+                                             self.buckets)), **span):
+                last = self._run_chunks(req, shared, call)
+                first, slot.gen = self._first_token(req, last)
+                if rlog is not None:
+                    self._phase("prefill_read", rid=req.rid,
+                                tokens=len(ids) - shared)
+            if self._tree is not None:
+                # re-match NOW: block allocations above may have
+                # evicted part of the originally-matched path, and
+                # inserting under a detached node would leak
+                # unreachable (unevictable) references
+                created = self._tree.insert(
+                    self._tree.match(ids, len(ids) - 1)[0], ids,
+                    [int(b) for b in slot.table[:slot.nblocks]])
+                for node in created:
+                    self._pool_alloc.retain(node.block)
+                self._index_add(created)
         except BaseException as e:  # noqa: BLE001 - bad request must not kill the loop
             req.finish(error=e)
             if rlog is not None:
@@ -1839,6 +1877,10 @@ class Engine:
                 while k & (k - 1):  # round down to a power of two
                     k &= k - 1
             self._grow_tables([(s, k) for s in active])
+        rlog = self._reqlog
+        if rlog is not None:
+            seq = self._steps + k  # the step's ledger seq (this thread's)
+            self._phase("admit", seq=seq, k=k)
         ints = np.zeros((2, B), np.int64)  # [toks, poss]
         ints[0] = self.pad_id
         ints[1] = -1
@@ -1853,7 +1895,9 @@ class Engine:
             topks[s.idx] = s.req.top_k or 0
         sampling = any(s.req.temperature > 0 for s in active)
         step_key = (k, sampling, False)
-        t_step = time.monotonic()
+        t_step = time.time_ns()
+        if rlog is not None:
+            self._phase("decode_plan", t_step, seq=seq, k=k)
         # the span closes after the step's one host read of its tokens
         # (inside _step_fn), so it measures the device work, not only the
         # host's issue of it
@@ -1872,7 +1916,10 @@ class Engine:
             else:
                 toks_host = self._step_fn(self._cache, ints, gens, temps,
                                           topks)  # [1, B]
-        step_dur = time.monotonic() - t_step
+        t_end = time.time_ns()
+        step_dur = (t_end - t_step) / 1e9
+        if rlog is not None:
+            self._step_phases(t_end, seq, k)
         sd_h = self.metrics.get("step_duration")
         if sd_h is not None:
             sd_h.observe(step_dur)
@@ -1886,7 +1933,6 @@ class Engine:
                 self._steps += 1
                 self._occupancy.append((self._steps, len(active)))
             seq = self._steps
-        rlog = self._reqlog
         if rlog is not None:
             # ledger + per-request participation BEFORE the retire loop
             # clears slots (the fused-step gate guarantees every active
@@ -1911,6 +1957,15 @@ class Engine:
                     self._retire(s, req, s.tokens,
                                  "eos" if hit_eos else "max_tokens")
                     break
+        if rlog is not None:
+            self._phase("retire", seq=seq, k=k)
+
+    def _step_phases(self, t_end: int, seq: int, k: int) -> None:
+        """Close a step's ``decode_issue`` where its body's host read
+        began (``PagedCompute.read_ns``) and its ``decode_read`` at
+        ``t_end``."""
+        self._phase("decode_issue", self._compute.read_ns, seq=seq, k=k)
+        self._phase("decode_read", t_end, seq=seq, k=k)
 
     def _spec_step(self, active: list, draft_k: int) -> None:
         """One write-masked variable-width batched step (chunk width
@@ -1928,6 +1983,11 @@ class Engine:
         # plain slots only write their next position
         self._grow_tables([(s, W if s.req.speculative else 1)
                            for s in active])
+        rlog = self._reqlog
+        if rlog is not None:
+            # one model call: one iteration of the phase ledger's k
+            seq = self._steps + 1
+            self._phase("admit", seq=seq, k=1)
         chunk = np.full((B, W), self.pad_id, np.int64)
         ints = np.zeros((2, B), np.int64)  # [poss, widths]
         ints[0] = -1
@@ -1948,7 +2008,9 @@ class Engine:
         sampling = any(s.req.temperature > 0 for s in active)
         n_spec = sum(1 for s in active if s.req.speculative)
         step_key = (W, sampling, True)
-        t_step = time.monotonic()
+        t_step = time.time_ns()
+        if rlog is not None:
+            self._phase("decode_plan", t_step, seq=seq, k=1)
         with trace.span("decode_step", active=len(active), fused=W,
                         spec=n_spec):
             if self._tables_dirty:
@@ -1962,7 +2024,10 @@ class Engine:
             emit_host, n_host = self._spec_fn(
                 self._pool, self._tables_dev[:, :width], chunk, ints, gens,
                 temps, topks, W)
-        step_dur = time.monotonic() - t_step
+        t_end = time.time_ns()
+        step_dur = (t_end - t_step) / 1e9
+        if rlog is not None:
+            self._step_phases(t_end, seq, 1)
         sd_h = self.metrics.get("step_duration")
         if sd_h is not None:
             sd_h.observe(step_dur)
@@ -1974,7 +2039,6 @@ class Engine:
             self._steps += 1
             self._occupancy.append((self._steps, len(active)))
             seq = self._steps
-        rlog = self._reqlog
         if rlog is not None:
             emitted = sum(int(n_host[s.idx]) for s in active)
             rlog.engine_step(seq, len(active), W, W, emitted, step_dur)
@@ -2019,3 +2083,5 @@ class Engine:
             if done or len(s.tokens) >= req.max_new_tokens:
                 self._retire(s, req, s.tokens,
                              "eos" if done else "max_tokens")
+        if rlog is not None:
+            self._phase("retire", seq=seq, k=1)

@@ -46,6 +46,7 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import time
 from typing import Callable
 
 import numpy as np
@@ -100,13 +101,16 @@ class PagedCompute:
     Every method sees the model, the pool or dense cache, and per-call
     plan data, and mutates the pool or cache in place.  On a tp rank
     other than 0 the step bodies take no generators and return nothing:
-    rank 0 samples and reads."""
+    rank 0 samples and reads.  A step body stamps ``read_ns``
+    (``time.time_ns()``) where its host read begins: the engine's phase
+    ledger splits the step there."""
 
     def __init__(self, model: Transformer):
         self.model = model
         self.config = model.config
         self.tp = model.tp
         self.sampler = self.tp is None or self.tp.rank == 0
+        self.read_ns = 0
 
     # ---------------------------------------------------- cache helpers
 
@@ -208,6 +212,7 @@ class PagedCompute:
             poss = torch.where(act, poss + 1, poss)
         if not self.sampler:
             return None
+        self.read_ns = time.time_ns()
         return torch.stack(out).cpu().numpy()
 
     def spec_step(self, pool, tables, chunk, ints, gens, temps, topks,
@@ -239,6 +244,7 @@ class PagedCompute:
             return None
         emit, n_emit = spec_verify_rows(logits, chunk, gens, temps, topks,
                                         ints[1].tolist())
+        self.read_ns = time.time_ns()
         out = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
         return out[:, :k], out[:, k]
 
@@ -276,6 +282,7 @@ class PagedCompute:
         logits = self.model(plan[0][:, None], positions=plan[1][:, None],
                             mode="decode", cache=cache)
         nxt = sample_logits_rows(logits[:, -1], gens, temps, topks)
+        self.read_ns = time.time_ns()
         return nxt[None, :].cpu().numpy()
 
     @staticmethod

@@ -5,9 +5,10 @@ The port's own copy of ``k8s_tpu/models/requestlog.py`` (stdlib only, so
 it is copied rather than imported), with its lock a plain
 ``threading.Lock`` and its nearest-rank quantile the port's own
 ``util.util.quantile_nearest`` (the one the bench harnesses use); keep
-the two in step.
+the two in step.  The phase ledger is the port's own: the reference
+has none.
 
-Two bounded instruments behind one process-global recorder:
+Three bounded instruments behind one process-global recorder:
 
 - a **request lifecycle recorder** — one timeline per generation
   request, from submit through shed/admission, prefill chunks (with the
@@ -20,7 +21,14 @@ Two bounded instruments behind one process-global recorder:
   an investigation;
 - an **engine step ledger** — one record per batched model call group
   (occupancy, fused width, tokens emitted, step wall time) in a bounded
-  ring with windowed rollups (mean occupancy, tokens/s, step p50/p99).
+  ring with windowed rollups (mean occupancy, tokens/s, step p50/p99);
+- an **engine phase ledger** — the engine thread's loop cut into
+  consecutive intervals, one record a phase (:data:`ENGINE_PHASES`),
+  stamped with ``time.time_ns()``, the clock ``torch.profiler`` stamps
+  its host events with, so a record lines up with a device trace, and
+  rolled up into each phase's seconds and share of the loop's wall.
+  The card's own time inside a phase is a trace's busy time over the
+  phase's records (``portbench/attribution.py``).
 
 Activation: ``K8S_TPU_REQUEST_LOG=1`` plus the
 :func:`set_active`/:func:`active` process-global registry; a
@@ -31,17 +39,22 @@ construction and guards every call site on ``is None``).
 
 Served at ``/debug/requests`` (``?id=`` one full timeline with events,
 ``?slow=`` seconds filter, ``?phase=`` dominant-phase filter, ``?n=``
-limit) and ``/debug/engine`` (``?n=`` recent step records + rollups) on
+limit) and ``/debug/engine`` (``?n=`` recent step records + rollups,
+and the phase ledger's rollup) on
 the serving pod's HTTP server, 404 with an explicit body while no
 recorder is active.  The recorder's lock is a leaf: it never calls back
 into the engine, so it can be invoked from any engine code path.
 
-The phase set keeps the reference's (``migrate``, ``spill``,
-``promote`` and ``compile`` included) so the JSON has the reference's
-schema; the port's engine never bills those four, since it runs no
-disaggregated, spill-tier or compiled path.  Its batched speculative
-lane records ``spec_chunk`` events and bills rejected drafts to
-``spec_reject``.
+The request phase set keeps the reference's, so the JSON has the
+reference's schema.  The port's engine bills ``queue``, ``prefill``,
+``decode``, ``spec_reject`` (its batched speculative lane records
+``spec_chunk`` events), ``evict``, ``spill`` and ``promote`` (the host
+KV tier) and, on a decode pod, ``migrate`` (:meth:`RequestRecorder.
+migrated`, the graft of a received chain).  It never bills ``compile``
+(eager PyTorch builds no program) and never calls ``migrate_send``.  A
+``prefill_chunk`` event's seconds are the chunk's host issue; the
+prefill's wait for the card is its ``prefill_read`` record in the phase
+ledger.
 """
 
 from __future__ import annotations
@@ -77,6 +90,28 @@ DEFAULT_MAX_EVENTS_PER_REQUEST = 256
 #: attribution names the tier, it does not partition wall time.
 PHASES = ("queue", "prefill", "migrate", "decode", "spec_reject",
           "compile", "evict", "spill", "promote")
+
+
+#: the engine thread's phases, in the order a loop pass meets them.
+#: ``wait``: blocked on the engine's condition with no work.
+#: ``admit``: the admission pop, prefix attach (copy-on-write and spill
+#: promotion included), block allocation with its eviction and spill
+#: walks, a decode step's table growth, and a prefill's seat after its
+#: read (the prefix tree's insert, the first token's bookkeeping, an
+#: export's gather or a retire at the first token).
+#: ``prefill_issue``: building and issuing a prompt's chunks.
+#: ``prefill_read``: the blocking read of its first token.
+#: ``decode_plan``: building a step's per-row plan.
+#: ``decode_issue``: the table upload and the step body's issue, up to
+#: its host read (on a mesh placement the plan's broadcast too).
+#: ``decode_read``: the blocking part of that read.
+#: ``retire``: the step's token loop, retirements and recorder and
+#: metric updates.
+#: ``exclusive``: a request run whole on the engine thread (the
+#: exclusive lane, a prefix fetch or import).
+ENGINE_PHASES = ("wait", "admit", "prefill_issue", "prefill_read",
+                 "decode_plan", "decode_issue", "decode_read", "retire",
+                 "exclusive")
 
 
 def _dominant(phase_s: dict) -> str:
@@ -131,6 +166,8 @@ class RequestRecorder:
         self._finished_total = 0
         # engine step ledger: bounded ring of per-program-call records
         self._steps: deque[dict] = deque(maxlen=max_steps)
+        # engine phase ledger: a loop pass with a step writes ~6 records
+        self._phases: deque[dict] = deque(maxlen=8 * max_steps)
         self._steps_total = 0
         self._tokens_total = 0
         self.created_at = time.time()
@@ -458,6 +495,17 @@ class RequestRecorder:
                 "t": round(time.monotonic(), 3),
             })
 
+    def engine_phase(self, phase: str, t_ns: int, dur_ns: int,
+                     **fields) -> None:
+        """One interval of the engine thread into the phase ledger ring:
+        ``phase`` (one of :data:`ENGINE_PHASES`) from ``t_ns``
+        (``time.time_ns()``) for ``dur_ns``.  ``fields``: the step's
+        ``seq`` and fused iterations ``k``, or the request's ``rid``; a
+        prefill's ``tokens``."""
+        rec = {"phase": phase, "t_ns": t_ns, "dur_ns": dur_ns, **fields}
+        with self._lock:
+            self._phases.append(rec)
+
     def clear(self) -> None:
         """Drop all data (bench warmup boundary); live ids stay valid —
         their in-flight entries are simply forgotten."""
@@ -465,6 +513,7 @@ class RequestRecorder:
             self._live.clear()
             self._done.clear()
             self._steps.clear()
+            self._phases.clear()
             self._evicted = 0
             self._shed_total = 0
             self._finished_total = 0
@@ -599,6 +648,31 @@ class RequestRecorder:
             recent = recent[-limit:] if limit else []
         return [dict(r) for r in recent]
 
+    def engine_phases(self, limit: int = 64) -> list[dict]:
+        """The phase ledger's most recent ``limit`` records (all at
+        ``limit < 0``), oldest first."""
+        with self._lock:
+            recent = list(self._phases)
+        if limit >= 0:
+            recent = recent[-limit:] if limit else []
+        return [dict(r) for r in recent]
+
+    def phase_rollup(self) -> dict:
+        """Seconds of each engine phase over the phase ledger ring, and
+        each one's share of the loop's wall from the first record's
+        start to the last one's end (the records partition it)."""
+        with self._lock:
+            recent = list(self._phases)
+        ns = dict.fromkeys(ENGINE_PHASES, 0)
+        for r in recent:
+            ns[r["phase"]] += r["dur_ns"]
+        wall = (recent[-1]["t_ns"] + recent[-1]["dur_ns"]
+                - recent[0]["t_ns"]) if recent else 0
+        return {"records": len(recent), "wall_s": round(wall / 1e9, 6),
+                "phases": {p: {"s": round(v / 1e9, 6),
+                               "share": round(v / wall, 4) if wall else 0.0}
+                           for p, v in ns.items()}}
+
     def audit_payload(self, slowest: int = 8) -> dict:
         """The requests_audit.json shape: recorder stats, the phase
         percentiles, the engine rollup, and the slowest finished
@@ -689,8 +763,9 @@ def debug_requests_response(query: str = "") -> tuple[int, str, str]:
 
 def debug_engine_response(query: str = "") -> tuple[int, str, str]:
     """(status, body, content-type) for GET /debug/engine: the step
-    ledger's recent records plus windowed rollups (404 with an explicit
-    body while no recorder is active)."""
+    ledger's recent records plus windowed rollups, and the phase
+    ledger's rollup (404 with an explicit body while no recorder is
+    active)."""
     rec = _ACTIVE
     if rec is None:
         return 404, _INACTIVE_BODY, "text/plain"
@@ -704,5 +779,6 @@ def debug_engine_response(query: str = "") -> tuple[int, str, str]:
         "rollup": rec.engine_rollup(),
         "rollup_recent": rec.engine_rollup(window=32),
         "steps": rec.engine_steps(limit=limit),
+        "phase_rollup": rec.phase_rollup(),
     }
     return 200, json.dumps(payload, indent=2) + "\n", "application/json"

@@ -293,11 +293,13 @@ def test_debug_endpoints_have_the_references_keys(model, monkeypatch):
             assert _post(url, {"tokens": [5, 6, 7], "max_new_tokens": 3}
                          )[0] == 200
         got = {}
-        for path in ("/debug/requests", "/debug/engine?n=4"):
+        # the port's /debug/engine adds its phase ledger's rollup
+        for path, extra in (("/debug/requests", set()),
+                            ("/debug/engine?n=4", {"phase_rollup"})):
             (jc, jb), (tc, tb) = _get(jurl, path), _get(turl, path)
             assert jc == tc == 200, path
             got[path] = json.loads(jb), json.loads(tb)
-            assert set(got[path][1]) == set(got[path][0]), path
+            assert set(got[path][1]) == set(got[path][0]) | extra, path
         j, t = got["/debug/requests"]
         assert set(t["requests"][-1]) == set(j["requests"][-1])
         assert t["requests"][-1]["ttft_s"] is not None
@@ -305,6 +307,7 @@ def test_debug_endpoints_have_the_references_keys(model, monkeypatch):
         j, t = got["/debug/engine?n=4"]
         assert set(t["rollup"]) == set(j["rollup"])
         assert set(t["steps"][-1]) == set(j["steps"][-1])
+        assert t["phase_rollup"]["records"] > 0
     finally:
         for h, lm in ((jh, jlm), (th, tlm)):
             h.shutdown()
